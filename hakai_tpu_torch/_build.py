@@ -1,0 +1,146 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source compiles with nvcc, for Hopper (``sm_90a``), into
+one shared library with a plain C interface, loaded with :mod:`ctypes`.  No
+PyTorch header is compiled, so a build takes seconds rather than minutes.
+
+The library is built at first use into ``build/kernels/`` beside the
+package (a directory the repository's ``.gitignore`` lists), under a file
+name keyed by a hash of the sources, the flags and the compiler's version:
+an edited source or flag builds a new library, an unchanged one reuses the
+last build.  The sources in the checkout are the only input.
+
+Nothing here runs at import: tests on machines without nvcc import every
+module of the port.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: (name, argument types); each returns a cudaError_t
+_SIGNATURES = {
+    "hk_set_pusai": (_P,),
+    # elem, coord_e, disp, dprev, P, G, lam, mat, hasp, flag,
+    # hard_strain, hard_slope, hard_n, hard_cols, E, N, P_out, qe, stream
+    "hk_element_f32": (_P,) * 13 + (_I, _I, _I, _P, _P, _P),
+    "hk_element_f64": (_P,) * 13 + (_I, _I, _I, _P, _P, _P),
+    # qe, inc_idx, inc_mask, V, N, E, Q, stream
+    "hk_assemble_f32": (_P, _P, _P, _I, _I, _I, _P, _P),
+    "hk_assemble_f64": (_P, _P, _P, _I, _I, _I, _P, _P),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+BUILD_INFO: dict = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else ``/usr/local/cuda/bin/nvcc``."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the port's CUDA kernels cannot be built")
+
+
+def sources() -> list[Path]:
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def build_command(nvcc: str, out: Path) -> list[str]:
+    return [nvcc, *NVCC_FLAGS, "-o", str(out),
+            *[str(p) for p in sources() if p.suffix == ".cu"]]
+
+
+def _key(nvcc: str) -> str:
+    h = hashlib.sha256()
+    ver = subprocess.run([nvcc, "--version"], capture_output=True,
+                         text=True, check=True).stdout
+    h.update(ver.encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        nvcc = nvcc_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        key = _key(nvcc)
+        so = BUILD_DIR / f"libhakai_kernels_{key}.so"
+        log = so.with_suffix(".log")
+        t0 = time.perf_counter()
+        built = False
+        if not so.exists():
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            r = subprocess.run(build_command(nvcc, tmp), capture_output=True,
+                               text=True)
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
+                                   f"{r.stdout}\n{r.stderr}")
+            log.write_text(r.stdout + r.stderr)
+            os.replace(tmp, so)             # atomic: no half-written library
+            built = True
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.hk_error_string.argtypes = [ctypes.c_int]
+        lib.hk_error_string.restype = ctypes.c_char_p
+        BUILD_INFO.update(path=str(so), built=built,
+                          seconds=time.perf_counter() - t0,
+                          log=log.read_text() if log.exists() else "")
+        _lib = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if err != 0:
+        msg = lib.hk_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def check_inputs(device, spec: dict) -> None:
+    """Raise unless every tensor of ``spec`` (name -> (tensor, shape,
+    dtype)) lies on ``device``, has the dtype and shape and is contiguous:
+    the kernels take raw pointers and index them by these shapes."""
+    for name, (x, shape, dtype) in spec.items():
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, expected {device}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")

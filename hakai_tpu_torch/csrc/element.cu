@@ -1,0 +1,325 @@
+// Fused per-element hex8 update: nodal gather, B-bar kinematics, elastic
+// trial, J2 radial return, GP-mean strain and the internal-force fold.
+//
+// Replaces the TPU kernel hakai_tpu/ops/element_pallas.py:_make_mxu_kernel
+// (reached through element_core_packed_mxu and packed_element_step_fused
+// with a GatherPhysPlan).  Same contract: packed Gauss state P (72, E) in
+// and out (stress rows c*8+k, GP-mean strain 48:54, zero pad 54:56, eq_ps
+// 56:64, yield 64:72), qe (24, E) out with rows b*8+i, masked by the life
+// flag.  The math is hakai_tpu/ops/element.py:_element_math, direct form.
+//
+// What bounds it on an H100: device-memory bytes.  Per element a step
+// reads P (72 values), coord_e (24), 8 node ids, 6 values for each of the 8
+// nodes from disp/dprev, and the per-element constants, and writes P (72)
+// and qe (24) -- about 1 KB in f32 against ~3 kFLOP, far below the card's
+// FLOP:byte balance.
+//
+// Design:
+//  * one block = 32 elements x 8 Gauss points (blockDim (32, 8)); thread
+//    (x, k) owns Gauss point k of element x.  Each warp is one Gauss point
+//    of 32 consecutive elements, so every P/coord_e/qe row access is one
+//    coalesced 128-byte (f32) transaction and every read of the constant
+//    shape-gradient table is warp-uniform (a __constant__ broadcast).
+//  * the gather is indexed loads through elem (8, E): thread (x, j) loads
+//    node j's disp/dprev and builds pos = coord_e + (d - d_node0) and
+//    du = d - dprev in shared memory, so no (24, E) pos/du copy ever
+//    reaches device memory (the TPU kernel needed window DMAs and a
+//    diagonal resolve for the same thing).
+//  * the constant contractions (J, Gdu, the Qe fold) are register FMAs in
+//    full precision; the TPU kernel's MXU matmuls and their bf16x3 split
+//    do not carry over.
+//  * the three sums over Gauss points (V and the volbar numerator, the
+//    strain increments with sum_w_sig_m, and the Qe fold) go through
+//    shared memory in the fixed order k = 0..7, so the kernel is
+//    deterministic and uses no atomics.  For the Qe fold, thread (x, i)
+//    sums node i's three force rows over k, so the qe stores coalesce too.
+//  * templated on the scalar type (float and double).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTE = 32;  // elements per block
+constexpr int kNG = 8;   // Gauss points (and nodes) per element
+
+__constant__ float c_pus_f[8 * 3 * 8];   // pus[k][a][i] = dN_i/dxi_a at k
+__constant__ double c_pus_d[8 * 3 * 8];
+
+template <typename T> __device__ __forceinline__ T pus(int k, int a, int i);
+template <> __device__ __forceinline__ float pus<float>(int k, int a, int i) {
+  return c_pus_f[(k * 3 + a) * 8 + i];
+}
+template <> __device__ __forceinline__ double pus<double>(int k, int a,
+                                                          int i) {
+  return c_pus_d[(k * 3 + a) * 8 + i];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTE * kNG)
+element_kernel(const int32_t* __restrict__ elem,      // (8, E)
+               const T* __restrict__ coord_e,         // (24, E)
+               const T* __restrict__ disp,            // (3, N)
+               const T* __restrict__ dprev,           // (3, N)
+               const T* __restrict__ P,               // (72, E)
+               const T* __restrict__ G_e,             // (E,)
+               const T* __restrict__ lam_e,           // (E,)
+               const int32_t* __restrict__ mat,       // (E,)
+               const uint8_t* __restrict__ hasp,      // (E,)
+               const uint8_t* __restrict__ flag,      // (E,)
+               const T* __restrict__ hard_strain,     // (M, W)
+               const T* __restrict__ hard_slope,      // (M, W - 1)
+               const int32_t* __restrict__ hard_n,    // (M,)
+               int W, int E, int N,
+               T* __restrict__ P_out,                 // (72, E)
+               T* __restrict__ qe) {                  // (24, E)
+  __shared__ T s_kin[48][kTE];        // pos rows b*8+i, du rows 24+b*8+i
+  __shared__ T s_red[7][kNG][kTE];    // Gauss-point partials
+  __shared__ T s_m[9][kNG][kTE];      // force moments M[c][b] per k
+
+  const int x = threadIdx.x;
+  const int k = threadIdx.y;
+  const int64_t e = (int64_t)blockIdx.x * kTE + x;
+  const bool live = e < E;
+  const int64_t ec = live ? e : (int64_t)E - 1;   // clamped for loads
+  const int64_t sE = E;
+
+  // ---- gather: thread (x, j = k) loads node slot j of element x ----
+  {
+    const int j = k;
+    const int64_t n = elem[j * sE + ec];
+    T d[3];
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      d[b] = disp[b * (int64_t)N + n];
+      s_kin[b * 8 + j][x] = d[b];
+      s_kin[24 + b * 8 + j][x] = d[b] - dprev[b * (int64_t)N + n];
+    }
+    __syncthreads();
+    T p[3];
+#pragma unroll
+    for (int b = 0; b < 3; ++b)   // node-0-centred position
+      p[b] = coord_e[(b * 8 + j) * sE + ec] + (d[b] - s_kin[b * 8][x]);
+    __syncthreads();
+#pragma unroll
+    for (int b = 0; b < 3; ++b) s_kin[b * 8 + j][x] = p[b];
+    __syncthreads();
+  }
+
+  // ---- Jacobian and reference-space displacement gradient at k ----
+  T J[3][3], Gd[3][3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      T aj = pus<T>(k, a, 0) * s_kin[b * 8][x];
+      T ag = pus<T>(k, a, 0) * s_kin[24 + b * 8][x];
+#pragma unroll
+      for (int i = 1; i < 8; ++i) {
+        aj += pus<T>(k, a, i) * s_kin[b * 8 + i][x];
+        ag += pus<T>(k, a, i) * s_kin[24 + b * 8 + i][x];
+      }
+      J[a][b] = aj;
+      Gd[a][b] = ag;
+    }
+  }
+  const T detJ = J[0][0] * J[1][1] * J[2][2] + J[0][1] * J[1][2] * J[2][0]
+               + J[0][2] * J[1][0] * J[2][1] - J[0][0] * J[1][2] * J[2][1]
+               - J[0][1] * J[1][0] * J[2][2] - J[0][2] * J[1][1] * J[2][0];
+  const T adet = detJ < T(0) ? -detJ : detJ;
+  const T inv_det = T(1) / (detJ == T(0) ? T(1) : detJ);
+  T iJ[3][3];   // iJ[b][a] = cofactor(a, b) / detJ
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const int a1 = (a + 1) % 3, a2 = (a + 2) % 3;
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      const int b1 = (b + 1) % 3, b2 = (b + 2) % 3;
+      iJ[b][a] = (J[a1][b1] * J[a2][b2] - J[a1][b2] * J[a2][b1]) * inv_det;
+    }
+  }
+  T g[3][3];    // g[a][b] = d du_b / d x_a
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b)
+      g[a][b] = iJ[a][0] * Gd[0][b] + iJ[a][1] * Gd[1][b]
+              + iJ[a][2] * Gd[2][b];
+  const T tr = g[0][0] + g[1][1] + g[2][2];
+
+  // ---- sum 1 over Gauss points: V and the volbar numerator ----
+  s_red[0][k][x] = adet;
+  s_red[1][k][x] = adet * tr;
+  __syncthreads();
+  T V = s_red[0][0][x], S = s_red[1][0][x];
+#pragma unroll
+  for (int kk = 1; kk < kNG; ++kk) {
+    V += s_red[0][kk][x];
+    S += s_red[1][kk][x];
+  }
+  const T inv_V = T(1) / (V == T(0) ? T(1) : V);
+  const T volbar = S * inv_V / T(3);
+  T de[6];
+  de[0] = g[0][0] - tr / T(3) + volbar;
+  de[1] = g[1][1] - tr / T(3) + volbar;
+  de[2] = g[2][2] - tr / T(3) + volbar;
+  de[3] = g[0][1] + g[1][0];
+  de[4] = g[1][2] + g[2][1];
+  de[5] = g[0][2] + g[2][0];
+  const T tr_de = T(3) * volbar;
+
+  // ---- elastic trial and J2 radial return ----
+  const T Ge = G_e[ec], le = lam_e[ec];
+  T trial[6];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    trial[c] = P[(c * 8 + k) * sE + ec] + (le * tr_de + T(2) * Ge * de[c]);
+#pragma unroll
+  for (int c = 3; c < 6; ++c)
+    trial[c] = P[(c * 8 + k) * sE + ec] + Ge * de[c];
+  const T mean_s = (trial[0] + trial[1] + trial[2]) / T(3);
+  T dev[6] = {trial[0] - mean_s, trial[1] - mean_s, trial[2] - mean_s,
+              trial[3], trial[4], trial[5]};
+  const T vm = sqrt(T(1.5) * (dev[0] * dev[0] + dev[1] * dev[1]
+                              + dev[2] * dev[2]
+                              + T(2) * (dev[3] * dev[3] + dev[4] * dev[4]
+                                        + dev[5] * dev[5])));
+  const T eq = P[(56 + k) * sE + ec];
+  const T ys = P[(64 + k) * sE + ec];
+  // hardening slope: count table strains (rows >= 1) strictly below eq_ps,
+  // capped at npp - 2; zero for materials with fewer than two rows
+  const int m = mat[ec];
+  const int npp = hard_n[m];
+  T H = T(0);
+  if (npp >= 2) {
+    int cnt = 0;
+    for (int j = 1; j < npp; ++j) cnt += eq > hard_strain[m * W + j];
+    H = hard_slope[m * (W - 1) + min(cnt, npp - 2)];
+  }
+  const bool plastic = hasp[ec] && (vm > ys) && flag[ec];
+  const T safe_vm = vm == T(0) ? T(1) : vm;
+  const T d_ep = plastic ? (vm - ys) / (T(3) * Ge + H) : T(0);
+  const T scale = plastic ? (ys + H * d_ep) / safe_vm : T(1);
+  T fin[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c)
+    fin[c] = plastic ? dev[c] * scale + (c < 3 ? mean_s : T(0)) : trial[c];
+  if (live) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) P_out[(c * 8 + k) * sE + e] = fin[c];
+    P_out[(56 + k) * sE + e] = plastic ? eq + d_ep : eq;
+    P_out[(64 + k) * sE + e] = plastic ? ys + H * d_ep : ys;
+  }
+
+  // ---- sum 2 over Gauss points: strain increments and sum_w_sig_m ----
+  const T sig_m = (fin[0] + fin[1] + fin[2]) / T(3);
+  __syncthreads();                      // sum 1's reads are done
+#pragma unroll
+  for (int c = 0; c < 6; ++c) s_red[c][k][x] = de[c];
+  s_red[6][k][x] = detJ * sig_m;
+  __syncthreads();
+  T swsm = s_red[6][0][x];
+#pragma unroll
+  for (int kk = 1; kk < kNG; ++kk) swsm += s_red[6][kk][x];
+  if (live) {
+    // thread k < 6 writes GP-mean strain row 48 + k; rows 54:56 are zero
+    T out = T(0);
+    if (k < 6) {
+      T sde = s_red[k][0][x];
+      for (int kk = 1; kk < kNG; ++kk) sde += s_red[k][kk][x];
+      out = P[(48 + k) * sE + ec] + T(0.125) * sde;
+    }
+    P_out[(48 + k) * sE + e] = out;
+  }
+
+  // ---- internal-force moments M[c][b] at k ----
+  const T st[3][3] = {{fin[0], fin[3], fin[5]},
+                      {fin[3], fin[1], fin[4]},
+                      {fin[5], fin[4], fin[2]}};
+  const T wdet = adet * inv_V;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      T acc = iJ[0][c] * st[0][b] + iJ[1][c] * st[1][b] + iJ[2][c] * st[2][b];
+      acc = acc - iJ[b][c] * sig_m;
+      s_m[c * 3 + b][k][x] = detJ * acc + wdet * (iJ[b][c] * swsm);
+    }
+  }
+  __syncthreads();
+
+  // ---- Qe fold: thread (x, i = k) sums node i's rows over Gauss points --
+  if (live) {
+    const int i = k;
+    const bool alive = flag[e] != 0;
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      T q = T(0);
+#pragma unroll
+      for (int kk = 0; kk < kNG; ++kk)
+        q += pus<T>(kk, 0, i) * s_m[b][kk][x]
+           + pus<T>(kk, 1, i) * s_m[3 + b][kk][x]
+           + pus<T>(kk, 2, i) * s_m[6 + b][kk][x];
+      qe[(b * 8 + i) * sE + e] = alive ? q : T(0);
+    }
+  }
+}
+
+template <typename T>
+int launch(const int32_t* elem, const T* coord_e, const T* disp,
+           const T* dprev, const T* P, const T* G_e, const T* lam_e,
+           const int32_t* mat, const uint8_t* hasp, const uint8_t* flag,
+           const T* hard_strain, const T* hard_slope, const int32_t* hard_n,
+           int W, int E, int N, T* P_out, T* qe, void* stream) {
+  if (E <= 0) return 0;
+  const dim3 block(kTE, kNG);
+  const dim3 grid((E + kTE - 1) / kTE);
+  element_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
+      elem, coord_e, disp, dprev, P, G_e, lam_e, mat, hasp, flag,
+      hard_strain, hard_slope, hard_n, W, E, N, P_out, qe);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Load the (8, 3, 8) shape-gradient table (host pointer, float64) into the
+// current device's constant memory, in both precisions.
+int hk_set_pusai(const double* pus_host) {
+  float f[8 * 3 * 8];
+  for (int i = 0; i < 8 * 3 * 8; ++i) f[i] = (float)pus_host[i];
+  cudaError_t err = cudaMemcpyToSymbol(c_pus_d, pus_host, sizeof(c_pus_d));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyToSymbol(c_pus_f, f, sizeof(c_pus_f));
+}
+
+int hk_element_f32(const int32_t* elem, const float* coord_e,
+                   const float* disp, const float* dprev, const float* P,
+                   const float* G_e, const float* lam_e, const int32_t* mat,
+                   const uint8_t* hasp, const uint8_t* flag,
+                   const float* hard_strain, const float* hard_slope,
+                   const int32_t* hard_n, int W, int E, int N, float* P_out,
+                   float* qe, void* stream) {
+  return launch<float>(elem, coord_e, disp, dprev, P, G_e, lam_e, mat, hasp,
+                       flag, hard_strain, hard_slope, hard_n, W, E, N, P_out,
+                       qe, stream);
+}
+
+int hk_element_f64(const int32_t* elem, const double* coord_e,
+                   const double* disp, const double* dprev, const double* P,
+                   const double* G_e, const double* lam_e, const int32_t* mat,
+                   const uint8_t* hasp, const uint8_t* flag,
+                   const double* hard_strain, const double* hard_slope,
+                   const int32_t* hard_n, int W, int E, int N, double* P_out,
+                   double* qe, void* stream) {
+  return launch<double>(elem, coord_e, disp, dprev, P, G_e, lam_e, mat, hasp,
+                        flag, hard_strain, hard_slope, hard_n, W, E, N,
+                        P_out, qe, stream);
+}
+
+const char* hk_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"
