@@ -1,8 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` source compiles with nvcc, for Hopper (``sm_90a``), into
-one shared library with a plain C interface, loaded with :mod:`ctypes`.  No
-PyTorch header is compiled, so a build takes seconds rather than minutes.
+an object of its own (one nvcc process per source, all started together),
+and the objects link into one shared library with a plain C interface,
+loaded with :mod:`ctypes`.  No PyTorch header is compiled, so a build takes
+seconds rather than minutes.
 
 The library is built at first use into ``build/kernels/`` beside the
 package (a directory the repository's ``.gitignore`` lists), under a file
@@ -27,7 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,12 +37,15 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "hk_set_pusai": (_P,),
     # elem, coord_e, disp, dprev, P, G, lam, mat, hasp, flag,
-    # hard_strain, hard_slope, hard_n, hard_cols, E, N, P_out, qe, stream
-    "hk_element_f32": (_P,) * 13 + (_I, _I, _I, _P, _P, _P),
-    "hk_element_f64": (_P,) * 13 + (_I, _I, _I, _P, _P, _P),
+    # hard_strain, hard_slope, hard_n, hard_cols, E, N, P_out, qe, triax
+    # (None: no triaxiality output), stream
+    "hk_element_f32": (_P,) * 13 + (_I, _I, _I, _P, _P, _P, _P),
+    "hk_element_f64": (_P,) * 13 + (_I, _I, _I, _P, _P, _P, _P),
+    "hk_element_mixed": (_P,) * 13 + (_I, _I, _I, _P, _P, _P, _P),
     # qe, inc_idx, inc_mask, V, N, E, Q, stream
     "hk_assemble_f32": (_P, _P, _P, _I, _I, _I, _P, _P),
     "hk_assemble_f64": (_P, _P, _P, _I, _I, _I, _P, _P),
+    "hk_assemble_f32_f64": (_P, _P, _P, _I, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -69,9 +74,38 @@ def sources() -> list[Path]:
     return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
 
 
-def build_command(nvcc: str, out: Path) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out),
-            *[str(p) for p in sources() if p.suffix == ".cu"]]
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; their joined output, or raise on the first
+    that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(c)}\n{o}")
+    return "".join(outs)
+
+
+def build_commands(nvcc: str, out: Path):
+    """(one compile command per source, the link command of ``out``, the
+    objects between them)."""
+    srcs = [p for p in sources() if p.suffix == ".cu"]
+    objs = [out.with_name(f"{out.name}.{p.stem}.o") for p in srcs]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
+                for s, o in zip(srcs, objs)]
+    return compiles, [nvcc, "-shared", *map(str, objs), "-o", str(out)], objs
+
+
+def _compile(nvcc: str, out: Path) -> str:
+    """Compile every source to an object in parallel, then link ``out``;
+    returns the compiler's output (ptxas register and spill lines)."""
+    compiles, link, objs = build_commands(nvcc, out)
+    log = _run_all(compiles) + _run_all([link])
+    for o in objs:
+        o.unlink()
+    return log
 
 
 def _key(nvcc: str) -> str:
@@ -101,12 +135,7 @@ def library() -> ctypes.CDLL:
         built = False
         if not so.exists():
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            r = subprocess.run(build_command(nvcc, tmp), capture_output=True,
-                               text=True)
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
-                                   f"{r.stdout}\n{r.stderr}")
-            log.write_text(r.stdout + r.stderr)
+            log.write_text(_compile(nvcc, tmp))
             os.replace(tmp, so)             # atomic: no half-written library
             built = True
         lib = ctypes.CDLL(str(so))

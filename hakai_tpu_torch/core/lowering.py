@@ -1,13 +1,19 @@
-"""Lowering: parsed :class:`~hakai_tpu.io.model.Model` -> padded
+"""Lowering: parsed :class:`~hakai_tpu_torch.io.model.Model` -> padded
 static-shape tensors on one device.
 
 A NumPy-only twin of ``hakai_tpu/core/lowering.py:lower`` for the subset
-the port runs: no contact, no fracture, one dtype for nodes and elements.
-It reproduces that lowering's padding rules, renumbering rule, lumped
-mass, time stepping, incidence table, material constants, BC dedup and
-amplitude tables, and the node-0-centred element coordinates, so the
-internal numbering and every array equal the JAX lowering's.  It builds
-none of the TPU's window plans.
+the port runs: no contact.  It reproduces that lowering's padding rules,
+renumbering rule, lumped mass, time stepping, incidence table, material
+constants, ductile (fracture) tables, BC dedup and amplitude tables, its
+precision split and the node-0-centred element coordinates, so the internal
+numbering and every array equal the JAX lowering's.  It builds none of the
+TPU's window plans.
+
+Precision: ``dtype="float32"``/``"float64"`` put everything in that type;
+``"mixed"`` keeps the nodal kinematics (coordinates, mass, BC values,
+amplitudes, initial velocity, the time step) in float64 and the element
+math's inputs (material constants, volumes, hardening tables, shape
+gradients, element coordinates) in float32, as the JAX lowering does.
 
 :func:`model_from_numpy` is the one road from NumPy arrays to the port's
 :class:`LoweredModel`: :func:`lower` uses it, and so do the tests to carry
@@ -21,17 +27,24 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from hakai_tpu.config import SolverConfig
-from hakai_tpu.core.renumber import renumber_model
-from hakai_tpu.io.model import Model
-from hakai_tpu.ops.shape import pusai_hexa
+from ..config import SolverConfig
+from ..io.model import Model
+from ..ops.shape import pusai_hexa
+from .renumber import renumber_model
 
 # Mesh size at which the JAX lowering turns its window plans on; the port
 # keeps the plan-time padding and renumbering rule so its shapes and node
 # numbering equal the reference's.
 _PLAN_TILE = 2048
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+# config dtype -> (nodal dtype, element dtype)
+_DTYPES = {"float32": (torch.float32, torch.float32),
+           "float64": (torch.float64, torch.float64),
+           "mixed": (torch.float64, torch.float32)}
+# float fields in the nodal dtype; every other float field takes the
+# element dtype
+_NODAL_FIELDS = ("coord", "diag_M", "bcd_value", "amp_time", "amp_value",
+                 "velo0", "dt_t")
 _INDEX_FIELDS = ("elem", "inc_idx", "mat_id", "bcd_amp", "amp_n")
 _BOOL_FIELDS = ("elem_exists", "node_exists", "inc_mask", "has_plastic_e",
                 "bcd_mask")
@@ -54,7 +67,9 @@ class LoweredModel:
     element_max_size: float
     cfl_dt: float
     config: SolverConfig
+    fracture_enabled: bool          # a ductile table or failure stress
     pl_tables: tuple                # ((stress, strain), ...) per material
+    du_tables: tuple                # ((fracture strain, triax), ...)
 
     # ---- mesh ----
     coord: torch.Tensor             # (3, N)
@@ -87,7 +102,7 @@ class LoweredModel:
     amp_n: torch.Tensor             # (A,) int32 true knots
     velo0: torch.Tensor             # (3, N)
     vol_e: torch.Tensor             # (E,) initial element volume
-    dt_t: torch.Tensor              # () dt in the model dtype
+    dt_t: torch.Tensor              # () dt in the nodal dtype
 
     # RCM renumbering: new internal id -> deck id (None = deck order)
     node_new2old: torch.Tensor | None = None   # (n_node,) int64
@@ -95,7 +110,13 @@ class LoweredModel:
 
     @property
     def dtype(self) -> torch.dtype:
+        """Nodal (kinematic) dtype: float64 in mixed mode."""
         return self.coord.dtype
+
+    @property
+    def edtype(self) -> torch.dtype:
+        """Element-math dtype: float32 in mixed mode."""
+        return self.G_e.dtype
 
     @property
     def device(self) -> torch.device:
@@ -134,23 +155,22 @@ def _hardening_tables(pl_tables):
 def model_from_numpy(fields: dict, static: dict, device) -> LoweredModel:
     """Build a :class:`LoweredModel` on ``device`` from NumPy arrays.
 
-    ``fields`` maps field names to arrays; float arrays take the dtype
-    named by ``static["config"].dtype``.  ``coord_e`` may be absent (the
-    JAX lowering builds it only with window plans): it is then formed from
-    ``coord`` and ``elem`` in float64.  ``static`` holds the metadata fields
-    (n_node, ..., config, pl_tables).  Extra keys of either are ignored, so
-    a JAX ``LoweredModel``'s fields can be passed as they are."""
+    ``fields`` maps field names to arrays; float arrays take the nodal or
+    the element dtype of ``static["config"].dtype`` (see ``_NODAL_FIELDS``).
+    ``coord_e`` may be absent (the JAX lowering builds it only with window
+    plans): it is then formed from ``coord`` and ``elem`` in float64 and
+    cast.  ``static`` holds the metadata fields (n_node, ..., config,
+    fracture_enabled, pl_tables, du_tables).  Extra keys of either are
+    ignored, so a JAX ``LoweredModel``'s fields can be passed as they are,
+    mixed and fracture models included."""
     cfg = static["config"]
     if cfg.dtype not in _DTYPES:
+        raise ValueError(f"unknown dtype {cfg.dtype!r}: expected one of "
+                         f"{sorted(_DTYPES)}")
+    if static.get("contact_flag"):
         raise NotImplementedError(
-            f"dtype={cfg.dtype!r}: the port runs one dtype for nodes and "
-            "elements ('float32' or 'float64'); mixed precision is "
-            "ROADMAP Queue 1 item 8")
-    if static.get("contact_flag") or static.get("fracture_enabled"):
-        raise NotImplementedError(
-            "contact and fracture are not ported yet (ROADMAP Queue 1 "
-            "items 6 and 9)")
-    fdt = _DTYPES[cfg.dtype]
+            "contact is not ported yet (ROADMAP Queue 1 item 9)")
+    kdt, edt = _DTYPES[cfg.dtype]
     device = torch.device(device)
 
     def tensor(name, a):
@@ -159,7 +179,8 @@ def model_from_numpy(fields: dict, static: dict, device) -> LoweredModel:
             return torch.as_tensor(a.astype(np.int32), device=device)
         if name in _BOOL_FIELDS:
             return torch.as_tensor(a.astype(bool), device=device)
-        return torch.as_tensor(a.astype(np.float64), device=device).to(fdt)
+        dt = kdt if name in _NODAL_FIELDS else edt
+        return torch.as_tensor(a.astype(np.float64), device=device).to(dt)
 
     names = {f.name for f in dataclasses.fields(LoweredModel)}
     kw = {k: static[k] for k in names if k in static}
@@ -182,8 +203,7 @@ def model_from_numpy(fields: dict, static: dict, device) -> LoweredModel:
     kw["hard_strain"] = tensor("hard_strain", strain)
     kw["hard_slope"] = tensor("hard_slope", slope)
     kw["hard_n"] = torch.as_tensor(rows, device=device)
-    kw["dt_t"] = torch.tensor(static["dt"], dtype=torch.float64,
-                              device=device).to(fdt)
+    kw["dt_t"] = tensor("dt_t", np.float64(static["dt"]))
     return LoweredModel(**kw)
 
 
@@ -201,21 +221,10 @@ def _renumbers(model: Model, cfg: SolverConfig) -> bool:
             and model.n_node >= _PLAN_TILE and cfg.gather_mode != "xla")
 
 
-def _check_supported(model: Model) -> None:
-    if model.contact_flag != 0:
-        raise NotImplementedError(
-            "contact is not ported yet (ROADMAP Queue 1 item 9)")
-    mats = model.materials
-    if (any(m.ductile.shape[0] > 0 for m in mats)
-            or any(m.has_failure_stress for m in mats)):
-        raise NotImplementedError(
-            "fracture/erosion is not ported yet (ROADMAP Queue 1 item 6)")
-
-
 def lower_numpy(model: Model, cfg: SolverConfig) -> tuple[dict, dict]:
     """(fields, static) of the lowered model as NumPy arrays, in float64;
     follows ``hakai_tpu/core/lowering.py:_lower_impl`` line by line for the
-    non-contact, fracture-free subset."""
+    non-contact subset."""
     nN, nE = model.n_node, model.n_element
     node_pad, elem_pad = cfg.node_pad, cfg.elem_pad
     if cfg.gather_mode != "xla" and nE >= _PLAN_TILE and nN >= _PLAN_TILE:
@@ -354,20 +363,29 @@ def lower_numpy(model: Model, cfg: SolverConfig) -> tuple[dict, dict]:
         element_min_size=float(sizes.min()) if nE else 0.0,
         element_max_size=float(sizes.max()) if nE else 0.0,
         cfl_dt=cfl, config=cfg,
+        # the JAX lowering's flag_fracture rule: a ductile table or a
+        # failure stress (only the ductile table acts at run time)
+        fracture_enabled=bool(any(m.ductile.shape[0] > 0 for m in mats)
+                              or any(m.has_failure_stress for m in mats)),
         pl_tables=tuple(tuple((float(r[0]), float(r[1])) for r in m.plastic)
+                        for m in mats),
+        du_tables=tuple(tuple((float(r[0]), float(r[1])) for r in m.ductile)
                         for m in mats))
     return fields, static
 
 
 def lower(model: Model, config: SolverConfig | None = None,
-          device="cpu") -> LoweredModel:
-    """Lower a parsed model onto ``device`` (default: the CPU).
+          device="cuda") -> LoweredModel:
+    """Lower a parsed model onto ``device`` (default: the current GPU; pass
+    ``device="cpu"`` to run the plain versions on the CPU).
 
     Renumbers under the JAX lowering's rule, so the internal node and
     element ids equal those of ``hakai_tpu.core.lowering.lower``.  Raises
-    NotImplementedError for contact, fracture and mixed precision."""
+    NotImplementedError for contact."""
     cfg = config or SolverConfig()
-    _check_supported(model)
+    if model.contact_flag != 0:
+        raise NotImplementedError(
+            "contact is not ported yet (ROADMAP Queue 1 item 9)")
     n2o = e2o = None
     if _renumbers(model, cfg):
         model, n2o, e2o = renumber_model(model)

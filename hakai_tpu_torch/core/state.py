@@ -3,6 +3,9 @@ of tensors (mirrors ``hakai_tpu/core/state.py``).
 
 ``Q`` is state because the central-difference update at step ``t`` uses
 the internal force assembled at the end of step ``t-1``.
+
+Nodal fields and the work pair take the model's nodal dtype, Gauss-point
+fields its element dtype (float64 and float32 in mixed mode).
 """
 from __future__ import annotations
 
@@ -42,40 +45,50 @@ class SimState:
 def init_state(model: LoweredModel) -> SimState:
     """Initial state on the model's device.  The initial velocity enters
     through the back-difference start ``disp_pre = -velo0 * dt``."""
-    dt, dev = model.dtype, model.device
+    kdt, edt, dev = model.dtype, model.edtype, model.device
     N, E = model.N, model.E
 
-    def zeros(*shape):
+    def zeros(dt, *shape):
         return torch.zeros(shape, dtype=dt, device=dev)
 
     return SimState(
         t=torch.zeros((), dtype=torch.int32, device=dev),
-        disp=zeros(3, N),
+        disp=zeros(kdt, 3, N),
         disp_pre=-model.velo0 * model.dt_t,
         velo=model.velo0.clone(),
-        Q=zeros(3, N),
-        stress=zeros(6, 8, E),
-        strain=zeros(6, E),
-        eq_ps=zeros(8, E),
+        Q=zeros(kdt, 3, N),
+        stress=zeros(edt, 6, 8, E),
+        strain=zeros(edt, 6, E),
+        eq_ps=zeros(edt, 8, E),
         yield_s=model.yield0_e.expand(8, E).clone(),
-        triax=zeros(8, E),
+        triax=zeros(edt, 8, E),
         element_flag=model.elem_exists.clone(),
-        contact_force=zeros(3, N),
-        work=zeros(2),
+        contact_force=zeros(kdt, 3, N),
+        work=zeros(kdt, 2),
     )
 
 
-def state_from_numpy(fields: dict, dtype: torch.dtype, device) -> SimState:
+# Gauss-point fields, in the element dtype; the other floats are nodal
+ELEMENT_FIELDS = ("stress", "strain", "eq_ps", "yield_s", "triax")
+
+
+def state_from_numpy(fields: dict, dtype: torch.dtype, device,
+                     edtype: torch.dtype | None = None) -> SimState:
     """Build a :class:`SimState` on ``device`` from NumPy arrays keyed by
-    field name (e.g. a JAX ``SimState``'s fields taken with ``np.asarray``);
-    floats take ``dtype``, ``t`` is int32 and ``element_flag`` bool."""
+    field name (e.g. a JAX ``SimState``'s fields taken with ``np.asarray``,
+    or a checkpoint).  Nodal floats take ``dtype``, Gauss-point floats
+    ``edtype`` (default ``dtype``); ``t`` is int32 and ``element_flag``
+    bool."""
+    edtype = dtype if edtype is None else edtype
+
     def tensor(name):
         a = np.asarray(fields[name])
         if name == "t":
             return torch.as_tensor(a.astype(np.int32), device=device)
         if name == "element_flag":
             return torch.as_tensor(a.astype(bool), device=device)
-        return torch.as_tensor(a.astype(np.float64), device=device).to(dtype)
+        dt = edtype if name in ELEMENT_FIELDS else dtype
+        return torch.as_tensor(a.astype(np.float64), device=device).to(dt)
 
     return SimState(**{f.name: tensor(f.name)
                        for f in dataclasses.fields(SimState)})

@@ -19,19 +19,25 @@
 // incidence row (the larger stream) is read once and not three times; the
 // index and mask loads for consecutive nodes coalesce, and the Q stores
 // are three coalesced rows.
+//
+// The sum runs in the type T of qe and is stored in the type O of Q.  In
+// mixed precision (float32 qe, float64 nodal state) O is double: the f32
+// sum rounded once to f64, the bits of the JAX package's
+// assemble_internal_force(...).astype(model.dtype), with no second launch
+// or f32 copy of Q.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-template <typename T>
+template <typename T, typename O>
 __global__ void __launch_bounds__(256)
 assemble_kernel(const T* __restrict__ qe,             // (24, E)
                 const int32_t* __restrict__ inc_idx,  // (V, N)
                 const uint8_t* __restrict__ inc_mask, // (V, N)
                 int V, int N, int E,
-                T* __restrict__ Q) {                  // (3, N)
+                O* __restrict__ Q) {                  // (3, N)
   const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const int64_t E8 = 8 * (int64_t)E;
@@ -45,16 +51,16 @@ assemble_kernel(const T* __restrict__ qe,             // (24, E)
     }
   }
 #pragma unroll
-  for (int c = 0; c < 3; ++c) Q[c * (int64_t)N + n] = acc[c];
+  for (int c = 0; c < 3; ++c) Q[c * (int64_t)N + n] = O(acc[c]);
 }
 
-template <typename T>
+template <typename T, typename O>
 int launch(const T* qe, const int32_t* inc_idx, const uint8_t* inc_mask,
-           int V, int N, int E, T* Q, void* stream) {
+           int V, int N, int E, O* Q, void* stream) {
   if (N <= 0) return 0;
   const int block = 256;
   const int grid = (N + block - 1) / block;
-  assemble_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
+  assemble_kernel<T, O><<<grid, block, 0, (cudaStream_t)stream>>>(
       qe, inc_idx, inc_mask, V, N, E, Q);
   return (int)cudaGetLastError();
 }
@@ -66,13 +72,20 @@ extern "C" {
 int hk_assemble_f32(const float* qe, const int32_t* inc_idx,
                     const uint8_t* inc_mask, int V, int N, int E, float* Q,
                     void* stream) {
-  return launch<float>(qe, inc_idx, inc_mask, V, N, E, Q, stream);
+  return launch<float, float>(qe, inc_idx, inc_mask, V, N, E, Q, stream);
 }
 
 int hk_assemble_f64(const double* qe, const int32_t* inc_idx,
                     const uint8_t* inc_mask, int V, int N, int E, double* Q,
                     void* stream) {
-  return launch<double>(qe, inc_idx, inc_mask, V, N, E, Q, stream);
+  return launch<double, double>(qe, inc_idx, inc_mask, V, N, E, Q, stream);
+}
+
+// float32 sum, stored as float64 (mixed precision)
+int hk_assemble_f32_f64(const float* qe, const int32_t* inc_idx,
+                        const uint8_t* inc_mask, int V, int N, int E,
+                        double* Q, void* stream) {
+  return launch<float, double>(qe, inc_idx, inc_mask, V, N, E, Q, stream);
 }
 
 }  // extern "C"

@@ -1,18 +1,35 @@
 // Fused per-element hex8 update: nodal gather, B-bar kinematics, elastic
-// trial, J2 radial return, GP-mean strain and the internal-force fold.
+// trial, J2 radial return, GP-mean strain, the internal-force fold and,
+// optionally, the triaxiality of the final stress.
 //
-// Replaces the TPU kernel hakai_tpu/ops/element_pallas.py:_make_mxu_kernel
-// (reached through element_core_packed_mxu and packed_element_step_fused
-// with a GatherPhysPlan).  Same contract: packed Gauss state P (72, E) in
-// and out (stress rows c*8+k, GP-mean strain 48:54, zero pad 54:56, eq_ps
-// 56:64, yield 64:72), qe (24, E) out with rows b*8+i, masked by the life
-// flag.  The math is hakai_tpu/ops/element.py:_element_math, direct form.
+// Replaces the TPU kernels of hakai_tpu/ops/element_pallas.py:
+//  * _make_mxu_kernel through element_core_packed_mxu, both its fused-
+//    gather call (packed_element_step_fused with a GatherPhysPlan; f32) and
+//    its plain call on pos24/du24 rows (the mixed-precision path of
+//    packed_element_step);
+//  * _make_packed_kernel through element_core_packed (element_kernel=
+//    "pallas"), which computes the same function on the VPU alone.
+// Same contract: packed Gauss state P (72, E) in and out (stress rows
+// c*8+k, GP-mean strain 48:54, zero pad 54:56, eq_ps 56:64, yield 64:72),
+// qe (24, E) out with rows b*8+i, masked by the life flag, and with a triax
+// pointer the (8, E) triaxiality of the final stress (want_triax; the
+// formula and the vm < 1e-10 / vm == 0 guards of element_pallas.py:448-455).
+// The math is hakai_tpu/ops/element.py:_element_math, direct form.
+//
+// Two scalar types: K for the nodal disp/dprev, T for the element math and
+// every element array.  Instantiated <float, float>, <double, double> and
+// <double, float> (mixed precision).  In mixed mode both kinematic
+// differences, d - d_node0 and d - dprev, are taken in K and cast to T
+// once, which gives the bits the JAX package's gather_disp_e +
+// element_kinematics hand its TPU kernel; the (3, 8, E) float64 element
+// copy of disp that the JAX package carries through its chunk loop is never
+// formed.
 //
 // What bounds it on an H100: device-memory bytes.  Per element a step
 // reads P (72 values), coord_e (24), 8 node ids, 6 values for each of the 8
 // nodes from disp/dprev, and the per-element constants, and writes P (72)
-// and qe (24) -- about 1 KB in f32 against ~3 kFLOP, far below the card's
-// FLOP:byte balance.
+// and qe (24) (and triax (8)) -- about 1 KB in f32 against ~6 kFLOP, far
+// below the card's FLOP:byte balance.
 //
 // Design:
 //  * one block = 32 elements x 8 Gauss points (blockDim (32, 8)); thread
@@ -33,7 +50,8 @@
 //    shared memory in the fixed order k = 0..7, so the kernel is
 //    deterministic and uses no atomics.  For the Qe fold, thread (x, i)
 //    sums node i's three force rows over k, so the qe stores coalesce too.
-//  * templated on the scalar type (float and double).
+//  * the triaxiality is formed by each Gauss-point thread from the final
+//    stress still in its registers: no second pass over P.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,12 +73,12 @@ template <> __device__ __forceinline__ double pus<double>(int k, int a,
   return c_pus_d[(k * 3 + a) * 8 + i];
 }
 
-template <typename T>
+template <typename K, typename T, bool TRIAX>
 __global__ void __launch_bounds__(kTE * kNG)
 element_kernel(const int32_t* __restrict__ elem,      // (8, E)
                const T* __restrict__ coord_e,         // (24, E)
-               const T* __restrict__ disp,            // (3, N)
-               const T* __restrict__ dprev,           // (3, N)
+               const K* __restrict__ disp,            // (3, N)
+               const K* __restrict__ dprev,           // (3, N)
                const T* __restrict__ P,               // (72, E)
                const T* __restrict__ G_e,             // (E,)
                const T* __restrict__ lam_e,           // (E,)
@@ -72,8 +90,10 @@ element_kernel(const int32_t* __restrict__ elem,      // (8, E)
                const int32_t* __restrict__ hard_n,    // (M,)
                int W, int E, int N,
                T* __restrict__ P_out,                 // (72, E)
-               T* __restrict__ qe) {                  // (24, E)
+               T* __restrict__ qe,                    // (24, E)
+               T* __restrict__ triax) {               // (8, E) if TRIAX
   __shared__ T s_kin[48][kTE];        // pos rows b*8+i, du rows 24+b*8+i
+  __shared__ K s_d0[3][kTE];          // node 0's displacement, nodal type
   __shared__ T s_red[7][kNG][kTE];    // Gauss-point partials
   __shared__ T s_m[9][kNG][kTE];      // force moments M[c][b] per k
 
@@ -84,25 +104,23 @@ element_kernel(const int32_t* __restrict__ elem,      // (8, E)
   const int64_t ec = live ? e : (int64_t)E - 1;   // clamped for loads
   const int64_t sE = E;
 
-  // ---- gather: thread (x, j = k) loads node slot j of element x ----
+  // ---- gather: thread (x, j = k) loads node slot j of element x; both
+  // differences are taken in the nodal type K, then cast to T ----
   {
     const int j = k;
     const int64_t n = elem[j * sE + ec];
-    T d[3];
+    K d[3];
 #pragma unroll
     for (int b = 0; b < 3; ++b) {
       d[b] = disp[b * (int64_t)N + n];
-      s_kin[b * 8 + j][x] = d[b];
-      s_kin[24 + b * 8 + j][x] = d[b] - dprev[b * (int64_t)N + n];
+      s_kin[24 + b * 8 + j][x] = T(d[b] - dprev[b * (int64_t)N + n]);
+      if (j == 0) s_d0[b][x] = d[b];
     }
     __syncthreads();
-    T p[3];
 #pragma unroll
     for (int b = 0; b < 3; ++b)   // node-0-centred position
-      p[b] = coord_e[(b * 8 + j) * sE + ec] + (d[b] - s_kin[b * 8][x]);
-    __syncthreads();
-#pragma unroll
-    for (int b = 0; b < 3; ++b) s_kin[b * 8 + j][x] = p[b];
+      s_kin[b * 8 + j][x] =
+          coord_e[(b * 8 + j) * sE + ec] + T(d[b] - s_d0[b][x]);
     __syncthreads();
   }
 
@@ -209,6 +227,16 @@ element_kernel(const int32_t* __restrict__ elem,      // (8, E)
     for (int c = 0; c < 6; ++c) P_out[(c * 8 + k) * sE + e] = fin[c];
     P_out[(56 + k) * sE + e] = plastic ? eq + d_ep : eq;
     P_out[(64 + k) * sE + e] = plastic ? ys + H * d_ep : ys;
+    if (TRIAX) {   // triaxiality of the final stress
+      const T a0 = fin[0] - fin[1], a1 = fin[1] - fin[2], a2 = fin[0] - fin[2];
+      const T vm_t = sqrt(T(0.5) * (a0 * a0 + a1 * a1 + a2 * a2
+                                    + T(6) * (fin[3] * fin[3]
+                                              + fin[4] * fin[4]
+                                              + fin[5] * fin[5])));
+      const T mean_t = (fin[0] + fin[1] + fin[2]) / T(3);
+      triax[k * sE + e] = vm_t < T(1e-10)
+          ? T(0) : mean_t / (vm_t == T(0) ? T(1) : vm_t);
+    }
   }
 
   // ---- sum 2 over Gauss points: strain increments and sum_w_sig_m ----
@@ -265,18 +293,23 @@ element_kernel(const int32_t* __restrict__ elem,      // (8, E)
   }
 }
 
-template <typename T>
-int launch(const int32_t* elem, const T* coord_e, const T* disp,
-           const T* dprev, const T* P, const T* G_e, const T* lam_e,
+template <typename K, typename T>
+int launch(const int32_t* elem, const T* coord_e, const K* disp,
+           const K* dprev, const T* P, const T* G_e, const T* lam_e,
            const int32_t* mat, const uint8_t* hasp, const uint8_t* flag,
            const T* hard_strain, const T* hard_slope, const int32_t* hard_n,
-           int W, int E, int N, T* P_out, T* qe, void* stream) {
+           int W, int E, int N, T* P_out, T* qe, T* triax, void* stream) {
   if (E <= 0) return 0;
   const dim3 block(kTE, kNG);
   const dim3 grid((E + kTE - 1) / kTE);
-  element_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      elem, coord_e, disp, dprev, P, G_e, lam_e, mat, hasp, flag,
-      hard_strain, hard_slope, hard_n, W, E, N, P_out, qe);
+  if (triax != nullptr)
+    element_kernel<K, T, true><<<grid, block, 0, (cudaStream_t)stream>>>(
+        elem, coord_e, disp, dprev, P, G_e, lam_e, mat, hasp, flag,
+        hard_strain, hard_slope, hard_n, W, E, N, P_out, qe, triax);
+  else
+    element_kernel<K, T, false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        elem, coord_e, disp, dprev, P, G_e, lam_e, mat, hasp, flag,
+        hard_strain, hard_slope, hard_n, W, E, N, P_out, qe, triax);
   return (int)cudaGetLastError();
 }
 
@@ -294,16 +327,17 @@ int hk_set_pusai(const double* pus_host) {
   return (int)cudaMemcpyToSymbol(c_pus_f, f, sizeof(c_pus_f));
 }
 
+// Each entry takes triax == nullptr for no triaxiality output.
 int hk_element_f32(const int32_t* elem, const float* coord_e,
                    const float* disp, const float* dprev, const float* P,
                    const float* G_e, const float* lam_e, const int32_t* mat,
                    const uint8_t* hasp, const uint8_t* flag,
                    const float* hard_strain, const float* hard_slope,
                    const int32_t* hard_n, int W, int E, int N, float* P_out,
-                   float* qe, void* stream) {
-  return launch<float>(elem, coord_e, disp, dprev, P, G_e, lam_e, mat, hasp,
-                       flag, hard_strain, hard_slope, hard_n, W, E, N, P_out,
-                       qe, stream);
+                   float* qe, float* triax, void* stream) {
+  return launch<float, float>(elem, coord_e, disp, dprev, P, G_e, lam_e, mat,
+                              hasp, flag, hard_strain, hard_slope, hard_n, W,
+                              E, N, P_out, qe, triax, stream);
 }
 
 int hk_element_f64(const int32_t* elem, const double* coord_e,
@@ -312,10 +346,23 @@ int hk_element_f64(const int32_t* elem, const double* coord_e,
                    const uint8_t* hasp, const uint8_t* flag,
                    const double* hard_strain, const double* hard_slope,
                    const int32_t* hard_n, int W, int E, int N, double* P_out,
-                   double* qe, void* stream) {
-  return launch<double>(elem, coord_e, disp, dprev, P, G_e, lam_e, mat, hasp,
-                        flag, hard_strain, hard_slope, hard_n, W, E, N,
-                        P_out, qe, stream);
+                   double* qe, double* triax, void* stream) {
+  return launch<double, double>(elem, coord_e, disp, dprev, P, G_e, lam_e,
+                                mat, hasp, flag, hard_strain, hard_slope,
+                                hard_n, W, E, N, P_out, qe, triax, stream);
+}
+
+// Mixed precision: float64 nodal disp/dprev, float32 everything else.
+int hk_element_mixed(const int32_t* elem, const float* coord_e,
+                     const double* disp, const double* dprev, const float* P,
+                     const float* G_e, const float* lam_e, const int32_t* mat,
+                     const uint8_t* hasp, const uint8_t* flag,
+                     const float* hard_strain, const float* hard_slope,
+                     const int32_t* hard_n, int W, int E, int N,
+                     float* P_out, float* qe, float* triax, void* stream) {
+  return launch<double, float>(elem, coord_e, disp, dprev, P, G_e, lam_e,
+                               mat, hasp, flag, hard_strain, hard_slope,
+                               hard_n, W, E, N, P_out, qe, triax, stream);
 }
 
 const char* hk_error_string(int err) {

@@ -6,7 +6,7 @@ These functions are the plain versions of the port's CUDA kernels: the
 kernel wrappers (``element_cuda``, ``assemble_cuda``) run them for tensors
 on the CPU, the tests hold them against the JAX package, and the card's
 smoke run holds the kernels against them.  They run in float32 and
-float64.
+float64, and in mixed mode (float64 nodal fields, float32 element math).
 
 Layouts: nodal fields (3, N); element-node fields (3, 8, E) indexed
 [axis, node slot, element]; Gauss-point fields (8, E); packed Gauss state
@@ -133,18 +133,23 @@ def element_math(pl_tables, mat_id, G_e, lam_e, has_plastic_e, pus, pos_e,
     return Qe, final, new_strain, new_eq, new_y
 
 
-def element_core_packed_plain(model: LoweredModel, P, flag, disp, disp_prev):
+def element_core_packed_plain(model: LoweredModel, P, flag, disp, disp_prev,
+                              want_triax=False):
     """Plain version of the fused element kernel: one step of the element
     update on the packed state.
 
-    ``P`` (72, E) packed Gauss state, ``flag`` (E,) bool life mask,
-    ``disp``/``disp_prev`` (3, N) the new and previous nodal displacement.
-    Gathers through ``model.elem``, forms pos = coord_e + (d - d_node0) and
-    du = d - dprev, and returns (P_new (72, E), qe (24, E))."""
-    E = P.shape[1]
-    d = disp[:, model.elem]                           # (3, 8, E)
-    pos = model.coord_e + (d - d[:, 0:1, :])
-    du = d - disp_prev[:, model.elem]
+    ``P`` (72, E) packed Gauss state and the math in the element dtype,
+    ``flag`` (E,) bool life mask, ``disp``/``disp_prev`` (3, N) the new and
+    previous nodal displacement in the nodal dtype.  Gathers through
+    ``model.elem`` and takes both kinematic differences in the nodal dtype
+    before the cast (``hakai_tpu/ops/element.py:element_kinematics``):
+    pos = coord_e + (d - d_node0), du = d - dprev.  Returns (P_new (72, E),
+    qe (24, E)), and with ``want_triax`` also the (8, E) triaxiality of the
+    final stress."""
+    E, edt = P.shape[1], model.edtype
+    d = disp[:, model.elem]                           # (3, 8, E) nodal dtype
+    pos = model.coord_e + (d - d[:, 0:1, :]).to(edt)
+    du = (d - disp_prev[:, model.elem]).to(edt)
     qe, s, e, eq, y = element_math(
         model.pl_tables, model.mat_id, model.G_e, model.lam_e,
         model.has_plastic_e, model.pusai, pos, du,
@@ -152,6 +157,8 @@ def element_core_packed_plain(model: LoweredModel, P, flag, disp, disp_prev):
         [P[48 + c] for c in range(6)],
         P[56:64], P[64:72], flag)
     P_new = torch.cat([*s, torch.stack(e), P.new_zeros((2, E)), eq, y])
+    if want_triax:
+        return P_new, qe.reshape(24, E), triax_components(s)
     return P_new, qe.reshape(24, E)
 
 

@@ -1,6 +1,14 @@
-"""Wrapper of the fused element kernel (``csrc/element.cu``), which
-replaces the TPU kernel ``hakai_tpu/ops/element_pallas.py:_make_mxu_kernel``
-on the fused-gather path.
+"""Wrapper of the fused element kernel (``csrc/element.cu``) and the packed
+step's dispatch and fracture epilogue (mirrors
+``hakai_tpu/ops/element_pallas.py:packed_element_step`` and
+``_fracture_epilogue``).
+
+The one CUDA kernel replaces three TPU kernels of
+``hakai_tpu/ops/element_pallas.py``: ``_make_mxu_kernel`` in its fused-gather
+call (float32) and its plain call on pos/du rows (the mixed-precision path),
+and ``_make_packed_kernel`` (``element_kernel="pallas"``).  The MXU/VPU split
+between them is a TPU matter, so ``"auto"``, ``"pallas_mxu"`` and
+``"pallas"`` all reach it.
 
 For tensors on the CPU the wrapper runs the plain version,
 :func:`~hakai_tpu_torch.ops.element.element_core_packed_plain`; for CUDA
@@ -11,11 +19,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hakai_tpu.ops.shape import pusai_hexa
-
 from .. import _build
 from ..core.lowering import LoweredModel
 from .element import element_core_packed_plain
+from .erosion import erosion_delete_mask
+from .shape import pusai_hexa
+
+# (nodal dtype, element dtype) -> (C entry, variant name)
+_ENTRIES = {(torch.float32, torch.float32): ("hk_element_f32", "float32"),
+            (torch.float64, torch.float64): ("hk_element_f64", "float64"),
+            (torch.float64, torch.float32): ("hk_element_mixed", "mixed")}
+ELEMENT_KERNELS = ("auto", "pallas_mxu", "pallas")
 
 _pusai_ready: set = set()     # devices whose constant table is loaded
 
@@ -31,52 +45,91 @@ def _ensure_pusai(lib, device: torch.device) -> None:
 
 
 def _check(model: LoweredModel, P, flag, disp, disp_prev) -> None:
-    E, N, dt = model.E, model.N, model.dtype
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"no element kernel for dtype {dt}")
+    E, N, kdt, edt = model.E, model.N, model.dtype, model.edtype
+    if (kdt, edt) not in _ENTRIES:
+        raise TypeError(f"no element kernel for dtypes {kdt}/{edt}")
     M, W = model.hard_strain.shape
     _build.check_inputs(P.device, {
-        "P": (P, (72, E), dt), "flag": (flag, (E,), torch.bool),
-        "disp": (disp, (3, N), dt), "disp_prev": (disp_prev, (3, N), dt),
+        "P": (P, (72, E), edt), "flag": (flag, (E,), torch.bool),
+        "disp": (disp, (3, N), kdt), "disp_prev": (disp_prev, (3, N), kdt),
         "elem": (model.elem, (8, E), torch.int32),
-        "coord_e": (model.coord_e, (3, 8, E), dt),
-        "G_e": (model.G_e, (E,), dt), "lam_e": (model.lam_e, (E,), dt),
+        "coord_e": (model.coord_e, (3, 8, E), edt),
+        "G_e": (model.G_e, (E,), edt), "lam_e": (model.lam_e, (E,), edt),
         "mat_id": (model.mat_id, (E,), torch.int32),
         "has_plastic_e": (model.has_plastic_e, (E,), torch.bool),
-        "hard_strain": (model.hard_strain, (M, W), dt),
-        "hard_slope": (model.hard_slope, (M, W - 1), dt),
+        "hard_strain": (model.hard_strain, (M, W), edt),
+        "hard_slope": (model.hard_slope, (M, W - 1), edt),
         "hard_n": (model.hard_n, (M,), torch.int32)})
 
 
-def element_core_packed(model: LoweredModel, P, flag, disp, disp_prev):
-    """One element update on the packed state: (P_new (72, E), qe (24, E)).
+def element_core_packed(model: LoweredModel, P, flag, disp, disp_prev,
+                        want_triax=False):
+    """One element update on the packed state: (P_new (72, E), qe (24, E))
+    and, with ``want_triax``, the (8, E) triaxiality of the final stress.
 
-    ``P`` (72, E) packed Gauss state, ``flag`` (E,) bool life mask,
-    ``disp``/``disp_prev`` (3, N) new and previous nodal displacement."""
+    ``P`` (72, E) packed Gauss state in the element dtype, ``flag`` (E,)
+    bool life mask, ``disp``/``disp_prev`` (3, N) new and previous nodal
+    displacement in the nodal dtype."""
     if P.device.type == "cpu":
-        return element_core_packed_plain(model, P, flag, disp, disp_prev)
+        return element_core_packed_plain(model, P, flag, disp, disp_prev,
+                                         want_triax)
     if P.device.type != "cuda":
         raise ValueError(f"no element kernel for device {P.device}")
     _check(model, P, flag, disp, disp_prev)
     lib = _build.library()
     E, N = model.E, model.N
+    entry, variant = _ENTRIES[(model.dtype, model.edtype)]
     P_out = torch.empty_like(P)
     qe = torch.empty((24, E), dtype=P.dtype, device=P.device)
-    fn = lib.hk_element_f32 if P.dtype == torch.float32 else lib.hk_element_f64
+    triax = (torch.empty((8, E), dtype=P.dtype, device=P.device)
+             if want_triax else None)
     with torch.cuda.device(P.device):
         _ensure_pusai(lib, P.device)
-        err = fn(model.elem.data_ptr(), model.coord_e.data_ptr(),
-                 disp.data_ptr(), disp_prev.data_ptr(), P.data_ptr(),
-                 model.G_e.data_ptr(), model.lam_e.data_ptr(),
-                 model.mat_id.data_ptr(), model.has_plastic_e.data_ptr(),
-                 flag.data_ptr(), model.hard_strain.data_ptr(),
-                 model.hard_slope.data_ptr(), model.hard_n.data_ptr(),
-                 model.hard_strain.shape[1], E, N,
-                 P_out.data_ptr(), qe.data_ptr(),
-                 torch.cuda.current_stream(P.device).cuda_stream)
+        err = getattr(lib, entry)(
+            model.elem.data_ptr(), model.coord_e.data_ptr(),
+            disp.data_ptr(), disp_prev.data_ptr(), P.data_ptr(),
+            model.G_e.data_ptr(), model.lam_e.data_ptr(),
+            model.mat_id.data_ptr(), model.has_plastic_e.data_ptr(),
+            flag.data_ptr(), model.hard_strain.data_ptr(),
+            model.hard_slope.data_ptr(), model.hard_n.data_ptr(),
+            model.hard_strain.shape[1], E, N,
+            P_out.data_ptr(), qe.data_ptr(),
+            None if triax is None else triax.data_ptr(),
+            torch.cuda.current_stream(P.device).cuda_stream)
     _build.check(lib, err, "element kernel")
     element_core_packed.launches += 1
+    element_core_packed.launches_by[variant + "+triax" * want_triax] += 1
+    if want_triax:
+        return P_out, qe, triax
     return P_out, qe
 
 
 element_core_packed.launches = 0
+# launches by instantiation: "float32", "float64", "mixed", each also with
+# "+triax"
+element_core_packed.launches_by = {v + t: 0 for _, v in _ENTRIES.values()
+                                   for t in ("", "+triax")}
+
+
+def packed_element_step(model: LoweredModel, P, flag, disp, disp_prev):
+    """The packed element update plus the fracture bookkeeping of one
+    chunk-loop step: ``(P_new, qe, triax, flag)``.
+
+    On fracture decks the kernel also returns the triaxiality of the final
+    stress; it is masked by the pre-erosion ``flag`` (a dead element's
+    stale stress counts as zero) and the erosion table is walked on the new
+    eq_ps, giving the post-erosion flag.  ``triax`` is None on
+    fracture-free decks (the chunk loop forms it once at its exit)."""
+    if model.config.element_kernel not in ELEMENT_KERNELS:
+        raise NotImplementedError(
+            f"element_kernel={model.config.element_kernel!r}: the generic "
+            "(unpacked) element path is not ported yet (ROADMAP Queue 2 "
+            "row #3)")
+    out = element_core_packed(model, P, flag, disp, disp_prev,
+                              want_triax=model.fracture_enabled)
+    P_new, qe = out[0], out[1]
+    triax = None
+    if model.fracture_enabled:
+        triax = torch.where(flag[None, :], out[2], 0.0)
+        flag, _ = erosion_delete_mask(model, P_new[56:64], triax, flag)
+    return P_new, qe, triax, flag

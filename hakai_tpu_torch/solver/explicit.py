@@ -1,20 +1,32 @@
 """Explicit central-difference time integration on the packed Gauss state
-(mirrors the fused packed chunk loop of ``hakai_tpu/solver/explicit.py``).
+(mirrors the packed chunk loop and the single-device ``run()`` of
+``hakai_tpu/solver/explicit.py``).
 
-A step is three things: the central-difference update with
+A step is four things: the central-difference update with
 amplitude-scaled boundary conditions (plain PyTorch), the fused element
-kernel, and the assembly kernel.  The step counter and the current time
-stay on the device: nothing in the loop reads a value back to the host.
+kernel, the assembly kernel, and on fracture decks the erosion table walk
+(plain PyTorch).  The step counter and the current time stay on the
+device: nothing in a chunk reads a value back to the host.  ``run()``
+drives chunks from the host and writes VTK frames, checkpoints and
+metrics between them.
 """
 from __future__ import annotations
 
+import sys
+import time as _time
+
+import numpy as np
 import torch
 
 from ..core.lowering import LoweredModel
-from ..core.state import SimState
+from ..core.state import SimState, init_state
+from ..io.vtk import write_pvd, write_vtk
 from ..ops.assemble_cuda import assemble_internal_force
 from ..ops.element import triax_components
-from ..ops.element_cuda import element_core_packed
+from ..ops.element_cuda import packed_element_step
+from ..utils.checkpoint import save_checkpoint
+from ..utils.metrics import MetricsWriter, energy_guard
+from .output import node_fields
 
 
 def amplitude_values(model: LoweredModel, current_time):
@@ -75,18 +87,29 @@ def _integrate(model: LoweredModel, state: SimState):
     return t, disp_new, velo, dwork
 
 
-def step_fast_packed_fused(model: LoweredModel, state: SimState, P):
+def step_fast_packed(model: LoweredModel, state: SimState, P):
     """One step on the packed Gauss state ``P`` (72, E): returns the new
     state (its stress fields stale until :func:`unpack_gauss_state`) and
-    the new P.  The element kernel gathers disp and the previous disp
-    itself, so no element-node copy of either is formed."""
+    the new P.
+
+    Serves every precision: the element kernel gathers the nodal disp and
+    previous disp itself and, in mixed mode, differences them in float64
+    before the float32 math, so no (3, 8, E) element copy of either is
+    formed or carried (the JAX package's ``step_fast_packed`` carries one;
+    its ``step_fast_packed_fused`` does not).  In mixed mode the float32
+    force sum is stored as float64.  On fracture decks the triaxiality is
+    the kernel's, masked by the pre-erosion flag, and the flag is the
+    post-erosion one; dead elements keep stale stress in ``P`` until the
+    chunk exit."""
     t, disp_new, velo, dwork = _integrate(model, state)
-    P_new, qe = element_core_packed(model, P, state.element_flag, disp_new,
-                                    state.disp)
-    Q = assemble_internal_force(model, qe).to(model.dtype)
+    P_new, qe, triax, flag = packed_element_step(
+        model, P, state.element_flag, disp_new, state.disp)
+    Q = assemble_internal_force(model, qe, out_dtype=model.dtype)
     work = state.work if dwork is None else state.work + dwork
-    return state.replace(t=t, disp=disp_new, disp_pre=state.disp, velo=velo,
-                         Q=Q, work=work), P_new
+    return state.replace(
+        t=t, disp=disp_new, disp_pre=state.disp, velo=velo, Q=Q,
+        triax=state.triax if triax is None else triax, element_flag=flag,
+        work=work), P_new
 
 
 def pack_gauss_state(state: SimState):
@@ -106,13 +129,140 @@ def unpack_gauss_state(state: SimState, P) -> SimState:
 
 def run_chunk(model: LoweredModel, state: SimState, n_steps: int) -> SimState:
     """Advance ``n_steps`` steps.  Dead elements keep stale stress inside
-    the chunk and are zeroed once at its exit; the triaxiality is formed
-    once at exit from the final stress."""
+    the chunk and are zeroed once at its exit.  On fracture-free decks the
+    triaxiality is formed once at exit from the final stress; on fracture
+    decks it is the last step's (the erosion walk needs it every step)."""
     P = pack_gauss_state(state)
     for _ in range(n_steps):
-        state, P = step_fast_packed_fused(model, state, P)
+        state, P = step_fast_packed(model, state, P)
     P = torch.cat([torch.where(state.element_flag[None, :], P[:56], 0.0),
                    P[56:]])
-    state = state.replace(
-        triax=triax_components([P[8 * c:8 * (c + 1)] for c in range(6)]))
+    if not model.fracture_enabled:
+        state = state.replace(triax=triax_components(
+            [P[8 * c:8 * (c + 1)] for c in range(6)]))
     return unpack_gauss_state(state, P)
+
+
+def _numpy(x):
+    return x.detach().cpu().numpy()
+
+
+def _deck_order_frame(model: LoweredModel, disp, velo, flag, nd):
+    """Map internal (possibly RCM-renumbered) arrays back to the deck's
+    node and element order for output, as NumPy arrays."""
+    nN, nE = model.n_node, model.n_element
+    coord, elem, flag = _numpy(model.coord), _numpy(model.elem), _numpy(flag)
+    disp, velo = _numpy(disp), _numpy(velo)
+    nd_np = type(nd)(*[_numpy(x) for x in nd])
+    if model.node_new2old is None:
+        return coord, elem, flag, disp, velo, nd_np
+    n2o = _numpy(model.node_new2old)
+    e2o = _numpy(model.elem_new2old)
+
+    def nodes_back(a):
+        out = np.zeros(a.shape, a.dtype)
+        out[..., n2o] = a[..., :nN]
+        return out
+
+    elem_o = np.zeros_like(elem)
+    elem_o[:, e2o] = n2o[elem[:, :nE]]
+    flag_o = np.zeros_like(flag)
+    flag_o[e2o] = flag[:nE]
+    return (nodes_back(coord), elem_o, flag_o, nodes_back(disp),
+            nodes_back(velo), type(nd)(*[nodes_back(x) for x in nd_np]))
+
+
+def run(model: LoweredModel, state: SimState | None = None,
+        verbose: bool = True, write_output: bool = True,
+        devices: int | None = None, halo: int | None = None,
+        resume_halo: str | None = None, device="cuda",
+        timings: dict | None = None) -> SimState:
+    """Whole simulation on one device: ``time_num`` steps in chunks of
+    ``time_num // output_num``, a VTK frame after each chunk (and frame 0
+    before the first) plus ``collection.pvd``, a checkpoint every
+    ``checkpoint_every`` frames, the metrics JSONL when ``metrics_path`` is
+    set, the NaN and energy-balance guards, and an "Element deleted" line
+    when the alive count changes.  A ``state`` whose ``t > 0`` resumes
+    (frames continue from its step).
+
+    Runs on ``device`` (default: the current GPU; pass ``device="cpu"`` for
+    the plain versions); the model and state are moved there.  ``devices``,
+    ``halo`` and ``resume_halo`` (the JAX package's multi-device paths)
+    raise NotImplementedError.  With a ``timings`` dict, fills in the host
+    seconds spent in step chunks (each ends in a device sync) and in frame
+    output.  Returns the final state."""
+    if ((devices or 1) > 1 or (halo or 1) > 1 or resume_halo is not None):
+        raise NotImplementedError(
+            "multi-device runs (devices, halo, resume_halo) are not ported "
+            "yet (ROADMAP Queue 1 item 11)")
+    model = model.to(device)
+    cfg = model.config
+    state = init_state(model) if state is None else state.to(device)
+    time_num = model.time_num
+    d_out = max(time_num // cfg.output_num, 1)
+    n_frames = time_num // d_out if time_num else 0
+    metrics = MetricsWriter(cfg.metrics_path)
+    clock = {"step_s": 0.0, "frame_s": 0.0, "frames": 0, "steps": 0}
+
+    def frame(index, s):
+        t0 = _time.perf_counter()
+        nd = node_fields(model, s.stress, s.strain, s.eq_ps, s.triax)
+        co, el, fl, di, ve, nd_o = _deck_order_frame(
+            model, s.disp, s.velo, s.element_flag, nd)
+        write_vtk(index, cfg.out_dir, co, el, fl, di, ve, nd_o,
+                  model.n_node, model.n_element)
+        clock["frame_s"] += _time.perf_counter() - t0
+        clock["frames"] += 1
+
+    frame_times = []
+    if write_output:
+        frame(0, state)
+        frame_times.append((0, float(int(state.t)) * model.dt))
+
+    t0 = _time.time()
+    alive_prev = int(state.element_flag.sum())
+    done = int(state.t)
+    i_out = done // d_out + 1
+    while done < time_num:
+        n = min(d_out, time_num - done)
+        tc = _time.perf_counter()
+        state = run_chunk(model, state, n)
+        alive = int(state.element_flag.sum())        # syncs the device
+        clock["step_s"] += _time.perf_counter() - tc
+        clock["steps"] += n
+        done += n
+        if cfg.check_nan and not bool(torch.isfinite(state.disp).all()):
+            raise FloatingPointError(f"NaN/Inf in displacement at step {done}")
+        if cfg.energy_check and cfg.energy_abort_rel > 0:
+            rel = float(energy_guard(model, state))
+            if rel > cfg.energy_abort_rel:
+                raise FloatingPointError(
+                    f"energy balance diverged at step {done}: "
+                    f"|KE - KE0 - W_ext + W_int| = {rel:.3e} of the energy "
+                    f"scale (> {cfg.energy_abort_rel:.3e}) — roundoff energy "
+                    "injection; re-run with --precision f64 or mixed")
+        if verbose and alive != alive_prev:
+            print(f"Element deleted:{alive}/{model.n_element}")
+            alive_prev = alive
+        if verbose:
+            sys.stdout.write(f"\r{done * model.dt:.4e} / "
+                             f"{model.end_time:.4e}     ")
+            sys.stdout.flush()
+        if cfg.metrics_path is not None:
+            metrics.record(model, state, done, _time.time() - t0)
+        if write_output and done % d_out == 0 and i_out <= n_frames:
+            frame(i_out, state)
+            frame_times.append((i_out, done * model.dt))
+            if cfg.checkpoint_every and i_out % cfg.checkpoint_every == 0:
+                save_checkpoint(cfg.checkpoint_path
+                                or f"{cfg.out_dir}/ckpt_{i_out:03d}.npz",
+                                state)
+            i_out += 1
+    metrics.close()
+    if write_output and frame_times:
+        write_pvd(cfg.out_dir, frame_times)
+    if verbose:
+        print(f"\nwall: {_time.time() - t0:.2f}s for {time_num} steps")
+    if timings is not None:
+        timings.update(clock)
+    return state

@@ -27,7 +27,7 @@ def test_plain_matches_jax(dtype):
     over V <= 8 terms (a few ulps of the largest term)."""
     bar = bar_model(4, 4, 16)
     cfg = SolverConfig(dtype=dtype, elem_pad=64)
-    jm, tm = jax_lower(bar, cfg), lower(bar, cfg)
+    jm, tm = jax_lower(bar, cfg), lower(bar, cfg, device="cpu")
     qe = _qe(tm.E, tm.n_element, np.dtype(dtype))
     ref = np.asarray(jax_assemble(jm, jnp.asarray(qe)))
     got = assemble_internal_force_plain(
@@ -40,7 +40,8 @@ def test_plain_matches_jax(dtype):
 
 def test_plain_matches_scatter():
     """f64: the gather-sum equals the scatter-add it replaces."""
-    tm = lower(bar_model(8, 8, 32), SolverConfig(dtype="float64"))
+    tm = lower(bar_model(8, 8, 32), SolverConfig(dtype="float64"),
+               device="cpu")
     qe = _qe(tm.E, tm.n_element, np.float64, seed=8)
     elem = tm.elem.numpy()
     ref = np.zeros((3, tm.N))
@@ -55,7 +56,8 @@ def test_plain_matches_scatter():
 
 
 def test_wrapper_runs_plain_version_on_cpu():
-    tm = lower(bar_model(4, 4, 16), SolverConfig(dtype="float32"))
+    tm = lower(bar_model(4, 4, 16), SolverConfig(dtype="float32"),
+               device="cpu")
     qe = torch.from_numpy(_qe(tm.E, tm.n_element, np.float32)
                           .reshape(24, tm.E))
     before = assemble_internal_force.launches

@@ -6,13 +6,20 @@ from hakai_tpu_torch import _build
 
 
 def test_build_command_targets_hopper_and_every_source():
-    cmd = _build.build_command("nvcc", Path("out.so"))
-    assert cmd[0] == "nvcc"
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-shared" in cmd and "-fPIC" in cmd
+    """One nvcc process per source (they run at once), each compiling for
+    sm_90a to a position-independent object; one link of the objects into
+    the shared library."""
+    compiles, link, objs = _build.build_commands("nvcc", Path("out.so"))
     cu = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert cu == ["assemble.cu", "element.cu"]
-    assert sorted(Path(a).name for a in cmd if a.endswith(".cu")) == cu
+    assert len(compiles) == len(cu) == len(objs)
+    for cmd in compiles:
+        assert cmd[0] == "nvcc" and "-c" in cmd
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-fPIC" in cmd
+    assert sorted(Path(c[c.index("-c") + 1]).name for c in compiles) == cu
+    assert link[0] == "nvcc" and "-shared" in link
+    assert link[-2:] == ["-o", "out.so"]
+    assert [str(o) for o in objs] == link[2:-2]
 
 
 def test_every_c_entry_point_is_declared():

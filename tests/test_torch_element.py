@@ -42,14 +42,15 @@ def _packed(stress, strain, eq, ys):
 def test_plain_matches_fused_mxu_kernel(monkeypatch):
     """f32, 8x8x32 bar (2048 elements, renumbered, window plans on): the
     plain twin against element_core_packed_mxu with the fused in-kernel
-    gather (GatherPhysPlan), run in Pallas interpret mode.  Tolerance: the
+    gather (GatherPhysPlan), run in Pallas interpret mode, with the
+    triaxiality output of fracture decks (want_triax) on.  Tolerance: the
     one test_element.py holds the MXU kernel to against the XLA math
     (rtol=3e-5, atol=3e-4): both reassociate the constant contractions."""
     from hakai_tpu.ops.element_pallas import element_core_packed_mxu
     monkeypatch.setenv("HAKAI_PALLAS_FORCE", "1")
     bar = bar_model(8, 8, 32, d_time=1e-8, end_time=1.0)
     cfg = SolverConfig(dtype="float32")
-    jm, tm = jax_lower(bar, cfg), lower(bar, cfg)
+    jm, tm = jax_lower(bar, cfg), lower(bar, cfg, device="cpu")
     assert jm.plan_gphys is not None and jm.plan_gphys.ok
     E, N = tm.E, tm.N
     disp, dprev, stress, strain, eq, ys = _state(
@@ -61,23 +62,26 @@ def test_plain_matches_fused_mxu_kernel(monkeypatch):
     js = jax_init_state(jm).replace(
         stress=jnp.asarray(stress), strain=jnp.asarray(strain),
         eq_ps=jnp.asarray(eq), yield_s=jnp.asarray(ys))
-    P_ref, qe_ref = element_core_packed_mxu(
+    P_ref, qe_ref, tri_ref = element_core_packed_mxu(
         jm, jm.coord_e.reshape(24, E), None, pack_gauss_state(js, E),
-        jnp.asarray(flag), gplan=jm.plan_gphys,
+        jnp.asarray(flag), want_triax=True, gplan=jm.plan_gphys,
         disp_il=_interleave_nodal(jnp.asarray(disp), jnp.float32),
         dprev_il=_interleave_nodal(jnp.asarray(dprev), jnp.float32))
     P_ref, qe_ref = np.asarray(P_ref), np.asarray(qe_ref)
+    tri_ref = np.asarray(tri_ref)
     np.testing.assert_array_equal(np.asarray(pack_gauss_state(js, E)), P)
 
-    P_new, qe = tel.element_core_packed_plain(
+    P_new, qe, tri = tel.element_core_packed_plain(
         tm, torch.from_numpy(P), torch.from_numpy(flag),
-        torch.from_numpy(disp), torch.from_numpy(dprev))
-    P_new, qe = P_new.numpy(), qe.numpy()
+        torch.from_numpy(disp), torch.from_numpy(dprev), want_triax=True)
+    P_new, qe, tri = P_new.numpy(), qe.numpy(), tri.numpy()
     plastic = (P_ref[56:64] != eq).mean()
     assert 0.05 < plastic < 0.95, plastic
     tol = dict(rtol=3e-5, atol=3e-4)
     np.testing.assert_allclose(qe, qe_ref, **tol)
     np.testing.assert_allclose(P_new, P_ref, **tol)
+    assert tri.shape == tri_ref.shape == (8, E)
+    np.testing.assert_allclose(tri, tri_ref, **tol)
     assert not P_new[54:56].any()
     assert not qe[:, 3].any()
 
@@ -89,7 +93,7 @@ def test_plain_matches_xla_element_math_f64():
     so agreement is to roundoff: 1e-12 of each output's scale."""
     bar = bar_model(4, 4, 16, d_time=1e-8, end_time=1.0)
     cfg = SolverConfig(dtype="float64", elem_pad=512)
-    jm, tm = jax_lower(bar, cfg), lower(bar, cfg)
+    jm, tm = jax_lower(bar, cfg), lower(bar, cfg, device="cpu")
     E, N = tm.E, tm.N
     assert E == 512 and tm.n_element == 256
     disp, dprev, stress, strain, eq, ys = _state(
@@ -162,7 +166,8 @@ def test_triax_matches_jax():
 
 
 def test_wrapper_runs_plain_version_on_cpu():
-    m = lower(bar_model(4, 4, 16), SolverConfig(dtype="float32"))
+    m = lower(bar_model(4, 4, 16), SolverConfig(dtype="float32"),
+              device="cpu")
     disp, dprev, stress, strain, eq, ys = _state(
         np.random.default_rng(2), m.E, m.N, np.float32)
     args = (torch.from_numpy(_packed(stress, strain, eq, ys)),

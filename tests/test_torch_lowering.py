@@ -13,6 +13,7 @@ import torch
 from hakai_tpu.config import SolverConfig
 from hakai_tpu.core.lowering import lower as jax_lower
 from hakai_tpu.pre.synthetic import bar_model, impact_model
+from hakai_tpu_torch import run, run_chunk
 from hakai_tpu_torch.core.lowering import lower
 from hakai_tpu_torch.core.state import init_state
 
@@ -34,7 +35,7 @@ def test_lowering_matches_jax(shape, dtype, renumber, renumbered):
     bar = bar_model(*shape, d_time=1e-8, end_time=1.0)
     cfg = SolverConfig(dtype=dtype, renumber=renumber)
     ref = jax_lower(bar, cfg)
-    got = lower(bar, cfg)
+    got = lower(bar, cfg, device="cpu")
     assert (got.node_new2old is not None) == renumbered
     for name in STATIC:
         assert getattr(got, name) == getattr(ref, name), name
@@ -62,7 +63,8 @@ def test_lowering_matches_jax(shape, dtype, renumber, renumbered):
 
 
 def test_hardening_tables_from_pl_tables():
-    got = lower(bar_model(4, 4, 16), SolverConfig(dtype="float64"))
+    got = lower(bar_model(4, 4, 16), SolverConfig(dtype="float64"),
+                device="cpu")
     tab = np.asarray(got.pl_tables[0])
     n = len(tab)
     assert got.hard_n.tolist() == [n]
@@ -73,7 +75,8 @@ def test_hardening_tables_from_pl_tables():
 
 
 def test_to_moves_every_tensor():
-    got = lower(bar_model(4, 4, 16), SolverConfig(dtype="float32"))
+    got = lower(bar_model(4, 4, 16), SolverConfig(dtype="float32"),
+                device="cpu")
     moved = got.to("meta")
     for f in dataclasses.fields(moved):
         v = getattr(moved, f.name)
@@ -85,13 +88,55 @@ def test_to_moves_every_tensor():
                for f in dataclasses.fields(state))
 
 
+@pytest.mark.parametrize("shape", [(4, 4, 16), (8, 8, 32)])
+def test_mixed_ductile_lowering_matches_jax(shape):
+    """Mixed precision with a ductile table: the float64/float32 split of
+    every field, the static ductile tables and the fracture flag equal the
+    JAX lowering's; at 8x8x32 (window plans on) coord_e too."""
+    bar = bar_model(*shape, d_time=5e-8, end_time=1e-4, ductile=True)
+    cfg = SolverConfig(dtype="mixed")
+    ref = jax_lower(bar, cfg)
+    got = lower(bar, cfg, device="cpu")
+    assert got.dtype == torch.float64 and got.edtype == torch.float32
+    assert got.fracture_enabled and ref.fracture_enabled
+    assert got.du_tables == ref.du_tables == (((1.0, 0.0), (0.3, 0.3)),)
+    for name in STATIC:
+        assert getattr(got, name) == getattr(ref, name), name
+    for name in FIELDS:
+        a, b = np.asarray(getattr(ref, name)), getattr(got, name).numpy()
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(b, a, err_msg=name)
+    if ref.coord_e is not None:
+        np.testing.assert_array_equal(got.coord_e.numpy(),
+                                      np.asarray(ref.coord_e))
+    assert got.coord_e.dtype == torch.float32
+    assert got.dt_t.dtype == torch.float64
+    state = init_state(got)
+    assert state.disp.dtype == state.Q.dtype == state.work.dtype \
+        == torch.float64
+    assert state.stress.dtype == state.yield_s.dtype == torch.float32
+
+
 @pytest.mark.parametrize("case", ["contact", "fracture", "mixed"])
 def test_unported_features_raise(case):
+    """What the port does not run yet raises NotImplementedError naming its
+    ROADMAP item: contact decks at lowering, multi-device run() on a
+    fracture deck, and the generic element path (element_kernel="xla") on
+    a mixed deck."""
     if case == "contact":
-        model, cfg = impact_model(n=2), SolverConfig()
+        def go():
+            lower(impact_model(n=2), SolverConfig(), device="cpu")
     elif case == "fracture":
-        model, cfg = bar_model(ductile=True), SolverConfig()
+        m = lower(bar_model(ductile=True), SolverConfig(), device="cpu")
+
+        def go():
+            run(m, devices=2, device="cpu", write_output=False)
     else:
-        model, cfg = bar_model(), SolverConfig(dtype="mixed")
+        m = lower(bar_model(d_time=5e-8),
+                  SolverConfig(dtype="mixed", element_kernel="xla"),
+                  device="cpu")
+
+        def go():
+            run_chunk(m, init_state(m), 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lower(model, cfg)
+        go()

@@ -1,29 +1,64 @@
-"""The port runs without JAX: a fresh interpreter imports hakai_tpu_torch,
-lowers and steps the bar on the CPU, and never imports jax."""
+"""The port runs without JAX and without the JAX package: a fresh
+interpreter imports every module of hakai_tpu_torch, builds the ductile bar
+from the port's own pre.synthetic and runs run() on the CPU; no module of
+jax or hakai_tpu is ever loaded.  And no source file of the port, nor
+chip_smoke.py, has an import of either."""
+import ast
 import os
 import subprocess
 import sys
+from pathlib import Path
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "hakai_tpu")
 
 SCRIPT = """
-import sys
+import importlib, pkgutil, sys, tempfile
 sys.path.insert(0, {root!r})
 import torch
 import hakai_tpu_torch as ht
-from hakai_tpu.config import SolverConfig
-from hakai_tpu.pre.synthetic import bar_model
-m = ht.lower(bar_model(4, 4, 16, d_time=5e-8, end_time=1e-4),
-             SolverConfig(dtype="float32"))
-s = ht.run_chunk(m, ht.init_state(m), 5)
-assert int(s.t) == 5 and bool(torch.isfinite(s.disp).all())
-print("JAX_IMPORTED", "jax" in sys.modules)
+for mod in pkgutil.walk_packages(ht.__path__, "hakai_tpu_torch."):
+    importlib.import_module(mod.name)
+from hakai_tpu_torch.pre.synthetic import bar_model
+out = tempfile.mkdtemp()
+cfg = ht.SolverConfig(dtype="mixed", output_num=2, energy_check=True,
+                      out_dir=out, metrics_path=out + "/m.jsonl")
+m = ht.lower(bar_model(4, 4, 16, d_time=5e-8, end_time=5e-7, ductile=True),
+             cfg, device="cpu")
+s = ht.run(m, verbose=False, device="cpu")
+assert int(s.t) == m.time_num == 10 and bool(torch.isfinite(s.disp).all())
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in {forbidden!r})
+print("FORBIDDEN_MODULES", bad)
 """
 
 
 def test_port_never_imports_jax():
-    r = subprocess.run([sys.executable, "-c", SCRIPT.format(root=ROOT)],
-                       capture_output=True, text=True, timeout=300,
-                       cwd=ROOT)
+    r = subprocess.run(
+        [sys.executable, "-c",
+         SCRIPT.format(root=str(ROOT), forbidden=FORBIDDEN)],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert r.returncode == 0, r.stderr
-    assert "JAX_IMPORTED False" in r.stdout, r.stdout
+    assert "FORBIDDEN_MODULES []" in r.stdout, r.stdout
+
+
+def _imports(path: Path):
+    """Top-level package names of every import statement in ``path``,
+    including those inside functions (relative imports excluded)."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    files = sorted((ROOT / "hakai_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    bad = {str(p.relative_to(ROOT)): sorted(set(_imports(p))
+                                            & set(FORBIDDEN))
+           for p in files}
+    assert not {k: v for k, v in bad.items() if v}, bad
+    assert os.path.exists(ROOT / "hakai_tpu_torch" / "pre" / "synthetic.py")

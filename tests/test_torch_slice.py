@@ -3,6 +3,7 @@ JAX model and initial state carried across by the port's converters
 (model_from_numpy, state_from_numpy)."""
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -20,6 +21,12 @@ from hakai_tpu_torch.solver.explicit import pack_gauss_state
 STATE = ("disp", "disp_pre", "velo", "Q", "stress", "strain", "eq_ps",
          "yield_s", "triax", "work")
 
+# The port's CPU tests step meshes of a few hundred elements, where
+# PyTorch's intra-op threads cost more in synchronization than they save
+# (about 3x per step on an 8-core machine, far more when test processes
+# share the cores): one thread per process.
+torch.set_num_threads(1)
+
 
 def jax_model_numpy(jm):
     """(fields, static) of a JAX LoweredModel as NumPy arrays / values."""
@@ -33,12 +40,27 @@ def jax_model_numpy(jm):
     return fields, static
 
 
+def jax_fast_model(bar, cfg):
+    """The JAX lowering of ``bar`` with ``coord_e`` formed as that lowering
+    forms it on meshes of 2,048 elements and more (f64 difference, then
+    the element dtype).  With it the JAX ``run_chunk`` takes its packed
+    chunk loop (``step_fast``: deferred erosion zeroing, triaxiality masked
+    by the pre-erosion flag), the loop the port implements, also on a mesh
+    too small for window plans; without it the JAX package takes its
+    generic ``step()``, which reports a dead element's triaxiality from its
+    trial stress instead of 0."""
+    jm = jax_lower(bar, cfg)
+    coord, elem = np.asarray(jm.coord, np.float64), np.asarray(jm.elem)
+    return dataclasses.replace(jm, coord_e=jnp.asarray(
+        coord[:, elem] - coord[:, elem[0]][:, None, :], jm.edtype))
+
+
 def carried(jm, js, device="cpu"):
     """The port's model and state built from the JAX ones."""
     tm = model_from_numpy(*jax_model_numpy(jm), device)
     ts = state_from_numpy({f.name: np.asarray(getattr(js, f.name))
                            for f in dataclasses.fields(SimState)},
-                          tm.dtype, device)
+                          tm.dtype, device, tm.edtype)
     return tm, ts
 
 
@@ -91,7 +113,7 @@ def test_converters_match_port_lowering():
     cfg = SolverConfig(dtype="float32")
     jm = jax_lower(bar, cfg)
     tm, ts = carried(jm, jax_init_state(jm))
-    pm = lower(bar, cfg)
+    pm = lower(bar, cfg, device="cpu")
     for f in dataclasses.fields(pm):
         a, b = getattr(tm, f.name), getattr(pm, f.name)
         if isinstance(b, torch.Tensor):
@@ -106,7 +128,7 @@ def test_converters_match_port_lowering():
 
 def test_determinism_bitwise():
     m = lower(bar_model(8, 8, 32, d_time=5e-8, end_time=1e-4),
-              SolverConfig(dtype="float32"))
+              SolverConfig(dtype="float32"), device="cpu")
     a = run_chunk(m, init_state(m), 20)
     b = run_chunk(m, init_state(m), 20)
     for name in STATE:
@@ -118,7 +140,7 @@ def test_chunks_compose(split):
     """run_chunk(k1) then run_chunk(k2) equals run_chunk(k1 + k2) bitwise
     (the chunk-exit zeroing and triax are pure functions of the state)."""
     m = lower(bar_model(4, 4, 16, d_time=5e-8, end_time=1e-4),
-              SolverConfig(dtype="float32"))
+              SolverConfig(dtype="float32"), device="cpu")
     whole = run_chunk(m, init_state(m), sum(split))
     parts = run_chunk(m, run_chunk(m, init_state(m), split[0]), split[1])
     P1, P2 = pack_gauss_state(whole), pack_gauss_state(parts)
