@@ -28,7 +28,21 @@ without its last line):
    precision through ``run()`` on the card for 10,000 steps with 5 VTK
    frames, a checkpoint every other frame, the energy balance and the metrics
    stream; launches counted, frames checked against the alive count, the
-   first deletion located exactly from the checkpoints; then a trace.
+   first deletion located exactly from the checkpoints; then a trace;
+8. contact, main path of the third slice: a flying 48^3 cube on a 96x96x1
+   slab (119,808 elements), all-exterior contact with ductile erosion, in
+   mixed precision through ``run()`` for 5,000 steps with 5 frames and a
+   checkpoint at each: launches by kernel, frames against the alive count,
+   the first contact and first deletion steps, a repeat chunk bitwise
+   equal, the surviving block pairs; then a trace;
+9. contact-kernels: the gather, narrow-phase and scatter kernels against
+   their plain versions on that deck's state 25 steps after the first
+   contact, in float32 (times and bounds) and float64, the narrow phase
+   in a step's launch configuration with every node's and triangle's
+   accept count; the narrow phase's time when built with FMA contraction;
+10. contact-cpu: a small impact with erosion, cube off the slab's grid
+   lines, one step at a time on the card and on the CPU: the first contact
+   steps and the deletion histories compared.
 
 The line before the last is nvidia-smi's name and power limit; the one
 before that the per-kernel JSON record; the last line is
@@ -85,6 +99,40 @@ RUN_FRAMES = 5
 RUN_CKPT_EVERY = 2                # a checkpoint at frames 2 and 4
 RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        "smoke_run")
+# [contact]: the third slice's main path.  v0 is 2.5x impact_model's
+# default: at 8e4 mm/s the cube rebounds with eq_ps ~0.09 (CPU runs at
+# n=8 and n=16), short of the 0.3 fracture strain; at 2e5 the n=8 cube
+# loses its first elements within ~500 steps of contact
+CONTACT_N, CONTACT_V0, CONTACT_DT, CONTACT_END = 48, 2.0e5, 1e-9, 5e-6
+CONTACT_FRAMES = 5                # a checkpoint at every frame
+CONTACT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "smoke_contact")
+CONTACT_REPEAT = 50               # steps of the bitwise repeat check
+CONTACT_KERNEL_AFTER = 25         # [contact-kernels] state: steps after
+#                                   the first contact
+# [contact-kernels]: kernel vs plain version, normwise.  The narrow phase
+# sums up to TB*n_blocks per-pair forces in another order (kernel:
+# sequential, then the splits in order; plain: PyTorch's reductions): the
+# element kernel's bounds.  Its accept decisions are bitwise equal by
+# construction (no FMA, same association); a decision that differs must
+# lie within MARGIN of a threshold.  The scatter sums <= ~40 terms in
+# another association than nothing: the assembly's bounds.
+CONTACT_TOL = {("narrow", "float32"): 1e-5, ("narrow", "float64"): 1e-12,
+               ("scatter", "mixed"): 1e-6, ("scatter", "float64"): 1e-14}
+MARGIN = 1e-5
+# narrow-phase operations the function needs, counted from csrc/contact.cu.
+# A (triangle, node) pair whose cells are more than one apart needs none:
+# the kernel's cell-box culls skip it exactly.  Each in-range item needs
+# its cell (3 subtractions, 3 divisions, 3 ceilings), each in-range
+# triangle its geometry (centroid, radius, normal, area, penalty, adjugate
+# over the determinant: ~140), each surviving block pair its box cells and
+# their comparison (~60); each pair within one cell the cell test and the
+# circumradius cull (19); past that the solve and the accept window (24);
+# an accepted pair the force and its sums (48)
+NARROW_OPS = {"item": 9, "geometry": 140, "block": 60, "cell": 19,
+              "dist": 24, "accept": 48}
+# [contact-cpu]: the tie-free impact, card vs CPU, one step at a time
+CONTACT_CPU_N, CONTACT_CPU_STEPS = 4, 300
 # H100 SXM peaks (NVIDIA data sheet, dense, no tensor cores): HBM
 # 3.35 TB/s; 67 TFLOP/s float32, 34 TFLOP/s float64.
 HBM_BPS = 3.35e12
@@ -112,8 +160,8 @@ def relerr(a, b) -> float:
     return (a - b).abs().max().item() / (scale if scale > 0 else 1.0)
 
 
-def time_ms(fn, reps=20, warm=3) -> float:
-    """Median over REPEATS batches of the mean device time of one call.
+def time_ms(fn, reps=20, warm=3, repeats=REPEATS) -> float:
+    """Median over ``repeats`` batches of the mean device time of one call.
 
     Before each call a 256 MB memset evicts the L2 cache (50 MB on an
     H100), so the call reads its inputs from device memory, as it does
@@ -145,7 +193,7 @@ def time_ms(fn, reps=20, warm=3) -> float:
     # cycles at up to 2 GHz: 1.5x the queueing time plus 1 ms, at most 1 s
     cycles = int(min(1.5 * reps * host_s + 1e-3, 1.0) * 2e9)
     out = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         evs = events()
         torch.cuda._sleep(cycles)
         for ev in evs:
@@ -351,24 +399,30 @@ def trajectory():
         raise AssertionError(f"card and CPU trajectories part: {bad}")
 
 
-def reset_counts():
+def _wrappers() -> dict:
     from hakai_tpu_torch.ops.assemble_cuda import assemble_internal_force
+    from hakai_tpu_torch.ops.contact_cuda import narrow_phase, scatter_forces
     from hakai_tpu_torch.ops.element_cuda import element_core_packed
-    for fn in (element_core_packed, assemble_internal_force):
+    from hakai_tpu_torch.ops.gather_cuda import gather_cols
+    return {"element": element_core_packed,
+            "assemble": assemble_internal_force, "gather": gather_cols,
+            "narrow": narrow_phase, "scatter": scatter_forces}
+
+
+def reset_counts():
+    for fn in _wrappers().values():
         fn.launches = 0
-        for k in fn.launches_by:
+        for k in getattr(fn, "launches_by", ()):
             fn.launches_by[k] = 0
 
 
 def read_counts() -> dict:
-    from hakai_tpu_torch.ops.assemble_cuda import assemble_internal_force
-    from hakai_tpu_torch.ops.element_cuda import element_core_packed
-    return {"element": element_core_packed.launches,
-            "assemble": assemble_internal_force.launches,
-            **{f"element[{k}]": v
-               for k, v in element_core_packed.launches_by.items() if v},
-            **{f"assemble[{k}]": v
-               for k, v in assemble_internal_force.launches_by.items() if v}}
+    out = {}
+    for name, fn in _wrappers().items():
+        out[name] = fn.launches
+        out.update({f"{name}[{k}]": v
+                    for k, v in getattr(fn, "launches_by", {}).items() if v})
+    return out
 
 
 def main_path(model, smi_line):
@@ -427,6 +481,10 @@ def trace(model, state, smi_line, tag, n=40):
     from hakai_tpu_torch import run_chunk
     run_chunk(model, state, 5)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_chunk(model, state, n)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) / n * 1e6
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run_chunk(model, state, n)
@@ -435,15 +493,16 @@ def trace(model, state, smi_line, tag, n=40):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in dev) / n
     by_name = {}
+    ours = ("element_kernel", "assemble_kernel", "gather_cols_kernel",
+            "narrow_nodes", "narrow_tris", "scatter_kernel")
     for e in dev:
-        key = "element_kernel" if "element_kernel" in e.name else \
-            "assemble_kernel" if "assemble_kernel" in e.name else "PyTorch ops"
+        key = next((k for k in ours if k in e.name), "PyTorch ops")
         by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / n
     log(f"[trace] {tag}: {n} steps: {len(dev) / n:.1f} device kernels/step, "
         f"device busy {busy:.2f} us/step: "
         + ", ".join(f"{k} {v:.2f} us" for k, v in sorted(by_name.items()))
-        + f" [{smi_line}]")
-    return busy
+        + f"; the same {n} steps untraced {wall_us:.2f} us/step [{smi_line}]")
+    return busy, wall_us
 
 
 def fracture_margin(model, state):
@@ -587,6 +646,496 @@ def second_path(model, smi_line):
     return launches, final, us
 
 
+def contact_model(smi_line):
+    """The third slice's deck: a flying 48^3 steel cube on a fixed 96x96x1
+    slab, all-exterior contact with ductile erosion, mixed precision."""
+    import torch
+    from hakai_tpu_torch import SolverConfig, lower
+    from hakai_tpu_torch.pre.synthetic import impact_model
+    shutil.rmtree(CONTACT_DIR, ignore_errors=True)
+    os.makedirs(CONTACT_DIR)
+    t0 = time.perf_counter()
+    m = lower(impact_model(n=CONTACT_N, v0=CONTACT_V0, d_time=CONTACT_DT,
+                           end_time=CONTACT_END),
+              SolverConfig(dtype="mixed", energy_check=True,
+                           output_num=CONTACT_FRAMES, checkpoint_every=1,
+                           out_dir=CONTACT_DIR, metrics_path=os.path.join(
+                               CONTACT_DIR, "metrics.jsonl")), device="cuda")
+    torch.cuda.synchronize()
+    log(f"[contact] impact_model(n={CONTACT_N}, v0={CONTACT_V0:g}, d_time="
+        f"{CONTACT_DT:g}, end_time={CONTACT_END:g}) mixed: {m.n_element} "
+        f"elements (E={m.E}), {m.n_node} nodes (N={m.N}), renumbered="
+        f"{m.node_new2old is not None}, lowered in "
+        f"{time.perf_counter() - t0:.2f} s; cfl_dt {m.cfl_dt:.6e} s, d_time "
+        f"{m.dt:g} = {m.dt / m.cfl_dt:.3f} of it; {m.time_num} steps")
+    if m.dt > m.cfl_dt:
+        raise AssertionError(f"d_time {m.dt} exceeds cfl_dt {m.cfl_dt}")
+    for p in m.pairs:
+        log(f"[contact] pair nodes of instance {p.i_instance} vs triangles of"
+            f" {p.j_instance}: 2F={p.tri_nodes.shape[1]} Ci="
+            f"{p.cand_nodes.shape[0]} Cj={p.jnode_nodes.shape[0]} TB={p.tb} "
+            f"nb={p.nb} block grid {p.tri_chunks}x{p.n_chunks}, narrow-phase"
+            f" splits (node launch, triangle launch) {narrow_splits_of(p)}; "
+            f"kinematics "
+            f"columns R={m.ckin_idx.shape[0]}, force table "
+            f"{m.fs_col.shape[0]} entries over {m.fs_width} columns")
+    return m
+
+
+def block_pairs(model, state) -> list:
+    """Surviving (triangle block, node block) pairs per directional pair,
+    and whether the pair's boxes overlap, from the broad phase on
+    ``state`` (one host read each, outside any timed region)."""
+    from hakai_tpu_torch.ops.contact import (broad_phase, contact_activity,
+                                             contact_kinematics)
+    from hakai_tpu_torch.ops.contact_cuda import pair_constants
+    edt = model.edtype
+    kin = contact_kinematics(model, (model.coord + state.disp).to(edt),
+                             state.velo.to(edt))
+    act = contact_activity(model, state.element_flag)
+    out = []
+    for i, p in enumerate(model.pairs):
+        bp = broad_phase(p, kin, model.ckin_slices[i], act[i],
+                         pair_constants(model, p))
+        out.append((int(bp.pair_ok.sum()), bool(bp.overlap)))
+    return out
+
+
+def step_until(model, s, pred, limit):
+    """One step at a time from ``s`` until ``pred(state)``; that state."""
+    from hakai_tpu_torch import run_chunk
+    for _ in range(limit):
+        if pred(s):
+            return s
+        s = run_chunk(model, s, 1)
+    raise AssertionError(f"not reached within {limit} steps of {int(s.t)}")
+
+
+def contact_path(model, smi_line):
+    """run() on the card: the impact deck, CONTACT_FRAMES frames, a
+    checkpoint at every frame, the energy balance and metrics; launches
+    counted, frames checked against the alive count, the first contact
+    and the first deletion located exactly, a repeat chunk compared."""
+    import torch
+    from hakai_tpu_torch import init_state, run, run_chunk
+    from hakai_tpu_torch.utils.checkpoint import load_checkpoint
+    timings = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    final = run(model, timings=timings)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    steps, n_pairs = model.time_num, len(model.pairs)
+    log(f"\n[contact] launches {launches} for {steps} steps")
+    want = {"element[mixed+triax]": steps,
+            "assemble[hk_assemble_f32_f64]": steps, "gather": steps,
+            "narrow": n_pairs * steps, "scatter": steps}
+    if any(launches.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"kernel launches {launches} != {want}")
+    for f in ("disp", "velo", "Q", "stress", "eq_ps", "triax",
+              "contact_force"):
+        if not torch.isfinite(getattr(final, f)).all():
+            raise AssertionError(f"[contact] {f} is not finite")
+    alive = int(final.element_flag.sum())
+    frames = sorted(p for p in os.listdir(CONTACT_DIR) if p.endswith(".vtk"))
+    cells = [vtk_cells(os.path.join(CONTACT_DIR, p)) for p in frames]
+    with open(os.path.join(CONTACT_DIR, "metrics.jsonl")) as f:
+        recs = [json.loads(x) for x in f]
+    d_out = steps // CONTACT_FRAMES
+    by_step = {r["step"]: int(r["alive_elements"]) for r in recs}
+    want_cells = [model.n_element] + [by_step[i * d_out]
+                                      for i in range(1, len(frames))]
+    fmax = [r["contact_force_max"] for r in recs]
+    log(f"[contact] frames {frames} + collection.pvd "
+        f"{os.path.exists(os.path.join(CONTACT_DIR, 'collection.pvd'))}; "
+        f"CELLS {cells}, alive by metrics {want_cells}; contact_force_max by "
+        f"frame {[f'{x:.4e}' for x in fmax]}; energy_rel_error "
+        f"{recs[-1]['energy_rel_error']:.3e}; eq_ps max "
+        f"{recs[-1]['eq_plastic_strain_max']:.4f}")
+    if len(frames) != CONTACT_FRAMES + 1 or cells != want_cells:
+        raise AssertionError(f"frames {frames} CELLS {cells} != {want_cells}")
+    if cells[-1] != alive or alive >= model.n_element:
+        raise AssertionError(f"no element deleted ({alive} alive)")
+    # first contact, exactly, one step at a time from the start
+    s = step_until(model, init_state(model),
+                   lambda s: bool(s.contact_force.abs().max() > 0), d_out)
+    first_contact = int(s.t)
+    # a state with contact active for the kernel checks
+    s_kern = run_chunk(model, s, CONTACT_KERNEL_AFTER)
+    # first deletion, exactly: from the checkpoint before its frame
+    k = next(i for i, c in enumerate(cells) if c < model.n_element)
+    s = (init_state(model) if k == 1 else load_checkpoint(
+        os.path.join(CONTACT_DIR, f"ckpt_{k - 1:03d}.npz"), init_state(model)))
+    s = step_until(model, s, lambda s: int(s.element_flag.sum())
+                   < model.n_element, d_out)
+    first_del = int(s.t)
+    if not ((k - 1) * d_out < first_del <= k * d_out
+            and first_contact < first_del):
+        raise AssertionError(f"first deletion {first_del} outside frame {k}")
+    # one chunk twice from one checkpoint: bitwise equal
+    ck = load_checkpoint(os.path.join(CONTACT_DIR, "ckpt_001.npz"),
+                         init_state(model))
+    a, b = (run_chunk(model, ck, CONTACT_REPEAT) for _ in range(2))
+    fields = ("disp", "velo", "Q", "stress", "eq_ps", "element_flag",
+              "contact_force", "work")
+    if not all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields):
+        raise AssertionError("repeat chunks from one checkpoint differ")
+    us = timings["step_s"] / timings["steps"] * 1e6
+    blocks = {"at kernel state": block_pairs(model, s_kern),
+              "at the end": block_pairs(model, final)}
+    log(f"[contact] {model.n_element} elements, {steps} steps: step loop "
+        f"{timings['step_s']:.2f} s = {us:.2f} us/step without frame output; "
+        f"{timings['frames']} frames in {timings['frame_s']:.2f} s; run() "
+        f"wall {wall:.2f} s; first contact at step {first_contact}, first "
+        f"deletion at step {first_del}, {alive} of {model.n_element} alive at"
+        f" step {steps}; repeat {CONTACT_REPEAT}-step chunks from ckpt_001 "
+        f"bitwise equal; surviving block pairs per pair (count, overlap) "
+        f"{blocks} [{smi_line}]")
+    return launches, final, us, s_kern
+
+
+def _time_pair(fn, plain, reps=20, plain_reps=3, plain_repeats=REPEATS):
+    """(kernel ms, plain ms) of two callables, the method of time_ms."""
+    return time_ms(fn, reps=reps), time_ms(plain, reps=plain_reps, warm=1,
+                                           repeats=plain_repeats)
+
+
+def check_gather(kin_src, idx, kind):
+    import torch
+    from hakai_tpu_torch.ops.gather_cuda import gather_cols, gather_cols_plain
+    out = gather_cols(kin_src, idx)
+    ref = gather_cols_plain(kin_src, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError(f"gather kernel ({kind}) is not bitwise equal")
+    rec = {"max_abs_err": (out - ref).abs().max().item()}
+    rec["ms"], rec["plain_ms"] = _time_pair(
+        lambda: gather_cols(kin_src, idx), lambda: gather_cols_plain(kin_src,
+                                                                     idx))
+    idx64 = idx.long()
+    rec["library_ms"] = time_ms(lambda: torch.index_select(kin_src, 1, idx64))
+    moved = nbytes(kin_src, idx, out)
+    rec["bound_ms"], rec["bound_by"] = bound(moved, 0, kind)
+    log(f"[contact-kernels] gather {kind} (6, {kin_src.shape[1]}) -> "
+        f"{tuple(out.shape)}: bitwise equal; kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f} ms, index_select {rec['library_ms']:.4f} ms, "
+        f"bound {rec['bound_ms']:.4f} ms ({moved / 1e6:.1f} MB)")
+    return rec, out
+
+
+def _margins(pair, kin, ksl, bp, consts, tri, node):
+    """Per listed (triangle, node slot) pair, the smallest relative distance
+    of an accept test from its threshold: x1, x2, 1-x1-x2, d, d_lim-d,
+    Rmax-dp, and the grid-cell boundaries of both cells."""
+    import torch
+    from hakai_tpu_torch.ops.contact_cuda import (constants_on, kin_views,
+                                                  tri_geometry)
+    q0, q1, q2, _, pos_i, _, _ = kin_views(kin, ksl)
+    c = constants_on(consts, kin.dtype, kin.device)
+    ctr, rmax, _, _, im = tri_geometry(q0[:, tri], q1[:, tri], q2[:, tri], c)
+    p = pos_i[:, node]
+    dp = torch.sqrt(((p - ctr) ** 2).sum(dim=0))
+    b = p - q0[:, tri]
+    x1, x2, d = ((r * b).sum(dim=0) for r in im)
+    cell = [((x - bp.all_min[:, None]) / c["ddiv"]) for x in (q0[:, tri], p)]
+    frac = torch.stack([(y - torch.round(y)).abs().amin(dim=0) for y in cell])
+    dl = consts.d_lim
+    m = torch.stack([x1.abs(), x2.abs(), (1 - x1 - x2).abs(), d.abs() / dl,
+                     (dl - d).abs() / dl, (rmax - dp).abs() / rmax,
+                     *frac])
+    return m.amin(dim=0)
+
+
+def check_narrow(model, kin, acts, kind):
+    """Kernel N against its plain version per pair, on the card's state, in
+    the launch configuration of a step (each side over its narrow_splits
+    splits): forces, and every node's and every triangle's count of
+    accepted pairs.  A count can differ only where a decision lies on a
+    threshold: the pairs of a node and a triangle whose counts both differ
+    must include one within MARGIN of a threshold for each of them."""
+    import torch
+    from hakai_tpu_torch.ops.contact import broad_phase
+    from hakai_tpu_torch.ops.contact_cuda import (narrow_phase,
+                                                  narrow_phase_plain,
+                                                  pair_constants)
+    tol = CONTACT_TOL[("narrow", kind)]
+    force = torch.empty((3, model.fs_width), dtype=kin.dtype,
+                        device=kin.device)
+    again = torch.empty_like(force)
+    stages = dict.fromkeys(("blocks", "tested", "tri_in", "node_in", "cell",
+                            "dist", "accept"), 0)
+    args, max_abs, worst, n_diff = [], 0.0, 0.0, [0, 0]
+    for i, p in enumerate(model.pairs):
+        ksl, consts = model.ckin_slices[i], pair_constants(model, p)
+        # the float64 instantiation takes the masses in its type
+        p = dataclasses.replace(p, cand_mass=p.cand_mass.to(kin.dtype))
+        bp = broad_phase(p, kin, ksl, acts[i], consts)
+        off_i, off_t = model.fs_offsets[i]
+        cols = ((off_i, p.Cp), (off_t, p.Tp))
+        per_node, per_tri = narrow_phase(p, kin, ksl, bp, consts, force,
+                                         (off_i, off_t), count=True)
+        narrow_phase(p, kin, ksl, bp, consts, again, (off_i, off_t))
+        fi, ft, info = narrow_phase_plain(p, kin, ksl, bp, consts,
+                                          record=True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(force[:, a:a + n], again[:, a:a + n])
+                   for a, n in cols):
+            raise AssertionError(f"narrow phase ({kind}) pair {i}: a launch "
+                                 f"without counts gives other forces")
+        ki, kt = force[:, off_i:off_i + p.Cp], force[:, off_t:off_t + p.Tp]
+        errs = (relerr(ki, fi), relerr(kt, ft))
+        max_abs = max(max_abs, (ki - fi).abs().max().item(),
+                      (kt - ft).abs().max().item())
+        worst = max(worst, *errs)
+        hit = info["pairs"]
+        d_node = torch.nonzero(per_node != torch.bincount(
+            hit[:, 1], minlength=p.Cp)).reshape(-1)
+        d_tri = torch.nonzero(per_tri != torch.bincount(
+            hit[:, 0], minlength=p.Tp)).reshape(-1)
+        if len(d_node) or len(d_tri):
+            if len(d_node) * len(d_tri) > 1 << 22 or not (len(d_node)
+                                                          and len(d_tri)):
+                raise AssertionError(f"narrow phase ({kind}) pair {i}: counts"
+                                     f" of {len(d_node)} nodes and "
+                                     f"{len(d_tri)} triangles differ")
+            tt, nn = torch.meshgrid(d_tri, d_node, indexing="ij")
+            close = (_margins(p, kin, ksl, bp, consts, tt.reshape(-1),
+                              nn.reshape(-1)) <= MARGIN).reshape(tt.shape)
+            if not (bool(close.any(dim=0).all())
+                    and bool(close.any(dim=1).all())):
+                raise AssertionError(f"narrow phase ({kind}) pair {i}: "
+                                     f"accept decisions differ away from a "
+                                     f"threshold")
+        n_diff[0] += len(d_node)
+        n_diff[1] += len(d_tri)
+        n_blocks = int(bp.pair_ok.sum())
+        for k, v in (("blocks", n_blocks), ("tested", n_blocks * p.tb * p.nb),
+                     ("tri_in", int(bp.tri_in.sum())),
+                     ("node_in", int(bp.node_in.sum())),
+                     ("cell", info["cell"]), ("dist", info["dist"]),
+                     ("accept", info["accept"])):
+            stages[k] += v
+        acc = (int(per_node.sum()), int(per_tri.sum()))
+        log(f"[contact-kernels] narrow {kind} pair {i}: {n_blocks} block pairs"
+            f", launched as a step does (splits {narrow_splits_of(p)}); "
+            f"accepts kernel {acc[0]} (node side) {acc[1]} (triangle side), "
+            f"plain {info['accept']}; counts differ at {len(d_node)} nodes "
+            f"and {len(d_tri)} triangles (each with a pair within {MARGIN:g}"
+            f" of a threshold); force_i {errs[0]:.3e} force_t {errs[1]:.3e} "
+            f"(tol {tol:g}); a launch without counts: bitwise equal")
+        if acc[0] != info["accept"] or acc[1] != info["accept"]:
+            raise AssertionError(f"narrow phase ({kind}) accept counts differ")
+        if not max(errs) <= tol:
+            raise AssertionError(f"narrow phase ({kind}) disagrees: {errs}")
+        args.append((p, ksl, bp, consts, (off_i, off_t)))
+    if stages["accept"] == 0:
+        raise AssertionError("no contact pair accepted: contact not active")
+    return args, force, stages, {"max_abs_err": max_abs, "rel": worst,
+                                 "differ": n_diff}
+
+
+def narrow_splits_of(p):
+    """(node launch, triangle launch) splits of a pair's narrow phase."""
+    from hakai_tpu_torch.ops.contact_cuda import narrow_splits
+    return (narrow_splits(p.n_chunks, p.nb, p.tri_chunks),
+            narrow_splits(p.tri_chunks, p.tb, p.n_chunks))
+
+
+def fmad_cost(args, kin, force):
+    """Kernel N built as nvcc builds by default, with FMA contraction,
+    against the library the port ships (contact.cu with -fmad=false): the
+    time of the main path's narrow-phase calls and the normwise difference
+    of their forces.  Builds a second library (another key) and restores
+    the port's after."""
+    import torch
+    from hakai_tpu_torch import _build
+    from hakai_tpu_torch.ops.contact_cuda import narrow_phase
+
+    def calls(out):
+        return lambda: [narrow_phase(p, kin, ksl, bp, c, out, o)
+                        for p, ksl, bp, c, o in args]
+    shipped = _build._lib, _build.SOURCE_FLAGS
+    fused = torch.empty_like(force)
+    try:
+        _build._lib = None
+        _build.SOURCE_FLAGS = {k: tuple(f for f in v if f != "-fmad=false")
+                               for k, v in shipped[1].items()}
+        t0 = time.perf_counter()
+        _build.library()
+        built_s = time.perf_counter() - t0
+        calls(fused)()
+        torch.cuda.synchronize()
+        ms = time_ms(calls(fused), reps=10)
+    finally:
+        _build._lib, _build.SOURCE_FLAGS = shipped
+    ms_after = time_ms(calls(force), reps=10)
+    err = max(relerr(fused[:, a:a + n], force[:, a:a + n])
+              for p, _, _, _, (oi, ot) in args
+              for a, n in ((oi, p.Cp), (ot, p.Tp)))
+    return ms, ms_after, err, built_s
+
+
+def check_scatter(model, force, out_dtype, kind):
+    import torch
+    from hakai_tpu_torch.ops.contact_cuda import (scatter_forces,
+                                                  scatter_forces_plain)
+    tol = CONTACT_TOL[("scatter", kind)]
+    g = scatter_forces(model, force, out_dtype)
+    ref = scatter_forces_plain(model, force, out_dtype)
+    torch.cuda.synchronize()
+    err = relerr(g, ref)
+    if g.dtype != out_dtype or not err <= tol:
+        raise AssertionError(f"scatter kernel ({kind}) disagrees: {err}")
+    if not torch.equal(g, scatter_forces(model, force, out_dtype)):
+        raise AssertionError("scatter kernel is not deterministic")
+    rec = {"max_abs_err": (g - ref).abs().max().item()}
+    rec["ms"], rec["plain_ms"] = _time_pair(
+        lambda: scatter_forces(model, force, out_dtype),
+        lambda: scatter_forces_plain(model, force, out_dtype))
+    # one PyTorch call for the same sum (another order, atomics): index_add_
+    # of the signed contributions into their nodes
+    ptr = model.fs_ptr.long()
+    node = torch.repeat_interleave(torch.arange(model.N, device=force.device),
+                                   ptr[1:] - ptr[:-1])
+    sign = torch.where(torch.arange(model.fs_col.shape[0],
+                                    device=force.device)
+                       < model.fs_mid.long()[node], 1.0, -1.0).to(force.dtype)
+    contrib = force[:, model.fs_col.long()] * sign
+    zero = torch.zeros((3, model.N), dtype=force.dtype, device=force.device)
+    rec["library_ms"] = time_ms(lambda: zero.clone().index_add_(1, node,
+                                                                contrib))
+    moved = nbytes(model.fs_ptr, model.fs_mid, model.fs_col, force, g)
+    rec["bound_ms"], rec["bound_by"] = bound(
+        moved, 3 * model.fs_col.shape[0], kind)
+    log(f"[contact-kernels] scatter {kind} -> {g.dtype}: rel err {err:.3e} "
+        f"(tol {tol:g}); kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
+        f" ms, index_add_ {rec['library_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({moved / 1e6:.1f} MB)")
+    return rec
+
+
+def contact_kernels(model, state, smi_line):
+    """Kernels G, N and S against their plain versions on the deck's own
+    state with contact active, in the main path's types (f32 math, f64
+    store) and in float64; times and bounds for the main path's."""
+    import torch
+    from hakai_tpu_torch.ops.contact import contact_activity
+    from hakai_tpu_torch.ops.contact_cuda import (narrow_phase,
+                                                  narrow_phase_plain)
+    acts = contact_activity(model, state.element_flag)
+    edt = model.edtype
+    posvel = torch.cat([(model.coord + state.disp).to(edt),
+                        state.velo.to(edt)])
+    recs = {}
+    for kind, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        rec_g, kin = check_gather(posvel.to(dt), model.ckin_idx, kind)
+        args, force, stages, rec_n = check_narrow(model, kin, acts, kind)
+        out_dtype = torch.float64
+        rec_s = check_scatter(model, force, out_dtype,
+                              "mixed" if dt == torch.float32 else kind)
+        recs[kind] = (rec_g, rec_n, rec_s)
+        if kind == "float64":
+            break
+        # N's time: every pair's node and triangle kernels, as in a step
+        rec_n["ms"], rec_n["plain_ms"] = _time_pair(
+            lambda: [narrow_phase(p, kin, ksl, bp, c, force, o)
+                     for p, ksl, bp, c, o in args],
+            lambda: [narrow_phase_plain(p, kin, ksl, bp, c)
+                     for p, ksl, bp, c, _ in args], reps=10, plain_reps=1,
+            plain_repeats=1)      # one call of 3-5 s: one batch
+        st = stages
+        flop = (NARROW_OPS["item"] * (st["tri_in"] + st["node_in"])
+                + NARROW_OPS["geometry"] * st["tri_in"]
+                + NARROW_OPS["block"] * st["blocks"]
+                + NARROW_OPS["cell"] * st["cell"]
+                + NARROW_OPS["dist"] * st["dist"]
+                + NARROW_OPS["accept"] * st["accept"])
+        moved = sum(nbytes(bp.tri_in, bp.node_in, bp.pair_ok, p.cand_mass,
+                           p.cand_nodes) + 4 * (12 * p.tri_nodes.shape[1]
+                                                + 6 * p.cand_nodes.shape[0]
+                                                + 3 * (p.Cp + p.Tp))
+                    for p, _, bp, _, _ in args)
+        rec_n["bound_ms"], rec_n["bound_by"] = bound(moved, flop, kind)
+        rec_n["library_ms"] = None
+        log(f"[contact-kernels] narrow {kind}: {st['blocks']} block pairs, "
+            f"{st['tested']:.4e} pairs in them, {st['cell']} within one cell"
+            f", {st['dist']} past the radius cull, {st['accept']} accepted; "
+            f"kernel {rec_n['ms']:.4f} ms, plain {rec_n['plain_ms']:.4f} ms, "
+            f"bound {rec_n['bound_ms']:.4f} ms ({rec_n['bound_by']}: "
+            f"{flop / 1e9:.4f} GFLOP needed, {moved / 1e6:.1f} MB) "
+            f"[{smi_line}]")
+        ms_fma, ms_after, err_fma, built_s = fmad_cost(args, kin, force)
+        log(f"[contact-kernels] narrow {kind} built with FMA contraction "
+            f"(nvcc's default; built in {built_s:.2f} s): {ms_fma:.4f} ms "
+            f"against {rec_n['ms']:.4f} ms before and {ms_after:.4f} ms after"
+            f" it for the shipped -fmad=false build; forces differ by "
+            f"{err_fma:.3e} normwise [{smi_line}]")
+    return recs["float32"]
+
+
+def contact_cpu():
+    """The tie-free impact (cube off the slab's grid lines; the ductile
+    table of the JAX package's multi-host impact test), n=CONTACT_CPU_N,
+    mixed, one step at a time on the card and on the CPU: the same first
+    contact step and the [fracture] rule on the deletion histories."""
+    import numpy as np
+    import torch
+    from hakai_tpu_torch import SolverConfig, init_state, lower, run_chunk
+    from hakai_tpu_torch.pre.synthetic import impact_model, offset_instance
+    deck = offset_instance(impact_model(n=CONTACT_CPU_N, v0=8.0e4,
+                                        d_time=1e-8, end_time=1e-5),
+                           1, 0.013, 0.017)
+    deck.materials[0].ductile = np.array([[0.02, 0.0, 30.0],
+                                          [0.01, 0.3, 30.0]])
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = lower(deck, SolverConfig(dtype="mixed"), device=dev)
+        s = init_state(m)
+        died = np.full(m.E, -1)
+        exists = m.elem_exists.cpu().numpy()
+        contact = None
+        t0 = time.perf_counter()
+        for step in range(1, CONTACT_CPU_STEPS + 1):
+            s = run_chunk(m, s, 1)
+            flag = s.element_flag.cpu().numpy()
+            died[(died < 0) & ~flag & exists] = step
+            if contact is None and bool(s.contact_force.abs().max() > 0):
+                contact = step
+        log(f"[contact-cpu] {dev}: {CONTACT_CPU_STEPS} steps in "
+            f"{time.perf_counter() - t0:.2f} s; first contact at step "
+            f"{contact}, first deletion at step "
+            f"{died[died > 0].min() if (died > 0).any() else None}, "
+            f"{(died > 0).sum()} of {m.n_element} deleted")
+        runs[dev] = (m, s, died, contact)
+    (mg, sg, dg, cg), (mc, sc, dc, cc) = runs["cuda"], runs["cpu"]
+    if cc is None or cg != cc:
+        raise AssertionError(f"first contact steps differ: {cg} vs {cc}")
+    if not (dc > 0).any():
+        raise AssertionError("the CPU run deleted no element")
+    only = np.nonzero((dg > 0) != (dc > 0))[0]
+    margin = {"cuda": fracture_margin(mg, sg).cpu().numpy(),
+              "cpu": fracture_margin(mc, sc).numpy()}
+    keep = [margin["cuda"][e] if dg[e] < 0 else margin["cpu"][e]
+            for e in only]
+    first = (dg[dg > 0].min() if (dg > 0).any() else -1, dc[dc > 0].min())
+    errs = {"disp": relerr(sg.disp.cpu(), sc.disp),
+            "contact_force": relerr(sg.contact_force.cpu(), sc.contact_force)}
+    log(f"[contact-cpu] card vs cpu at step {CONTACT_CPU_STEPS}: disp "
+        f"{errs['disp']:.3e}; first contact {cg} vs {cc}; first deletion "
+        f"{first[0]} vs {first[1]}; deleted {(dg > 0).sum()} vs "
+        f"{(dc > 0).sum()}, {((dg > 0) & (dg == dc)).sum()} at the same step,"
+        f" {len(only)} on one side only (margins {[round(float(x), 5) for x in keep]})"
+        f"; rule of [fracture]")
+    if not torch.isfinite(sg.disp).all():
+        raise AssertionError("card contact run is not finite")
+    if abs(int(first[0]) - int(first[1])) > FRAC_STEPS:
+        raise AssertionError(f"first deletions part: {first}")
+    if any(not x >= 1.0 - FRAC_BAND for x in keep) or \
+            len(only) > FRAC_SHARE * (dc > 0).sum():
+        raise AssertionError(f"deleted sets part beyond the f32 band: "
+                             f"{only.tolist()} margins {keep}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -656,17 +1205,28 @@ def main() -> int:
 
     trajectory()
     launches1, final, step_us = main_path(bench, smi_line)
-    busy_us = trace(bench, final, smi_line, "float32 elastic")
+    busy_us = trace(bench, final, smi_line, "float32 elastic")[0]
     log(f"[trace] float32 elastic: device idle share "
         f"{1.0 - busy_us / step_us:.4f} of the median untraced step "
         f"({busy_us:.2f} of {step_us:.2f} us)")
 
     fracture()
     launches2, final2, run_us = second_path(mixed, smi_line)
-    busy2 = trace(mixed, final2, smi_line, "mixed ductile")
+    busy2 = trace(mixed, final2, smi_line, "mixed ductile")[0]
     log(f"[trace] mixed ductile: device idle share "
         f"{1.0 - busy2 / run_us:.4f} of the run() step ({busy2:.2f} of "
         f"{run_us:.2f} us)")
+    del mixed, final2
+
+    impact = contact_model(smi_line)
+    launches3, final3, contact_us, s_kern = contact_path(impact, smi_line)
+    busy3, wall3 = trace(impact, s_kern, smi_line, "contact impact", n=20)
+    log(f"[trace] contact impact: device idle share {1.0 - busy3 / wall3:.4f}"
+        f" of the same steps untraced ({busy3:.2f} of {wall3:.2f} us; run()"
+        f" averaged {contact_us:.2f} us/step over its 5,000 steps)")
+    crec = contact_kernels(impact, s_kern, smi_line)
+    del impact, final3, s_kern
+    contact_cpu()
 
     if any(k.split(".")[0] in ("jax", "jaxlib", "hakai_tpu")
            for k in sys.modules):
@@ -675,19 +1235,24 @@ def main() -> int:
     src = "hakai_tpu/ops/element_pallas.py"
 
     def entry(name, source, replaces, count, r):
-        # launches: the variant's launches in the two main-path runs
+        # launches: the variant's launches in the three main-path runs
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": launches1.get(count, 0) + launches2.get(count, 0),
+                "launches": sum(x.get(count, 0) for x in
+                                (launches1, launches2, launches3)),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-    el, asm = ("hakai_tpu_torch/csrc/element.cu",
-               "hakai_tpu_torch/csrc/assemble.cu")
-    # the instantiations the two main paths run, and the float64 element
-    # one, which neither runs (its launches are 0); the float32+triax
-    # element and float64 assembly instantiations are checked and timed in
-    # [kernels] and reported on its lines
+    el, asm, cu = ("hakai_tpu_torch/csrc/element.cu",
+                   "hakai_tpu_torch/csrc/assemble.cu",
+                   "hakai_tpu_torch/csrc/contact.cu")
+    gp = "hakai_tpu/ops/gather_pallas.py"
+    # the instantiations the three main paths run, and the float64 element
+    # one, which none runs (its launches are 0); the float32+triax element,
+    # float64 assembly and float64 contact instantiations are checked (and
+    # the first two timed) in [kernels] and [contact-kernels] and reported
+    # on their lines.  A narrow_phase launch is its node and its triangle
+    # kernel for one pair.
     kernels = [
         entry("element_core_packed[float32]", el, f"{src}:210",
               "element[float32]", rec["f32"]),
@@ -703,6 +1268,15 @@ def main() -> int:
         entry("assemble_internal_force[float32->float64]", asm,
               "hakai_tpu/ops/gather_pallas.py:413",
               "assemble[hk_assemble_f32_f64]", rec["asm_mixed"]),
+        entry("gather_cols[float32]", "hakai_tpu_torch/csrc/gather.cu",
+              f"{gp}:413, :361 and :314 (blocked_gather, {gp}:660)",
+              "gather", crec[0]),
+        entry("narrow_phase[float32]", cu,
+              "hakai_tpu/ops/contact.py:252 (XLA block loop; no TPU kernel)",
+              "narrow", crec[1]),
+        entry("scatter_forces[float32->float64]", cu,
+              f"{gp}:413 and :361 (scatter-as-gather, "
+              "hakai_tpu/ops/contact.py:375)", "scatter", crec[2]),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

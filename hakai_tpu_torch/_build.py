@@ -30,11 +30,29 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# per-source flags: the contact source keeps every multiply and add
+# separately rounded, in the association order of its plain version
+SOURCE_FLAGS = {"contact.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# narrow phase: kin, R, t0, t1, t2, cs, F2, Ci, TB, nb, tri_chunks,
+# n_chunks, tri_in, node_in, pair_ok, overlap, tmin, tmax, nmin, nmax, lo,
+# mass, ids, enodes, young, kc, Cr, myu, d_lim, ddiv (element type),
+# force, ld, off, count, part, splits, side, stream
+_NARROW = ((_P,) + (_I,) * 11 + (_P,) * 12,
+           (_P, _I, _I, _P, _P, _I, _I, _P))
 # C entry points: (name, argument types); each returns a cudaError_t
 _SIGNATURES = {
+    "hk_narrow_f32": _NARROW[0] + (ctypes.c_float,) * 6 + _NARROW[1],
+    "hk_narrow_f64": _NARROW[0] + (ctypes.c_double,) * 6 + _NARROW[1],
+    # src, ld, ptr, mid, col, N, out, stream
+    "hk_scatter_f32": (_P, _I, _P, _P, _P, _I, _P, _P),
+    "hk_scatter_f64": (_P, _I, _P, _P, _P, _I, _P, _P),
+    "hk_scatter_f32_f64": (_P, _I, _P, _P, _P, _I, _P, _P),
+    # src, C, S, idx, R, out, stream
+    "hk_gather_cols_f32": (_P, _I, _I, _P, _I, _P, _P),
+    "hk_gather_cols_f64": (_P, _I, _I, _P, _I, _P, _P),
     "hk_set_pusai": (_P,),
     # elem, coord_e, disp, dprev, P, G, lam, mat, hasp, flag,
     # hard_strain, hard_slope, hard_n, hard_cols, E, N, P_out, qe, triax
@@ -93,8 +111,8 @@ def build_commands(nvcc: str, out: Path):
     objects between them)."""
     srcs = [p for p in sources() if p.suffix == ".cu"]
     objs = [out.with_name(f"{out.name}.{p.stem}.o") for p in srcs]
-    compiles = [[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
-                for s, o in zip(srcs, objs)]
+    compiles = [[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(s.name, ()), "-c",
+                 str(s), "-o", str(o)] for s, o in zip(srcs, objs)]
     return compiles, [nvcc, "-shared", *map(str, objs), "-o", str(out)], objs
 
 
@@ -114,6 +132,7 @@ def _key(nvcc: str) -> str:
                          text=True, check=True).stdout
     h.update(ver.encode())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())

@@ -1,0 +1,343 @@
+"""Wrappers of the contact kernels (``csrc/contact.cu``) and their plain
+PyTorch versions: the narrow phase (kernel N), the port's design for the
+block loop of ``hakai_tpu/ops/contact.py:_pair_force`` (XLA on the TPU),
+and the per-node force scatter (kernel S), which replaces the TPU's
+scatter-as-gather chain through ``blocked_gather``
+(``hakai_tpu/ops/gather_pallas.py`` ``_make_diag_kernel`` and
+``_make_merged_kernel`` on the plans ``plan_fgi``/``plan_fgt``/``plan_fx``).
+
+For tensors on the CPU each wrapper runs its plain version; for CUDA
+tensors it launches the kernel on the current stream, or raises.
+
+The plain narrow phase is the JAX loop itself: the surviving block pairs
+in pair-id order, each a dense (TB, nb) evaluation whose sums are added
+per block (force_i) and per block over 3 (force_t).  Its per-pair
+arithmetic is written in the kernel's association order with every
+constant a tensor of the element type (PyTorch divides by a Python scalar
+as a multiply by its reciprocal on the card), so the two take bitwise
+equal accept decisions on equal inputs.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import _build
+from ..core.lowering import ContactPair, LoweredModel
+
+_NARROW = {torch.float32: "hk_narrow_f32", torch.float64: "hk_narrow_f64"}
+# threads per CTA of the narrow-phase kernels (NT in csrc/contact.cu), and
+# the CTAs a launch aims for: 132 SMs x 16 resident CTAs, about 2 waves
+_NARROW_NT, _NARROW_CTAS = 64, 4096
+# (force dtype, nodal dtype) -> scatter entry; float32 -> float64 is mixed
+_SCATTER = {(torch.float32, torch.float32): "hk_scatter_f32",
+            (torch.float64, torch.float64): "hk_scatter_f64",
+            (torch.float32, torch.float64): "hk_scatter_f32_f64"}
+
+
+class PairConstants(NamedTuple):
+    """A pair's penalty constants, as Python floats (``_pair_force``)."""
+    young: float
+    kc: float
+    Cr: float
+    myu: float
+    d_lim: float
+    ddiv: float
+
+
+def pair_constants(model: LoweredModel, pair: ContactPair) -> PairConstants:
+    cc = model.config.contact
+    return PairConstants(
+        young=pair.young,
+        kc=cc.kc_self if pair.is_self else cc.kc,
+        Cr=cc.Cr_self if pair.is_self else cc.Cr,
+        myu=cc.myu,
+        d_lim=model.element_min_size * cc.d_lim_scale,
+        ddiv=model.element_max_size * (cc.ddiv_scale_self if pair.is_self
+                                       else cc.ddiv_scale))
+
+
+class BroadPhase(NamedTuple):
+    """The broad phase's result for one pair (device tensors)."""
+    tri_in: torch.Tensor    # (F2,) bool: active and in the overlap range
+    node_in: torch.Tensor   # (Ci,) bool
+    all_min: torch.Tensor   # (3,) grid origin
+    pair_ok: torch.Tensor   # (tri_chunks, n_chunks) bool block pairs kept
+    overlap: torch.Tensor   # () bool: the two sides' boxes overlap
+    # block boxes: q0 over each triangle block's in-range triangles, the
+    # position over each node block's in-range nodes (+-inf when empty)
+    tri_box: tuple          # ((3, tri_chunks) min, max)
+    node_box: tuple         # ((3, n_chunks) min, max)
+
+
+def kin_views(kin, ksl):
+    """(q0, q1, q2, vel_j0, pos_i, vel_i, pos_jn) of one pair: slices of the
+    merged (6, R) kinematics gather."""
+    (a0, b0), (a1, b1), (a2, b2), (cs, ce), (js, je) = ksl
+    return (kin[:3, a0:b0], kin[:3, a1:b1], kin[:3, a2:b2], kin[3:, a0:b0],
+            kin[:3, cs:ce], kin[3:, cs:ce], kin[:3, js:je])
+
+
+def _sq3(x):
+    return (x[0] * x[0] + x[1] * x[1]) + x[2] * x[2]
+
+
+def _cells(p, lo, ddiv):
+    """cell = ceil((p - all_min) / ddiv), int32 (HAKAI_j.jl:2331-2363)."""
+    return torch.ceil((p - lo[:, None]) / ddiv).to(torch.int32)
+
+
+def tri_geometry(q0, q1, q2, c):
+    """Per-triangle geometry of ``_pair_force`` (contact.py:266-303) for
+    (3, T) vertex rows: (ctr, rmax, nrm, kpen, im (3 rows of (3, T)))."""
+    ctr = ((q0 + q1) + q2) / c["three"]
+    rmax = torch.sqrt(torch.maximum(torch.maximum(_sq3(q0 - ctr),
+                                                  _sq3(q1 - ctr)),
+                                    _sq3(q2 - ctr)))
+    v1, v2 = q1 - q0, q2 - q0
+    L1, L2 = torch.sqrt(_sq3(v1)), torch.sqrt(_sq3(v2))
+    Lm = torch.maximum(L1, L2)
+    safe_L = torch.where(Lm == 0, 1.0, Lm)
+    cr = torch.stack([v1[1] * v2[2] - v1[2] * v2[1],
+                      v1[2] * v2[0] - v1[0] * v2[2],
+                      v1[0] * v2[1] - v1[1] * v2[0]])
+    mag = torch.sqrt(_sq3(cr))
+    nrm = cr / torch.where(mag == 0, 1.0, mag)
+    d12 = (v1[0] * v2[0] + v1[1] * v2[1]) + v1[2] * v2[2]
+    S = c["half"] * torch.sqrt(torch.clamp_min(
+        (L1 * L1) * (L2 * L2) - d12 * d12, 0.0))
+    kpen = ((c["young"] * S) / safe_L) * c["kc"]
+    A = (v1, v2, -nrm)
+    det = (((((A[0][0] * A[1][1]) * A[2][2] + (A[1][0] * A[2][1]) * A[0][2])
+             + (A[2][0] * A[0][1]) * A[1][2]) - (A[0][0] * A[2][1]) * A[1][2])
+           - (A[1][0] * A[0][1]) * A[2][2]) - (A[2][0] * A[1][1]) * A[0][2]
+    sd = torch.where(det == 0, 1.0, det)
+
+    def inv_row(r):
+        c1, c2 = (r + 1) % 3, (r + 2) % 3
+        return torch.stack([A[c1][1] * A[c2][2] - A[c2][1] * A[c1][2],
+                            A[c2][0] * A[c1][2] - A[c1][0] * A[c2][2],
+                            A[c1][0] * A[c2][1] - A[c2][0] * A[c1][1]]) / sd
+    return ctr, rmax, nrm, kpen, (inv_row(0), inv_row(1), inv_row(2))
+
+
+def constants_on(consts: PairConstants, dtype, device) -> dict:
+    """The constants as 0-d tensors of ``dtype`` on ``device``, with the
+    literals of the formulas (3, 0.5, 2)."""
+    c = {k: torch.tensor(v, dtype=dtype, device=device)
+         for k, v in consts._asdict().items()}
+    for k, v in (("three", 3.0), ("half", 0.5), ("two", 2.0)):
+        c[k] = torch.tensor(v, dtype=dtype, device=device)
+    return c
+
+
+def narrow_phase_plain(pair: ContactPair, kin, ksl, bp: BroadPhase,
+                       consts: PairConstants, record: bool = False):
+    """(force_i (3, Cp), force_t (3, Tp)[, info]) of one pair: the block
+    loop of ``_pair_force`` (contact.py:252-374).  With ``record``, ``info``
+    holds the accepted (triangle, node slot) pairs in loop order and the
+    pairs that reached each test (``cell``: both sides in and the cell
+    test passed; ``dist``: the circumradius cull passed; ``accept``)."""
+    q0, q1, q2, vj0, pos_i, vel_i, _ = kin_views(kin, ksl)
+    dt, dev = kin.dtype, kin.device
+    F2, Ci, TB, nb = q0.shape[1], pos_i.shape[1], pair.tb, pair.nb
+    c = constants_on(consts, dt, dev)
+    force_i = torch.zeros((3, pair.Cp), dtype=dt, device=dev)
+    force_t = torch.zeros((3, pair.Tp), dtype=dt, device=dev)
+    info = {"pairs": [], "cell": 0, "dist": 0, "accept": 0}
+    if bool(bp.overlap):
+        ctr, rmax, nrm, kpen, im = tri_geometry(q0, q1, q2, c)
+        cell_t = _cells(q0, bp.all_min, c["ddiv"])
+        cell_n = _cells(pos_i, bp.all_min, c["ddiv"])
+        ids = pair.cand_nodes
+        for pid in torch.nonzero(bp.pair_ok.reshape(-1)).reshape(-1).tolist():
+            t0 = (pid // pair.n_chunks) * TB
+            c0 = (pid % pair.n_chunks) * nb
+            ts, cs = slice(t0, min(t0 + TB, F2)), slice(c0, min(c0 + nb, Ci))
+            p, vi = pos_i[:, None, cs], vel_i[:, None, cs]        # (3, 1, C)
+            m = (bp.tri_in[ts, None] & bp.node_in[None, cs]
+                 & ((cell_t[:, ts, None] - cell_n[:, None, cs]).abs() <= 1
+                    ).all(dim=0))
+            if pair.is_self:
+                m &= ~(pair.tri_enodes[:, ts, None]
+                       == ids[None, None, cs]).any(dim=0)
+            n_cell = int(m.sum()) if record else 0
+            dpc = torch.sqrt(_sq3(p - ctr[:, ts, None]))
+            m &= dpc < rmax[ts, None]
+            n_dist = int(m.sum()) if record else 0
+            b = p - q0[:, ts, None]                                # (3, T, C)
+            x1, x2, d = ((r[0][ts, None] * b[0] + r[1][ts, None] * b[1])
+                         + r[2][ts, None] * b[2] for r in im)
+            m &= ((x1 >= 0.0) & (x2 >= 0.0) & (x1 + x2 <= 1.0)
+                  & (d > 0.0) & (d <= c["d_lim"]))
+            F = kpen[ts, None] * d
+            vr = vi - vj0[:, ts, None]
+            magv = torch.sqrt(_sq3(vr))
+            ve = torch.where(magv > 0, vr / torch.where(magv == 0, 1.0, magv),
+                             0.0)
+            n3 = nrm[:, ts, None]
+            dot = (ve[0] * n3[0] + ve[1] * n3[1]) + ve[2] * n3[2]
+            Cd = (c["two"] * torch.sqrt(pair.cand_mass[None, cs]
+                                        * kpen[ts, None])) * c["Cr"]
+            f = (F * n3 - (c["myu"] * F) * (ve - dot * n3)) - Cd * vr
+            f = torch.where(m, f, 0.0)
+            force_i[:, cs] += f.sum(dim=1)
+            force_t[:, ts] += f.sum(dim=2) / c["three"]
+            if record:
+                hit = torch.nonzero(m)
+                info["pairs"].append(torch.stack([hit[:, 0] + t0,
+                                                  hit[:, 1] + c0], dim=1))
+                info["cell"] += n_cell
+                info["dist"] += n_dist
+                info["accept"] += len(hit)
+    if record:
+        info["pairs"] = (torch.cat(info["pairs"]) if info["pairs"] else
+                         torch.zeros((0, 2), dtype=torch.long, device=dev))
+        return force_i, force_t, info
+    return force_i, force_t
+
+
+def narrow_splits(own_blocks, own_len, other_blocks):
+    """How many splits a side's launch deals the other side's blocks out
+    over: enough CTAs (own blocks x tiles of NT items x splits) to fill the
+    card, at most one split per block.  Shapes alone set it, so the order
+    of every sum is fixed."""
+    ctas = own_blocks * -(-own_len // _NARROW_NT)
+    return max(1, min(other_blocks, -(-_NARROW_CTAS // max(ctas, 1))))
+
+
+def narrow_phase(pair: ContactPair, kin, ksl, bp: BroadPhase,
+                 consts: PairConstants, force, offsets, count=False):
+    """Write one pair's force_i into ``force[:, off_i:off_i + Cp]`` and its
+    force_t (reactions over 3) into ``force[:, off_t:off_t + Tp]``.
+
+    ``kin`` (6, R) merged kinematics in the element dtype, ``ksl`` the
+    pair's slices of it, ``bp`` its broad phase.  On the card the node and
+    the triangle kernels run one after the other, each over
+    :func:`narrow_splits` splits of the other side's blocks.  With
+    ``count`` it returns the accepted pairs per node slot (Cp,) and per
+    triangle slot (Tp,), int32, as each side counted them; else None."""
+    off_i, off_t = offsets
+    if kin.device.type == "cpu":
+        out = narrow_phase_plain(pair, kin, ksl, bp, consts, record=count)
+        force[:, off_i:off_i + pair.Cp] = out[0]
+        force[:, off_t:off_t + pair.Tp] = out[1]
+        if count:
+            hit = out[2]["pairs"]
+            return (torch.bincount(hit[:, 1], minlength=pair.Cp).int(),
+                    torch.bincount(hit[:, 0], minlength=pair.Tp).int())
+        return None
+    if kin.device.type != "cuda":
+        raise ValueError(f"no narrow-phase kernel for device {kin.device}")
+    entry = _NARROW.get(kin.dtype)
+    if entry is None:
+        raise TypeError(f"no narrow-phase kernel for {kin.dtype}")
+    dt, R, W = kin.dtype, kin.shape[1], force.shape[1]
+    F2, Ci = pair.tri_nodes.shape[1], pair.cand_nodes.shape[0]
+    spec = {"kin": (kin, (6, R), dt), "force": (force, (3, W), dt),
+            "tri_in": (bp.tri_in, (F2,), torch.bool),
+            "node_in": (bp.node_in, (Ci,), torch.bool),
+            "pair_ok": (bp.pair_ok, (pair.tri_chunks, pair.n_chunks),
+                        torch.bool),
+            "overlap": (bp.overlap, (), torch.bool),
+            "all_min": (bp.all_min, (3,), dt),
+            "tri_box min": (bp.tri_box[0], (3, pair.tri_chunks), dt),
+            "tri_box max": (bp.tri_box[1], (3, pair.tri_chunks), dt),
+            "node_box min": (bp.node_box[0], (3, pair.n_chunks), dt),
+            "node_box max": (bp.node_box[1], (3, pair.n_chunks), dt),
+            "cand_mass": (pair.cand_mass, (Ci,), dt),
+            "cand_nodes": (pair.cand_nodes, (Ci,), torch.int32)}
+    if pair.is_self:
+        spec["tri_enodes"] = (pair.tri_enodes, (8, F2), torch.int32)
+    _build.check_inputs(kin.device, spec)
+    if max(off_i + pair.Cp, off_t + pair.Tp) > W:
+        raise ValueError("pair force columns exceed the force buffer")
+    lib = _build.library()
+    (t0, _), (t1, _), (t2, _), (cs, _), _ = ksl
+    ptr = (lambda x: None if x is None else x.data_ptr())
+    sides = ((0, off_i, narrow_splits(pair.n_chunks, pair.nb,
+                                      pair.tri_chunks), pair.Cp),
+             (1, off_t, narrow_splits(pair.tri_chunks, pair.tb,
+                                      pair.n_chunks), pair.Tp))
+    counts = []
+    with torch.cuda.device(kin.device):
+        stream = torch.cuda.current_stream(kin.device).cuda_stream
+        for side, off, splits, n in sides:
+            part = None if splits == 1 else torch.empty(
+                (splits, 3, n), dtype=dt, device=kin.device)
+            cnt = torch.empty((splits, n), dtype=torch.int32,
+                              device=kin.device) if count else None
+            err = getattr(lib, entry)(
+                kin.data_ptr(), R, t0, t1, t2, cs, F2, Ci, pair.tb, pair.nb,
+                pair.tri_chunks, pair.n_chunks, bp.tri_in.data_ptr(),
+                bp.node_in.data_ptr(), bp.pair_ok.data_ptr(),
+                bp.overlap.data_ptr(), *(x.data_ptr() for x in
+                                         bp.tri_box + bp.node_box),
+                bp.all_min.data_ptr(),
+                pair.cand_mass.data_ptr(), pair.cand_nodes.data_ptr(),
+                ptr(pair.tri_enodes if pair.is_self else None),
+                consts.young, consts.kc, consts.Cr, consts.myu,
+                consts.d_lim, consts.ddiv, force.data_ptr(), W, off,
+                ptr(cnt), ptr(part), splits, side, stream)
+            _build.check(lib, err, "narrow-phase kernel")
+            counts.append(cnt)
+    narrow_phase.launches += 1
+    if count:
+        return tuple(c.sum(dim=0, dtype=torch.int32) for c in counts)
+    return None
+
+
+# one launch = the node kernel and the triangle kernel of one pair
+narrow_phase.launches = 0
+
+
+def scatter_forces_plain(model: LoweredModel, force, out_dtype=None):
+    """(3, N) nodal contact force from the (3, W) pair-force buffer: each
+    node adds its table's first entries and subtracts the rest, in table
+    order, in the buffer's dtype; stored in ``out_dtype``."""
+    out_dtype = force.dtype if out_dtype is None else out_dtype
+    ptr, mid, col = model.fs_ptr.long(), model.fs_mid.long(), \
+        model.fs_col.long()
+    count = ptr[1:] - ptr[:-1]
+    acc = torch.zeros((3, model.N), dtype=force.dtype, device=force.device)
+    for k in range(int(count.max()) if model.N else 0):
+        rows = torch.nonzero(count > k).reshape(-1)
+        e = ptr[rows] + k
+        x = force[:, col[e]]
+        a = acc[:, rows]
+        acc[:, rows] = torch.where(e < mid[rows], a + x, a - x)
+    return acc.to(out_dtype)
+
+
+def scatter_forces(model: LoweredModel, force, out_dtype=None):
+    """Kernel S: the (3, N) contact force from the pair-force buffer,
+    summed in its dtype and stored in ``out_dtype`` (default: its dtype)."""
+    out_dtype = force.dtype if out_dtype is None else out_dtype
+    if force.device.type == "cpu":
+        return scatter_forces_plain(model, force, out_dtype)
+    if force.device.type != "cuda":
+        raise ValueError(f"no scatter kernel for device {force.device}")
+    entry = _SCATTER.get((force.dtype, out_dtype))
+    if entry is None:
+        raise TypeError(f"no scatter kernel for {force.dtype} -> "
+                        f"{out_dtype}")
+    N, W = model.N, model.fs_width
+    _build.check_inputs(force.device, {
+        "force": (force, (3, W), force.dtype),
+        "fs_ptr": (model.fs_ptr, (N + 1,), torch.int32),
+        "fs_mid": (model.fs_mid, (N,), torch.int32),
+        "fs_col": (model.fs_col, tuple(model.fs_col.shape), torch.int32)})
+    lib = _build.library()
+    out = torch.empty((3, N), dtype=out_dtype, device=force.device)
+    with torch.cuda.device(force.device):
+        err = getattr(lib, entry)(
+            force.data_ptr(), W, model.fs_ptr.data_ptr(),
+            model.fs_mid.data_ptr(), model.fs_col.data_ptr(), N,
+            out.data_ptr(), torch.cuda.current_stream(force.device).cuda_stream)
+    _build.check(lib, err, "scatter kernel")
+    scatter_forces.launches += 1
+    return out
+
+
+scatter_forces.launches = 0

@@ -115,6 +115,20 @@ def impact_model(n=4, v0=100.0, d_time=1e-7, end_time=1e-4) -> Model:
     return m
 
 
+def offset_instance(m: Model, inst: int, dx: float, dy: float) -> Model:
+    """Move instance ``inst`` (0-based) of ``m`` in plane by (dx, dy), in
+    place: its part's coordinates and the model's.  An off-grid offset
+    takes the aligned grids of :func:`impact_model` out of the node-on-edge
+    ties of the accept tests (see :func:`self_contact_model`)."""
+    i = m.instances[inst]
+    part = m.parts[i.part_id - 1]
+    nodes = slice(i.node_offset, i.node_offset + i.n_node)
+    part.coordmat = part.coordmat + np.array([[dx], [dy], [0.0]])
+    m.coordmat = m.coordmat.copy()
+    m.coordmat[:2, nodes] += np.array([[dx], [dy]])
+    return m
+
+
 def self_contact_model(n=4, gap=0.05, v0=5.0e4, d_time=3e-8,
                        end_time=6e-6) -> Model:
     """Single-instance self-contact: two parallel plates belonging to ONE

@@ -2,10 +2,12 @@
 (mirrors the packed chunk loop and the single-device ``run()`` of
 ``hakai_tpu/solver/explicit.py``).
 
-A step is four things: the central-difference update with
-amplitude-scaled boundary conditions (plain PyTorch), the fused element
-kernel, the assembly kernel, and on fracture decks the erosion table walk
-(plain PyTorch).  The step counter and the current time stay on the
+A step is five things: on contact decks the contact force (activity
+masks and broad phase in plain PyTorch, then the gather, narrow-phase and
+scatter kernels), the central-difference update with amplitude-scaled
+boundary conditions (plain PyTorch), the fused element kernel, the
+assembly kernel, and on fracture decks the erosion table walk (plain
+PyTorch).  The step counter and the current time stay on the
 device: nothing in a chunk reads a value back to the host.  ``run()``
 drives chunks from the host and writes VTK frames, checkpoints and
 metrics between them.
@@ -22,6 +24,7 @@ from ..core.lowering import LoweredModel
 from ..core.state import SimState, init_state
 from ..io.vtk import write_pvd, write_vtk
 from ..ops.assemble_cuda import assemble_internal_force
+from ..ops.contact import contact_forces
 from ..ops.element import triax_components
 from ..ops.element_cuda import packed_element_step
 from ..utils.checkpoint import save_checkpoint
@@ -59,17 +62,26 @@ def apply_bc(model: LoweredModel, disp_new, current_time):
 
 
 def _integrate(model: LoweredModel, state: SimState):
-    """Central difference + BCs.  Returns (t, disp_new, velo, dwork); dwork
-    is the [dW_ext, dW_int] increment pair, or None unless
-    ``config.energy_check``.  Time and a1 = M/dt^2 are formed in the model
-    dtype, as the JAX step forms them."""
+    """Contact + central difference + BCs.  Returns (t, disp_new, velo,
+    cforce, dwork); cforce is the step's contact force (the state's, unchanged,
+    on decks without contact) and dwork the [dW_ext, dW_int] increment
+    pair, or None unless ``config.energy_check``.  Time and a1 = M/dt^2 are
+    formed in the model dtype, as the JAX step forms them.
+
+    The contact activity masks are formed every step from the step's life
+    mask: they are pure functions of it, so this gives the bits the JAX
+    chunk loop carries (it recomputes them only after a deletion) with no
+    read back to the host."""
     dt = model.dt_t
     t = state.t + 1
     current_time = t.to(model.dtype) * dt
     a1 = model.diag_M / dt**2
     a2 = model.diag_M * model.config.damping_C / (2.0 * dt)
-    # no contact: the external force is zero
-    numer = (-state.Q + a1 * (2.0 * state.disp - state.disp_pre)
+    cforce, external = state.contact_force, None
+    if model.pairs:
+        cforce = external = contact_forces(model, state)
+    force = -state.Q if external is None else external - state.Q
+    numer = (force + a1 * (2.0 * state.disp - state.disp_pre)
              + a2 * state.disp_pre)
     disp_new = numer / (a1 + a2)
     disp_new = apply_bc(model, disp_new, current_time)
@@ -78,13 +90,14 @@ def _integrate(model: LoweredModel, state: SimState):
     dwork = None
     if model.config.energy_check:
         # discrete energy balance: with du_mid = (u_new - u_prev)/2,
-        # dKE = (F_c - Q) . du_mid exactly in real arithmetic, F_c the
-        # constraint force realizing the prescribed motion at BC dofs
+        # dKE = (F_ext + F_c - Q) . du_mid exactly in real arithmetic, F_c
+        # the constraint force realizing the prescribed motion at BC dofs
         du_mid = 0.5 * (disp_new - state.disp_pre)
         f_c = torch.where(model.bcd_mask, (a1 + a2) * disp_new - numer, 0.0)
-        dwork = torch.stack([torch.sum(f_c * du_mid),
+        w_ext = f_c if external is None else external + f_c
+        dwork = torch.stack([torch.sum(w_ext * du_mid),
                              torch.sum(state.Q * du_mid)])
-    return t, disp_new, velo, dwork
+    return t, disp_new, velo, cforce, dwork
 
 
 def step_fast_packed(model: LoweredModel, state: SimState, P):
@@ -101,7 +114,7 @@ def step_fast_packed(model: LoweredModel, state: SimState, P):
     the kernel's, masked by the pre-erosion flag, and the flag is the
     post-erosion one; dead elements keep stale stress in ``P`` until the
     chunk exit."""
-    t, disp_new, velo, dwork = _integrate(model, state)
+    t, disp_new, velo, cforce, dwork = _integrate(model, state)
     P_new, qe, triax, flag = packed_element_step(
         model, P, state.element_flag, disp_new, state.disp)
     Q = assemble_internal_force(model, qe, out_dtype=model.dtype)
@@ -109,7 +122,7 @@ def step_fast_packed(model: LoweredModel, state: SimState, P):
     return state.replace(
         t=t, disp=disp_new, disp_pre=state.disp, velo=velo, Q=Q,
         triax=state.triax if triax is None else triax, element_flag=flag,
-        work=work), P_new
+        contact_force=cforce, work=work), P_new
 
 
 def pack_gauss_state(state: SimState):

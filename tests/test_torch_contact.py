@@ -1,0 +1,299 @@
+"""Contact in the port against the JAX package, one force evaluation at a
+time: the two-body cases of tests/test_contact.py with their analytic
+checks, the erosion re-exposure and the self-contact exclusion, and the
+plain versions of the gather and scatter kernels against the JAX pieces
+they replace."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hakai_tpu.config import ContactConfig, SolverConfig
+from hakai_tpu.core.lowering import lower as jax_lower
+from hakai_tpu.core.state import init_state as jax_init_state
+from hakai_tpu.ops.contact import _pad_last, _pair_force
+from hakai_tpu.ops.contact import contact_forces as jax_contact_forces
+from hakai_tpu.ops.contact import contact_forces_pv as jax_forces_pv
+from hakai_tpu.ops.contact import pair_activity as jax_pair_activity
+from hakai_tpu.ops.gather_pallas import blocked_gather, plan_blocked_gather
+from hakai_tpu.pre.synthetic import impact_model
+from hakai_tpu_torch.core.lowering import model_from_numpy
+from hakai_tpu_torch.core.state import init_state
+from hakai_tpu_torch.ops.contact import (contact_forces, contact_forces_pv,
+                                         pair_activity)
+from hakai_tpu_torch.ops.contact_cuda import narrow_splits, scatter_forces
+from hakai_tpu_torch.ops.gather_cuda import gather_cols
+from test_contact import _corner_node, two_body_model
+from test_element import unit_cube_model
+from test_torch_slice import jax_model_numpy
+
+REL = 1e-12      # float64: the same formulas in another association order
+
+
+def carried(jm, keep=None):
+    """The port's model of a JAX lowering (float64 on the CPU); ``keep``
+    selects the directional pairs to carry (all by default)."""
+    fields, static = jax_model_numpy(jm)
+    fields["pairs"] = [p for i, p in enumerate(fields["pairs"])
+                       if keep is None or keep(jm.pairs[i])]
+    return model_from_numpy(fields, static, "cpu")
+
+
+def _check(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    assert got.shape == ref.shape
+    scale = np.abs(ref).max()
+    assert np.abs(got - ref).max() <= REL * max(scale, 1e-300), \
+        (np.abs(got - ref).max(), scale)
+
+
+def _forces(m, cfg=None):
+    jm = jax_lower(m, cfg or SolverConfig())
+    tm = carried(jm)
+    return jm, tm, np.asarray(jax_contact_forces(jm, jax_init_state(jm))), \
+        contact_forces(tm, init_state(tm)).numpy()
+
+
+def _slab_pair_force(m, velo=None):
+    """The pair of upper-cube nodes against the slab's triangles alone, in
+    both packages (tests/test_contact.py takes this pair's _pair_force)."""
+    jm = jax_lower(m)
+    js = jax_init_state(jm)
+    if velo is not None:
+        js = js.replace(velo=jnp.asarray(velo))
+    pair = next(p for p in jm.pairs if p.j_instance == 0)
+    ref = np.asarray(_pair_force(jm, pair, jm.coord + js.disp, js.velo,
+                                 js.element_flag))
+    tm = carried(jm, keep=lambda p: p.j_instance == 0)
+    got = contact_forces_pv(tm, tm.coord.clone(), torch.as_tensor(
+        np.array(js.velo)), tm.elem_exists).numpy()
+    return ref, got
+
+
+def test_penalty_force_magnitude():
+    """A strictly interior penetrating node: F = young*S/Lmax*kc*d along
+    +z, reactions -F/3 on the vertices; momentum sums to zero."""
+    d = 0.01
+    m = two_body_model(gap=-d, upper_shift=(0.1, 0.2))
+    _, _, ref, got = _forces(m)
+    _check(got, ref)
+    np.testing.assert_allclose(got.sum(axis=1), 0.0, atol=1e-10)
+    ref_p, got_p = _slab_pair_force(m)
+    _check(got_p, ref_p)
+    nid = _corner_node(m, [0.1, 0.2, 1 - d])
+    expect = 100.0 * 0.125 / np.sqrt(0.5) * d
+    np.testing.assert_allclose(got_p[:, nid], [0.0, 0.0, expect], atol=1e-12)
+
+
+def test_friction_force_direction():
+    """A sliding node: friction opposes the tangential relative velocity
+    with |f| = myu*F."""
+    d = 0.01
+    m = two_body_model(gap=-d, upper_shift=(0.1, 0.2))
+    nid = _corner_node(m, [0.1, 0.2, 1 - d])
+    velo = np.zeros((3, jax_lower(m).N))
+    velo[0, nid] = 3.0
+    ref, got = _slab_pair_force(m, velo)
+    _check(got, ref)
+    F = 100.0 * 0.125 / np.sqrt(0.5) * d
+    np.testing.assert_allclose(got[2, nid], F, atol=1e-12)
+    np.testing.assert_allclose(got[0, nid], -0.25 * F, atol=1e-12)
+
+
+@pytest.mark.parametrize("gap", [0.05, -0.2])
+def test_no_force_when_separated_or_too_deep(gap):
+    """Separated bodies, and a penetration deeper than d_lim = 0.3 *
+    elementMinSize = 0.15: no force in either package."""
+    _, _, ref, got = _forces(two_body_model(gap=gap))
+    assert not ref.any() and not got.any()
+
+
+def test_static_cull_and_engaged_offgrid():
+    """An engaged off-grid configuration, lowered with the culled and with
+    the full inventory: both packages, both lowerings agree."""
+    m = two_body_model(gap=-0.02, upper_shift=(0.13, 0.07))
+    _, tm, ref, got = _forces(m)
+    assert all(p.static_activity for p in tm.pairs) and np.abs(ref).max() > 0
+    _check(got, ref)
+    _, tm, ref2, got2 = _forces(m, SolverConfig(
+        contact=ContactConfig(static_cull=False)))
+    assert not any(p.static_activity for p in tm.pairs)
+    _check(got2, ref2)
+    np.testing.assert_allclose(got2, got, rtol=1e-12, atol=1e-14)
+
+
+def test_reexposure_after_deletion():
+    """Deleting a slab element under a penetrating node: the activity
+    masks equal JAX's bitwise, the dead element's triangles leave, its
+    twins' faces appear, and the forces agree."""
+    m = two_body_model(gap=-0.01, upper_shift=(0.13, 0.07), nx_low=2)
+    jm = jax_lower(m, SolverConfig(contact=ContactConfig(static_cull=False)))
+    tm = carried(jm)
+    flag = np.asarray(jm.elem_exists).copy()
+    flag[0] = False
+    for jp, tp in zip(jm.pairs, tm.pairs):
+        for a, b in zip(jax_pair_activity(jp, jnp.asarray(flag)),
+                        pair_activity(tp, torch.as_tensor(flag))):
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    pair = next(p for p in tm.pairs if p.j_instance == 0)
+    tri = pair_activity(pair, torch.as_tensor(flag))[0].numpy()
+    te, tw = pair.tri_elem.numpy(), pair.tri_twin.numpy()
+    assert not tri[te == 0].any() and tri[(tw == 0) & (te != 0)].all()
+    js = jax_init_state(jm)
+    pos = jm.coord + js.disp
+    ref = np.asarray(jax_forces_pv(jm, pos, js.velo, jnp.asarray(flag)))
+    got = contact_forces_pv(tm, tm.coord.clone(), tm.velo0.clone(),
+                            torch.as_tensor(flag)).numpy()
+    assert np.abs(ref).max() > 0
+    _check(got, ref)
+
+
+def test_self_contact_excludes_own_element():
+    """A self pair on an isolated cube: every node belongs to the elements
+    of the triangles it could touch, so no force."""
+    m = unit_cube_model()
+    m.contact_flag = 2
+    _, tm, ref, got = _forces(m)
+    assert len(tm.pairs) == 1 and tm.pairs[0].is_self
+    assert not ref.any() and not got.any()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_gather_plain_matches_blocked_gather(dtype):
+    """gather_cols (CPU: its plain version) against blocked_gather, which
+    on the CPU takes the XLA gather: bitwise, for a merged contact-style
+    index list."""
+    rng = np.random.default_rng(5)
+    S = 4096
+    src = rng.normal(size=(6, S)).astype(dtype)
+    idx = np.concatenate([rng.integers(0, S, 3000), np.arange(100, 2148)])
+    plan = plan_blocked_gather(idx, S)
+    ref = np.asarray(blocked_gather(jnp.asarray(src), plan))
+    got = gather_cols(torch.as_tensor(src),
+                      torch.as_tensor(idx.astype(np.int32))).numpy()
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
+
+
+def _jax_scatter(pair, force_i, force_t, N):
+    """The JAX pair's force epilogue on given force_i/force_t
+    (hakai_tpu/ops/contact.py:375-403, scatter-as-gather)."""
+    Ci, F2 = pair.cand_nodes.shape[0], pair.tri_nodes.shape[1]
+    fi = _pad_last(force_i[:, :Ci], pair.fgi_src)
+    gi = blocked_gather(fi, pair.plan_fgi).reshape(3, -1, N)
+    g = jnp.where(pair.fgi_mask[None], gi, 0.0).sum(axis=1)
+    ft = _pad_last(force_t[:, :F2], pair.fgt_src)
+    if pair.fgt_segmask is not None:
+        c = blocked_gather(ft, pair.plan_fgt)
+        for si, s in enumerate(pair.fgt_strides):
+            sh = jnp.pad(c[:, s:], ((0, 0), (0, s)))
+            c = c + jnp.where(pair.fgt_segmask[si][None], sh, 0.0)
+        f_tn = blocked_gather(_pad_last(c, pair.fgt_k), pair.plan_pick)
+        f_tn = jnp.where(pair.fgt_tnvalid[None], f_tn, 0.0)
+    else:
+        gt = blocked_gather(ft, pair.plan_fgt).reshape(3, pair.fgt_vl,
+                                                       pair.fgt_n)
+        f_tn = jnp.where(pair.fgt_mask[None], gt, 0.0).sum(axis=1)
+    fx = blocked_gather(f_tn, pair.plan_fx)[:, :N]
+    return g - jnp.where(pair.fx_mask[None], fx, 0.0)
+
+
+def test_scatter_plain_matches_jax_epilogue():
+    """The per-node force table (kernel S's plain version) against the JAX
+    scatter-as-gather epilogue, summed over both pairs, on seeded force_i
+    and force_t: 1e-14 normwise in float64.  Blocks of 128 triangles and
+    32 nodes leave padding columns in the buffer."""
+    jm = jax_lower(impact_model(n=3), SolverConfig(
+        contact=ContactConfig(tri_block=128, node_block=32)))
+    tm = carried(jm)
+    rng = np.random.default_rng(11)
+    force = torch.zeros((3, tm.fs_width), dtype=torch.float64)
+    ref = np.zeros((3, tm.N))
+    for jp, tp, (off_i, off_t) in zip(jm.pairs, tm.pairs, tm.fs_offsets):
+        fi = rng.normal(size=(3, tp.cand_nodes.shape[0]))
+        ft = rng.normal(size=(3, tp.tri_nodes.shape[1]))
+        force[:, off_i:off_i + fi.shape[1]] = torch.as_tensor(fi)
+        force[:, off_t:off_t + ft.shape[1]] = torch.as_tensor(ft)
+        ref += np.asarray(_jax_scatter(jp, jnp.asarray(fi), jnp.asarray(ft),
+                                       tm.N))
+    got = scatter_forces(tm, force).numpy()
+    scale = np.abs(ref).max()
+    assert np.abs(got - ref).max() <= 1e-14 * scale
+    # padding columns are never read
+    unread = torch.ones(tm.fs_width, dtype=torch.bool)
+    unread[tm.fs_col.long()] = False
+    assert 0 < int(unread.sum()) < tm.fs_width
+    force[:, unread] = float("nan")
+    np.testing.assert_array_equal(scatter_forces(tm, force).numpy(), got)
+
+
+def test_pairs_and_tables_move_with_the_model():
+    """LoweredModel.to carries the pairs and the contact tables; the
+    kernels' input check names a tensor left on another device."""
+    from hakai_tpu_torch import _build
+    tm = carried(jax_lower(impact_model(n=2), SolverConfig()))
+    moved = tm.to("meta")
+    for p in moved.pairs:
+        for f in dataclasses.fields(p):
+            v = getattr(p, f.name)
+            if isinstance(v, torch.Tensor):
+                assert v.device.type == "meta", f.name
+    assert moved.ckin_idx.device.type == moved.fs_col.device.type == "meta"
+    assert moved.fs_offsets == tm.fs_offsets and moved.pairs[0].tb == \
+        tm.pairs[0].tb
+    with pytest.raises(ValueError, match="cand_mass is on cpu"):
+        _build.check_inputs(torch.device("meta"), {
+            "cand_mass": (tm.pairs[0].cand_mass,
+                          tuple(tm.pairs[0].cand_mass.shape),
+                          tm.pairs[0].cand_mass.dtype)})
+
+
+def test_narrow_phase_counts_accepted_pairs():
+    """narrow_phase's count option, which the check of the kernel against
+    its plain version reads: the interior penetrating node of the penalty
+    case is accepted once, both sides count the same pairs, and counting
+    leaves the forces as they are."""
+    from hakai_tpu_torch.ops.contact import broad_phase, contact_kinematics
+    from hakai_tpu_torch.ops.contact_cuda import narrow_phase, pair_constants
+    d = 0.01
+    m = two_body_model(gap=-d, upper_shift=(0.1, 0.2))
+    tm = carried(jax_lower(m))
+    nid = _corner_node(m, [0.1, 0.2, 1 - d])
+    kin = contact_kinematics(tm, tm.coord.clone(), tm.velo0.clone())
+    forces = []
+    for count in (True, False):
+        force = torch.zeros((3, tm.fs_width), dtype=torch.float64)
+        for i, p in enumerate(tm.pairs):
+            c, ksl = pair_constants(tm, p), tm.ckin_slices[i]
+            bp = broad_phase(p, kin, ksl, pair_activity(p, tm.elem_exists), c)
+            out = narrow_phase(p, kin, ksl, bp, c, force, tm.fs_offsets[i],
+                               count=count)
+            if not count:
+                assert out is None
+                continue
+            per_node, per_tri = out
+            assert per_node.shape == (p.Cp,) and per_tri.shape == (p.Tp,)
+            assert per_node.dtype == per_tri.dtype == torch.int32
+            assert int(per_node.sum()) == int(per_tri.sum())
+            if p.j_instance == 0:
+                slot = int(torch.nonzero(p.cand_nodes == nid)[0, 0])
+                assert int(per_node[slot]) == 1
+        forces.append(force)
+    assert torch.equal(forces[0], forces[1]) and forces[0].abs().max() > 0
+
+
+@pytest.mark.parametrize("own,other,want", [
+    ((10, 2048), 2592, 13),     # slab nodes vs the n=48 cube's triangles
+    ((2592, 512), 10, 1),       # those triangles vs the slab's node blocks
+    ((58, 2048), 216, 3),       # cube nodes vs the slab's triangles
+    ((2, 2048), 14, 14),        # the n=12 card test: cube nodes, and
+    ((14, 512), 2, 2),          # the slab's triangles, both split
+    ((1, 2048), 5, 5),          # never more splits than the other's blocks
+    ((1, 0), 0, 1)])
+def test_narrow_splits(own, other, want):
+    """A narrow-phase launch deals the other side's blocks over enough
+    splits to fill the card (~4,096 CTAs of 64 threads), one split a block
+    at most, and from the shapes alone."""
+    assert narrow_splits(*own, other) == want

@@ -128,6 +128,135 @@ def test_mixed_assembly_stores_float64(cuda):
     assert _rel(Q, assemble_internal_force_plain(m, qe).double()) <= 1e-6
 
 
+def _impact(dtype, device, steps=90, ductile=True, n=4):
+    """The tie-free impact (cube off the slab's grid lines) lowered on
+    ``device`` and stepped past its first contact: n=4 at d_time 1e-8
+    (contact at step ~63), n=12 at 4e-9 (its cfl_dt is 8.3e-9; contact at
+    step 158)."""
+    from hakai_tpu_torch.pre.synthetic import impact_model, offset_instance
+    deck = offset_instance(impact_model(n=n, v0=8.0e4,
+                                        d_time=1e-8 if n == 4 else 4e-9,
+                                        end_time=1e-5), 1, 0.013, 0.017)
+    if not ductile:
+        deck.materials[0].ductile = np.zeros((0, 3))
+    m = lower(deck, SolverConfig(dtype=dtype), device=device)
+    return m, run_chunk(m, init_state(m), steps)
+
+
+@pytest.mark.parametrize("n,steps,dtype", [
+    (4, 90, "mixed"), (4, 90, "float64"),
+    (12, 190, "mixed"), (12, 190, "float64")])
+def test_contact_kernels_match_plain(cuda, n, steps, dtype):
+    """Kernels G, N and S against their plain versions on a state in
+    contact: the gather bitwise; the narrow phase as a step launches it
+    (n=12: the cube nodes' pair splits both of its launches, 14 and 2
+    ways) with forces within the element bounds, every node's and every
+    triangle's accepted pairs equal to the plain version's (the deck has
+    no ties), bitwise repeatable and unchanged by counting; the scatter
+    within the assembly's bounds."""
+    from hakai_tpu_torch.ops.contact import (broad_phase, contact_activity,
+                                             contact_kinematics)
+    from hakai_tpu_torch.ops.contact_cuda import (narrow_phase,
+                                                  narrow_phase_plain,
+                                                  narrow_splits,
+                                                  pair_constants,
+                                                  scatter_forces,
+                                                  scatter_forces_plain)
+    from hakai_tpu_torch.ops.gather_cuda import gather_cols, gather_cols_plain
+    m, s = _impact(dtype, cuda, steps, n=n)
+    edt = m.edtype
+    pos, vel = (m.coord + s.disp).to(edt), s.velo.to(edt)
+    kin = contact_kinematics(m, pos, vel)
+    assert torch.equal(kin, gather_cols_plain(torch.cat([pos, vel]),
+                                              m.ckin_idx))
+    acts = contact_activity(m, s.element_flag)
+    force = torch.empty((3, m.fs_width), dtype=edt, device=cuda)
+    accepts, split_both = 0, False
+    for i, p in enumerate(m.pairs):
+        ksl, c = m.ckin_slices[i], pair_constants(m, p)
+        split_both |= min(narrow_splits(p.n_chunks, p.nb, p.tri_chunks),
+                          narrow_splits(p.tri_chunks, p.tb, p.n_chunks)) > 1
+        bp = broad_phase(p, kin, ksl, acts[i], c)
+        off_i, off_t = m.fs_offsets[i]
+        before = narrow_phase.launches
+        per_node, per_tri = narrow_phase(p, kin, ksl, bp, c, force,
+                                         (off_i, off_t), count=True)
+        assert narrow_phase.launches == before + 1
+        fi, ft, info = narrow_phase_plain(p, kin, ksl, bp, c, record=True)
+        hit = info["pairs"]
+        assert torch.equal(per_node, torch.bincount(
+            hit[:, 1], minlength=p.Cp).int())
+        assert torch.equal(per_tri, torch.bincount(
+            hit[:, 0], minlength=p.Tp).int())
+        accepts += info["accept"]
+        assert _rel(force[:, off_i:off_i + p.Cp], fi) <= TOL[edt]
+        assert _rel(force[:, off_t:off_t + p.Tp], ft) <= TOL[edt]
+        again = [torch.zeros_like(force) for _ in range(2)]
+        for f in again:
+            assert narrow_phase(p, kin, ksl, bp, c, f, (off_i, off_t)) is None
+        assert torch.equal(again[0], again[1])
+        for a, b in ((off_i, p.Cp), (off_t, p.Tp)):
+            assert torch.equal(again[0][:, a:a + b], force[:, a:a + b])
+    assert accepts > 0 and split_both == (n == 12)
+    g = scatter_forces(m, force, m.dtype)
+    assert g.dtype == m.dtype
+    assert _rel(g, scatter_forces_plain(m, force, m.dtype)) <= \
+        (1e-6 if edt == torch.float32 else 1e-14)
+    assert torch.equal(g, scatter_forces(m, force, m.dtype))
+    assert torch.equal(gather_cols(kin, m.ckin_idx[:100]),
+                       gather_cols_plain(kin, m.ckin_idx[:100]))
+
+
+def test_contact_run_chunk_card_matches_cpu_f64(cuda):
+    """The impact through its first contact in float64 on the card and on
+    the CPU: the same trajectory to roundoff."""
+    g = _impact("float64", cuda, 150)[1]
+    c = _impact("float64", "cpu", 150)[1]
+    assert c.contact_force.abs().max() > 0 or c.eq_ps.max() > 0
+    for name in ("disp", "velo", "contact_force", "stress", "eq_ps"):
+        assert _rel(getattr(g, name).cpu(), getattr(c, name)) <= 1e-10, name
+
+
+@pytest.mark.parametrize("dtype", ["float64", "mixed"])
+def test_self_contact_card_matches_cpu(cuda, dtype):
+    """The self-contact plates (the self pair's kernels, with own-element
+    exclusion) on the card and on the CPU: at step 40, in contact, and at
+    the deck's end, step 200, after contact moved the lower plate.
+    float64 agrees to roundoff (disp, velo, contact force), mixed in disp
+    within the float32 bound of the trajectory phase of chip_smoke.py."""
+    from hakai_tpu_torch.pre.synthetic import self_contact_model
+    deck = self_contact_model()
+    cfg = SolverConfig(dtype=dtype)
+    runs = []
+    for dev in (cuda, "cpu"):
+        m = lower(deck, cfg, device=dev)
+        assert len(m.pairs) == 1 and m.pairs[0].is_self
+        s40 = run_chunk(m, init_state(m), 40)
+        runs.append((s40, run_chunk(m, s40, 160)))
+    (g40, g), (c40, c) = runs
+    assert c40.contact_force.abs().max() > 0
+    assert c.disp[:, m.coord[2] == 0.2].abs().max() > 1e-6
+    names = ("disp", "velo", "contact_force") if dtype == "float64" else \
+        ("disp",)
+    for a, b in ((g40, c40), (g, c)):
+        for name in names:
+            assert _rel(getattr(a, name).cpu(), getattr(b, name)) <= \
+                (1e-10 if dtype == "float64" else 2e-5), name
+
+
+def test_pairs_left_on_the_cpu_raise(cuda):
+    """A model whose contact pairs were not moved to the card fails the
+    kernels' input check instead of passing CPU pointers (a fracture-free
+    deck: its pairs need no activity masks, whose indexing would stop at
+    PyTorch's own device check first)."""
+    import dataclasses
+    m, s = _impact("mixed", cuda, 0, ductile=False)
+    assert all(p.static_activity for p in m.pairs)
+    cpu_pairs = tuple(p.to("cpu") for p in m.pairs)
+    with pytest.raises(ValueError, match="is on cpu"):
+        run_chunk(dataclasses.replace(m, pairs=cpu_pairs), s, 1)
+
+
 def test_mixed_fracture_run_chunk_card_matches_cpu(cuda):
     """The ductile bar in mixed precision for 500 steps (past the first
     deletions, at step 454 on the CPU) on the card and on the CPU: equal

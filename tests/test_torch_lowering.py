@@ -117,15 +117,17 @@ def test_mixed_ductile_lowering_matches_jax(shape):
     assert state.stress.dtype == state.yield_s.dtype == torch.float32
 
 
-@pytest.mark.parametrize("case", ["contact", "fracture", "mixed"])
+@pytest.mark.parametrize("case", ["halo", "fracture", "mixed"])
 def test_unported_features_raise(case):
     """What the port does not run yet raises NotImplementedError naming its
-    ROADMAP item: contact decks at lowering, multi-device run() on a
-    fracture deck, and the generic element path (element_kernel="xla") on
-    a mixed deck."""
-    if case == "contact":
+    ROADMAP item: the halo decomposition of run() on a contact deck,
+    multi-device run() on a fracture deck, and the generic element path
+    (element_kernel="xla") on a mixed deck."""
+    if case == "halo":
+        m = lower(impact_model(n=2), SolverConfig(), device="cpu")
+
         def go():
-            lower(impact_model(n=2), SolverConfig(), device="cpu")
+            run(m, halo=2, device="cpu", write_output=False)
     elif case == "fracture":
         m = lower(bar_model(ductile=True), SolverConfig(), device="cpu")
 
@@ -138,5 +140,7 @@ def test_unported_features_raise(case):
 
         def go():
             run_chunk(m, init_state(m), 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 11" if case == "halo"
+                       else "ROADMAP"):
         go()

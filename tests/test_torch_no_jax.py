@@ -1,8 +1,9 @@
 """The port runs without JAX and without the JAX package: a fresh
 interpreter imports every module of hakai_tpu_torch, builds the ductile bar
-from the port's own pre.synthetic and runs run() on the CPU; no module of
-jax or hakai_tpu is ever loaded.  And no source file of the port, nor
-chip_smoke.py, has an import of either."""
+and the impact contact deck from the port's own pre.synthetic and runs
+run() on each on the CPU; no module of jax or hakai_tpu is ever loaded.
+And no source file of the port, nor chip_smoke.py, has an import of
+either."""
 import ast
 import os
 import subprocess
@@ -27,6 +28,12 @@ m = ht.lower(bar_model(4, 4, 16, d_time=5e-8, end_time=5e-7, ductile=True),
              cfg, device="cpu")
 s = ht.run(m, verbose=False, device="cpu")
 assert int(s.t) == m.time_num == 10 and bool(torch.isfinite(s.disp).all())
+from hakai_tpu_torch.pre.synthetic import impact_model
+m = ht.lower(impact_model(n=2, v0=8.0e4, d_time=4e-8, end_time=1.01e-6),
+             cfg, device="cpu")
+s = ht.run(m, verbose=False, device="cpu")
+assert len(m.pairs) == 2 and int(s.t) == m.time_num == 25
+assert float(s.contact_force.abs().max()) > 0
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in {forbidden!r})
 print("FORBIDDEN_MODULES", bad)

@@ -28,15 +28,24 @@ STATE = ("disp", "disp_pre", "velo", "Q", "stress", "strain", "eq_ps",
 torch.set_num_threads(1)
 
 
-def jax_model_numpy(jm):
-    """(fields, static) of a JAX LoweredModel as NumPy arrays / values."""
+def _numpy_fields(obj):
+    """(fields, static) of a JAX dataclass: arrays as NumPy, static
+    metadata as is (gather plans and other objects left out)."""
     fields, static = {}, {}
-    for f in dataclasses.fields(jm):
-        v = getattr(jm, f.name)
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
         if f.metadata.get("static"):
             static[f.name] = v
         elif hasattr(v, "shape") and hasattr(v, "dtype"):
             fields[f.name] = np.asarray(v)
+    return fields, static
+
+
+def jax_model_numpy(jm):
+    """(fields, static) of a JAX LoweredModel as NumPy arrays / values;
+    its contact pairs as one mapping each under fields["pairs"]."""
+    fields, static = _numpy_fields(jm)
+    fields["pairs"] = [{**b, **a} for a, b in map(_numpy_fields, jm.pairs)]
     return fields, static
 
 
