@@ -12,10 +12,12 @@ without its last line):
 3. kernels: each kernel instantiation against its plain PyTorch version on
    the card, at the main paths' shapes (the 32x32x128 bar), with random
    inputs that engage the plastic branch, a dead element and padding
-   lanes: the element kernel in float32, float32 with the triaxiality
-   output, float64, and mixed precision with the triaxiality output; the
-   assembly in float32 and float32 -> float64 (mixed).  Kernel, plain and
-   (assembly) ``index_add_`` times and the least time the card could take;
+   lanes: the element kernel's packed entry in float32, float32 with the
+   triaxiality output, float64, and mixed precision with the triaxiality
+   output; its unpacked entry (the generic step's) in float32, float32
+   with the triaxiality output and float64; the assembly in float32 and
+   float32 -> float64 (mixed).  Kernel, plain and (assembly)
+   ``index_add_`` times and the least time the card could take;
 4. trajectory: 100 steps of a plastic 16x16x64 bar on the card (kernels)
    and on the CPU (plain versions), compared;
 5. main path of the first slice: the 32x32x128 bar (131,072 elements,
@@ -41,8 +43,24 @@ without its last line):
    in a step's launch configuration with every node's and triangle's
    accept count; the narrow phase's time when built with FMA contraction;
 10. contact-cpu: a small impact with erosion, cube off the slab's grid
-   lines, one step at a time on the card and on the CPU: the first contact
-   steps and the deletion histories compared.
+   lines, one step at a time on the card and on the CPU (below 2,048
+   elements: the generic step): the first contact steps and the deletion
+   histories compared;
+11. generic, main path of the fourth slice: the bench bar lowered with
+   ``gather_mode="xla"`` (no ``coord_e``: the generic step and the unpacked
+   element entry) through ``run_chunk``, slope-timed as in [main], with a
+   trace; then the ductile bar in mixed precision with ``gather_mode="xla"``
+   through ``run()`` for GENERIC_STEPS steps with frames, its first
+   deletion and alive count beside [run]'s, and a trace;
+12. generic-cpu: a ductile bar below 2,048 elements, one step at a time on
+   the card and on the CPU, in float64 (deletion histories equal) and in
+   mixed precision (the rule of [fracture]);
+13. cli: ``python -m hakai_tpu_torch`` in a subprocess on a small deck
+   written by ``scripts/inp_deck.py``, on the card and with ``--device
+   cpu``, frames compared; then [run]'s ductile bar written as a deck
+   (depth cut to CLI_STEPS steps, its amplitude kept) and run through the
+   CLI in mixed precision: its frames equal [run]'s byte for byte at the
+   steps both wrote; the parse, lowering, step and frame seconds.
 
 The line before the last is nvidia-smi's name and power limit; the one
 before that the per-kernel JSON record; the last line is
@@ -58,6 +76,7 @@ import sys
 import time
 
 SEED = 20261016
+ROOT = os.path.dirname(os.path.abspath(__file__))
 NX, NY, NZ = 32, 32, 128          # bench.py's bar
 N1, N2 = 50, 400                  # bench.py's chunk sizes
 REPEATS = 5                       # slope pairs and kernel timing batches
@@ -133,6 +152,20 @@ NARROW_OPS = {"item": 9, "geometry": 140, "block": 60, "cell": 19,
               "dist": 24, "accept": 48}
 # [contact-cpu]: the tie-free impact, card vs CPU, one step at a time
 CONTACT_CPU_N, CONTACT_CPU_STEPS = 4, 300
+# [generic]: the mixed ductile bar through run() on the generic step, the
+# [run] deck with its end time cut (its amplitude ramp kept, so the first
+# GENERIC_STEPS steps are [run]'s), GENERIC_FRAMES frames
+GENERIC_STEPS, GENERIC_FRAMES = 3000, 3
+GENERIC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "smoke_generic")
+# [generic-cpu]: ductile 4x4x16 bar pulled over 800 steps (first deletions
+# near step 130), single steps on card and CPU
+GCPU_STEPS = 300
+# [cli]: the [run] deck cut to CLI_STEPS steps, CLI_FRAMES frames: the
+# frames land on [run]'s frame steps (every 2,000)
+CLI_STEPS, CLI_FRAMES = 4000, 2
+CLI_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "smoke_cli")
 # H100 SXM peaks (NVIDIA data sheet, dense, no tensor cores): HBM
 # 3.35 TB/s; 67 TFLOP/s float32, 34 TFLOP/s float64.
 HBM_BPS = 3.35e12
@@ -318,6 +351,82 @@ def check_element(model, rng, name, want_triax=False):
     return rec
 
 
+def update_inputs(model, rng, device):
+    """The generic step's element-update arguments from
+    :func:`element_inputs`: the nodal position coord + disp and the
+    increment disp - dprev in the element dtype, the unpacked Gauss-point
+    state and the life mask."""
+    P, flag, disp, dprev = element_inputs(model, rng, device)
+    E, edt = model.E, model.edtype
+    return ((model.coord + disp).to(edt), (disp - dprev).to(edt),
+            P[:48].reshape(6, 8, E).contiguous(), P[48:54].contiguous(),
+            P[56:64].contiguous(), P[64:72].contiguous(), flag)
+
+
+def check_update(model, rng, name, want_triax=False):
+    """The unpacked entry (TPU kernel #3) against its plain version on one
+    random state; returns the JSON record's numbers."""
+    import torch
+    from hakai_tpu_torch.ops.element import (element_core_plain,
+                                             gather_element_nodes,
+                                             triax_stress)
+    from hakai_tpu_torch.ops.element_cuda import element_update
+    u = update_inputs(model, rng, model.device)
+
+    def plain():
+        pos_e, du = gather_element_nodes(model, u[0], u[1])
+        res = element_core_plain(model, pos_e, du, *u[2:])
+        return (res, triax_stress(res.stress)) if want_triax else res
+    out_k = element_update(model, *u, want_triax=want_triax)
+    out_p = plain()
+    torch.cuda.synchronize()
+    rk, rp = (out_k[0], out_p[0]) if want_triax else (out_k, out_p)
+    kind = kind_of(model)
+    tol = TOL[("element", kind)]
+    errs = {k: relerr(getattr(rk, k), getattr(rp, k))
+            for k in ("stress", "strain", "eq_ps", "yield_s", "Qe")}
+    max_abs = max((getattr(rk, k) - getattr(rp, k)).abs().max().item()
+                  for k in errs)
+    msg = ""
+    if want_triax:
+        terr = relerr(out_k[1], out_p[1])
+        max_abs = max(max_abs, (out_k[1] - out_p[1]).abs().max().item())
+        msg = f" triax={terr:.3e} (tol {TRIAX_TOL[kind]:g})"
+        if not terr <= TRIAX_TOL[kind]:
+            raise AssertionError(f"unpacked element triax disagrees: {terr}")
+    plastic = (rp.eq_ps != u[4]).double().mean().item()
+    log(f"[kernels] element_update {name} {kind} E={model.E}: rel errs "
+        + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+        + f" (tol {tol:g}){msg}; max_abs={max_abs:.3e}; plastic GP share "
+        f"{plastic:.3f}")
+    bad = {k: v for k, v in errs.items() if not v <= tol}
+    if bad:
+        raise AssertionError(f"unpacked element kernel disagrees: {bad}")
+    if not 0.05 < plastic < 0.95:
+        raise AssertionError(f"inputs do not engage both branches: {plastic}")
+    if rk.Qe[..., ~u[-1]].abs().max().item() != 0.0:
+        raise AssertionError("dead/padding lanes carry force")
+    rec = {"max_abs_err": max_abs}
+    rec["ms"] = time_ms(lambda: element_update(model, *u,
+                                               want_triax=want_triax))
+    rec["plain_ms"] = time_ms(plain, reps=5)
+    outs = [rk.Qe, rk.stress, rk.strain, rk.eq_ps, rk.yield_s]
+    if want_triax:
+        outs.append(out_k[1])
+    moved = nbytes(model.elem, *u, model.G_e, model.lam_e, model.mat_id,
+                   model.has_plastic_e, model.hard_strain, model.hard_slope,
+                   model.hard_n, *outs)
+    rec["bound_ms"], rec["bound_by"] = bound(moved, ELEMENT_FLOP * model.E,
+                                             kind)
+    rec["library_ms"] = None
+    log(f"[kernels] element_update {name} {kind}"
+        f"{' +triax' if want_triax else ''}: kernel {rec['ms']:.4f} ms, "
+        f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}: {moved / 1e6:.1f} MB, "
+        f"{ELEMENT_FLOP * model.E / 1e9:.2f} GFLOP)")
+    return rec
+
+
 def check_assemble(model, rng, name, out_dtype=None):
     import torch
     from hakai_tpu_torch.ops.assemble_cuda import assemble_internal_force
@@ -402,9 +511,10 @@ def trajectory():
 def _wrappers() -> dict:
     from hakai_tpu_torch.ops.assemble_cuda import assemble_internal_force
     from hakai_tpu_torch.ops.contact_cuda import narrow_phase, scatter_forces
-    from hakai_tpu_torch.ops.element_cuda import element_core_packed
+    from hakai_tpu_torch.ops.element_cuda import (element_core_packed,
+                                                  element_update)
     from hakai_tpu_torch.ops.gather_cuda import gather_cols
-    return {"element": element_core_packed,
+    return {"element": element_core_packed, "update": element_update,
             "assemble": assemble_internal_force, "gather": gather_cols,
             "narrow": narrow_phase, "scatter": scatter_forces}
 
@@ -425,7 +535,10 @@ def read_counts() -> dict:
     return out
 
 
-def main_path(model, smi_line):
+def main_path(model, smi_line, tag="[main]",
+              counts=("element", "assemble", "element[float32]")):
+    """run_chunk on ``model`` from its initial state, slope-timed; every
+    count named in ``counts`` must equal the steps run."""
     import torch
     from hakai_tpu_torch import init_state, run_chunk
     state0 = init_state(model)
@@ -446,9 +559,8 @@ def main_path(model, smi_line):
         runs.append(s2)
     launches = read_counts()
     steps = REPEATS * (N1 + N2)
-    log(f"[main] launches {launches} for {steps} steps")
-    if (launches["element"] != steps or launches["assemble"] != steps
-            or launches.get("element[float32]") != steps):
+    log(f"{tag} launches {launches} for {steps} steps")
+    if any(launches.get(k) != steps for k in counts):
         raise AssertionError(f"kernel launches {launches} != steps {steps}")
     fields = ("disp", "velo", "Q", "stress", "strain", "eq_ps", "yield_s",
               "triax")
@@ -464,7 +576,7 @@ def main_path(model, smi_line):
     top = s2.disp[2][model.bcd_amp[2] == 0].mean().item()
     us = sorted(x * 1e6 for x in per_step)
     med = statistics.median(us)
-    log(f"[main] {model.n_element} elements, N={model.N}, slope of "
+    log(f"{tag} {model.n_element} elements, N={model.N}, slope of "
         f"T({N2}) - T({N1}) over {REPEATS} pairs: median {med:.2f} us/step "
         f"(min {us[0]:.2f}, max {us[-1]:.2f}) -> "
         f"hex8_element_steps_per_sec={model.n_element / med * 1e6:.6e}; "
@@ -545,14 +657,8 @@ def fracture():
     errs = {"disp": relerr(sg.disp.cpu(), sc.disp),
             "P": relerr(pack_gauss_state(sg).cpu().double(),
                         pack_gauss_state(sc).double())}
-    only = np.nonzero((dg > 0) != (dc > 0))[0]
-    margin = {"cuda": fracture_margin(mg, sg).cpu().numpy(),
-              "cpu": fracture_margin(mc, sc).numpy()}
-    # on the side that keeps the element, how close it is to its threshold
-    keep = [margin["cuda"][e] if dg[e] < 0 else margin["cpu"][e]
-            for e in only]
+    only, keep, first = one_sided(mg, sg, dg, mc, sc, dc)
     same_step = ((dg > 0) & (dc > 0) & (dg == dc)).sum()
-    first = (dg[dg > 0].min() if (dg > 0).any() else -1, dc[dc > 0].min())
     log(f"[fracture] card vs cpu at step {FRAC_N}: disp {errs['disp']:.3e} "
         f"P {errs['P']:.3e}; first deletion {first[0]} vs {first[1]}; "
         f"deleted {(dg > 0).sum()} vs {(dc > 0).sum()}, {same_step} at the "
@@ -562,6 +668,26 @@ def fracture():
         f"their fracture strain and <= {FRAC_SHARE:g} of the deleted set")
     if not torch.isfinite(sg.disp).all():
         raise AssertionError("card fracture run is not finite")
+    deletion_rule(only, keep, first, dc)
+
+
+def one_sided(mg, sg, dg, mc, sc, dc):
+    """(elements deleted on one side only, their margins on the side that
+    keeps them, (card, CPU) first deletion steps) of two deletion
+    histories (the step each element died, -1 alive)."""
+    import numpy as np
+    only = np.nonzero((dg > 0) != (dc > 0))[0]
+    margin = {"cuda": fracture_margin(mg, sg).cpu().numpy(),
+              "cpu": fracture_margin(mc, sc).numpy()}
+    # on the side that keeps the element, how close it is to its threshold
+    keep = [margin["cuda"][e] if dg[e] < 0 else margin["cpu"][e]
+            for e in only]
+    first = (dg[dg > 0].min() if (dg > 0).any() else -1, dc[dc > 0].min())
+    return only, keep, first
+
+
+def deletion_rule(only, keep, first, dc):
+    """The [fracture] rule on two deletion histories; raises if broken."""
     if abs(int(first[0]) - int(first[1])) > FRAC_STEPS:
         raise AssertionError(f"first deletions part: {first}")
     if any(not x >= 1.0 - FRAC_BAND for x in keep) or \
@@ -643,7 +769,7 @@ def second_path(model, smi_line):
         f"run() wall {wall:.2f} s; first deletion at step {first}, "
         f"{alive} of {model.n_element} alive at step {steps} "
         f"[{smi_line}]")
-    return launches, final, us
+    return launches, final, us, first, by_step
 
 
 def contact_model(smi_line):
@@ -1112,12 +1238,7 @@ def contact_cpu():
         raise AssertionError(f"first contact steps differ: {cg} vs {cc}")
     if not (dc > 0).any():
         raise AssertionError("the CPU run deleted no element")
-    only = np.nonzero((dg > 0) != (dc > 0))[0]
-    margin = {"cuda": fracture_margin(mg, sg).cpu().numpy(),
-              "cpu": fracture_margin(mc, sc).numpy()}
-    keep = [margin["cuda"][e] if dg[e] < 0 else margin["cpu"][e]
-            for e in only]
-    first = (dg[dg > 0].min() if (dg > 0).any() else -1, dc[dc > 0].min())
+    only, keep, first = one_sided(mg, sg, dg, mc, sc, dc)
     errs = {"disp": relerr(sg.disp.cpu(), sc.disp),
             "contact_force": relerr(sg.contact_force.cpu(), sc.contact_force)}
     log(f"[contact-cpu] card vs cpu at step {CONTACT_CPU_STEPS}: disp "
@@ -1128,12 +1249,239 @@ def contact_cpu():
         f"; rule of [fracture]")
     if not torch.isfinite(sg.disp).all():
         raise AssertionError("card contact run is not finite")
-    if abs(int(first[0]) - int(first[1])) > FRAC_STEPS:
-        raise AssertionError(f"first deletions part: {first}")
-    if any(not x >= 1.0 - FRAC_BAND for x in keep) or \
-            len(only) > FRAC_SHARE * (dc > 0).sum():
-        raise AssertionError(f"deleted sets part beyond the f32 band: "
-                             f"{only.tolist()} margins {keep}")
+    deletion_rule(only, keep, first, dc)
+
+
+def generic_run(smi_line, run_first, run_alive):
+    """run() on the generic step: [run]'s deck (the mixed ductile bar)
+    lowered with gather_mode="xla", its end time cut to GENERIC_STEPS
+    steps (the amplitude ramp kept), GENERIC_FRAMES frames with a
+    checkpoint at each, energy balance and metrics; launches counted,
+    frames checked against the alive count, the first deletion located
+    exactly and set beside [run]'s (another loop: they need not agree)."""
+    import torch
+    from hakai_tpu_torch import SolverConfig, init_state, lower, run
+    from hakai_tpu_torch.pre.synthetic import bar_model
+    from hakai_tpu_torch.utils.checkpoint import load_checkpoint
+    shutil.rmtree(GENERIC_DIR, ignore_errors=True)
+    os.makedirs(GENERIC_DIR)
+    deck = bar_model(NX, NY, NZ, d_time=1e-8, end_time=RUN_END, ductile=True)
+    deck.end_time = (GENERIC_STEPS + 0.5) * deck.d_time
+    t0 = time.perf_counter()
+    model = lower(deck, SolverConfig(
+        dtype="mixed", gather_mode="xla", output_num=GENERIC_FRAMES,
+        energy_check=True, checkpoint_every=1, out_dir=GENERIC_DIR,
+        metrics_path=os.path.join(GENERIC_DIR, "metrics.jsonl")),
+        device="cuda")
+    torch.cuda.synchronize()
+    log(f"[generic] mixed ductile bar, gather_mode=xla: E={model.E} "
+        f"N={model.N} coord_e={model.coord_e is not None} renumbered="
+        f"{model.node_new2old is not None}, lowered in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if model.coord_e is not None or model.time_num != GENERIC_STEPS:
+        raise AssertionError("the generic deck is not on the generic step")
+    timings = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    final = run(model, timings=timings)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    steps = model.time_num
+    log(f"\n[generic] launches {launches} for {steps} steps")
+    want = {"update": steps, "update[float32+triax]": steps,
+            "assemble[hk_assemble_f32_f64]": steps, "element": 0}
+    if any(launches.get(k, 0) != v for k, v in want.items()):
+        raise AssertionError(f"kernel launches {launches} != {want}")
+    for f in ("disp", "velo", "Q", "stress", "eq_ps", "triax"):
+        if not torch.isfinite(getattr(final, f)).all():
+            raise AssertionError(f"[generic] {f} is not finite")
+    alive = int(final.element_flag.sum())
+    frames = sorted(p for p in os.listdir(GENERIC_DIR) if p.endswith(".vtk"))
+    cells = [vtk_cells(os.path.join(GENERIC_DIR, p)) for p in frames]
+    with open(os.path.join(GENERIC_DIR, "metrics.jsonl")) as f:
+        recs = [json.loads(x) for x in f]
+    d_out = steps // GENERIC_FRAMES
+    by_step = {r["step"]: int(r["alive_elements"]) for r in recs}
+    want_cells = [model.n_element] + [by_step[i * d_out]
+                                      for i in range(1, len(frames))]
+    if len(frames) != GENERIC_FRAMES + 1 or cells != want_cells:
+        raise AssertionError(f"frames {frames} CELLS {cells} != {want_cells}")
+    if alive >= model.n_element:
+        raise AssertionError(f"no element deleted ({alive} alive)")
+    k = next(i for i, c in enumerate(cells) if c < model.n_element)
+    s = (init_state(model) if k == 1 else load_checkpoint(
+        os.path.join(GENERIC_DIR, f"ckpt_{k - 1:03d}.npz"),
+        init_state(model)))
+    s = step_until(model, s, lambda s: int(s.element_flag.sum())
+                   < model.n_element, d_out)
+    first = int(s.t)
+    us = timings["step_s"] / timings["steps"] * 1e6
+    common = sorted(set(by_step) & set(run_alive))
+    log(f"[generic] {model.n_element} elements mixed ductile on the generic "
+        f"step, {steps} steps: step loop {timings['step_s']:.2f} s = "
+        f"{us:.2f} us/step ({model.n_element / us * 1e6:.6e} elem-steps/s) "
+        f"without frame output; {timings['frames']} frames in "
+        f"{timings['frame_s']:.2f} s; run() wall {wall:.2f} s; CELLS "
+        f"{cells}; energy_rel_error {recs[-1]['energy_rel_error']:.3e}; "
+        f"first deletion at step {first} (packed [run]: {run_first}); "
+        f"alive by step {[(t, by_step[t], run_alive[t]) for t in common]} "
+        f"(generic, packed); {alive} alive at step {steps} [{smi_line}]")
+    return model, launches, final, us
+
+
+def generic_cpu():
+    """The ductile 4x4x16 bar (below 2,048 elements: the generic step),
+    pulled over 800 steps, one step at a time to GCPU_STEPS on the card
+    and on the CPU: in float64 the deletion histories are equal; in mixed
+    precision they follow the rule of [fracture]."""
+    import numpy as np
+    import torch
+    from hakai_tpu_torch import SolverConfig, init_state, lower, run_chunk
+    from hakai_tpu_torch.pre.synthetic import bar_model
+    bar = bar_model(4, 4, 16, d_time=5e-8, end_time=4e-5, ductile=True)
+    for kind in ("float64", "mixed"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            m = lower(bar, SolverConfig(dtype=kind), device=dev)
+            if m.coord_e is not None:
+                raise AssertionError("the deck is not on the generic step")
+            s = init_state(m)
+            died = np.full(m.E, -1)
+            exists = m.elem_exists.cpu().numpy()
+            t0 = time.perf_counter()
+            for step in range(1, GCPU_STEPS + 1):
+                s = run_chunk(m, s, 1)
+                flag = s.element_flag.cpu().numpy()
+                died[(died < 0) & ~flag & exists] = step
+            runs[dev] = (m, s, died, time.perf_counter() - t0)
+        (mg, sg, dg, tg), (mc, sc, dc, tc) = runs["cuda"], runs["cpu"]
+        only, keep, first = one_sided(mg, sg, dg, mc, sc, dc)
+        equal = bool(np.array_equal(dg, dc))
+        log(f"[generic-cpu] {kind}: {GCPU_STEPS} single steps in {tg:.2f} s "
+            f"(card) and {tc:.2f} s (CPU); first deletion {first[0]} vs "
+            f"{first[1]}; deleted {(dg > 0).sum()} vs {(dc > 0).sum()} of "
+            f"{mg.n_element}; histories equal: {equal}; disp "
+            f"{relerr(sg.disp.cpu(), sc.disp):.3e}, triax "
+            f"{relerr(sg.triax.cpu(), sc.triax):.3e} normwise")
+        if not torch.isfinite(sg.disp).all() or not (dc > 0).any():
+            raise AssertionError(f"[generic-cpu] {kind}: no deletion or "
+                                 "not finite")
+        if kind == "float64" and not equal:
+            raise AssertionError("float64 deletion histories differ")
+        deletion_rule(only, keep, first, dc)
+
+
+def vtk_sections(text):
+    """A legacy VTK file as [(header line, [data lines])]."""
+    out, lines = [], text.splitlines()
+    out.append(("\n".join(lines[:4]), []))
+    for line in lines[4:]:
+        if line[:1].isalpha():
+            out.append((line, []))
+        else:
+            out[-1][1].append(line)
+    return out
+
+
+def frames_close(dir_a, dir_b, rel=1e-6):
+    """Frames of two runs: the same files and section headers, equal
+    connectivity and cell types, every float field within ``rel`` of its
+    largest magnitude.  Returns (frames, byte-identical lines share)."""
+    import numpy as np
+    names = sorted(p for p in os.listdir(dir_a) if p.endswith(".vtk"))
+    if names != sorted(p for p in os.listdir(dir_b) if p.endswith(".vtk")):
+        raise AssertionError(f"frame files differ: {dir_a} {dir_b}")
+    same = total = 0
+    for name in names:
+        with open(os.path.join(dir_a, name)) as fa, \
+                open(os.path.join(dir_b, name)) as fb:
+            ref, got = vtk_sections(fa.read()), vtk_sections(fb.read())
+        if [h for h, _ in got] != [h for h, _ in ref]:
+            raise AssertionError(f"{name}: section headers differ")
+        for (head, a), (_, b) in zip(ref, got):
+            same += sum(x == y for x, y in zip(a, b))
+            total += len(a)
+            if head.startswith(("CELLS", "CELL_TYPES")):
+                if a != b:
+                    raise AssertionError(f"{name}: {head} differs")
+            elif a:
+                xa = np.array([x.split() for x in a], np.float64)
+                xb = np.array([x.split() for x in b], np.float64)
+                scale = max(np.abs(xa).max(), 1e-300)
+                if not np.abs(xa - xb).max() <= rel * scale:
+                    raise AssertionError(f"{name}: {head} differs")
+    return names, same / max(total, 1)
+
+
+def run_cli(args, timeout):
+    """``python -m hakai_tpu_torch`` with ``args`` from the checkout's
+    root; (stdout, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "hakai_tpu_torch", *args],
+                       cwd=ROOT, capture_output=True, text=True,
+                       timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(f"CLI {args} exited {r.returncode}:\n"
+                             f"{r.stderr[-3000:]}")
+    return r.stdout, time.perf_counter() - t0
+
+
+def cli_phase(smi_line):
+    """The CLI: a small written deck on the card and on the CPU, frames
+    compared; then [run]'s deck through the CLI, frames byte for byte."""
+    import re
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from inp_deck import write_deck
+    from hakai_tpu_torch.pre.synthetic import bar_model
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    os.makedirs(CLI_DIR)
+    small = write_deck(os.path.join(CLI_DIR, "small.inp"), bar_model(
+        4, 4, 16, d_time=5e-8, end_time=4e-5, ductile=True))
+    heads = {}
+    for dev in ("cuda", "cpu"):
+        out, sec = run_cli([small, "--out-dir", os.path.join(CLI_DIR, dev),
+                            "--output-num", "10", "--device", dev], 600)
+        heads[dev] = [x for x in re.split(r"[\r\n]", out)
+                      if x.startswith(("nNode", "nElement", "time_num",
+                                       "element", "Element"))
+                      or "Element deleted" in x]
+        log(f"[cli] small deck --device {dev}: {sec:.2f} s in all")
+    heads = {k: [x[x.index("Element"):] if "Element deleted" in x else x
+                 for x in v] for k, v in heads.items()}
+    names, share = frames_close(os.path.join(CLI_DIR, "cuda"),
+                                os.path.join(CLI_DIR, "cpu"))
+    log(f"[cli] small deck: console lines {heads['cuda']} (card) equal to "
+        f"the CPU's: {heads['cuda'] == heads['cpu']}; {len(names)} frames "
+        f"within 1e-6 of each field's scale, {share:.4f} of the data lines "
+        f"byte-identical")
+    if heads["cuda"] != heads["cpu"] or not any(
+            "Element deleted" in x for x in heads["cuda"]):
+        raise AssertionError(f"[cli] console lines differ: {heads}")
+    big = bar_model(NX, NY, NZ, d_time=1e-8, end_time=RUN_END, ductile=True)
+    big.end_time = (CLI_STEPS + 0.5) * big.d_time
+    t0 = time.perf_counter()
+    path = write_deck(os.path.join(CLI_DIR, "bar.inp"), big)
+    t_write = time.perf_counter() - t0
+    out_dir = os.path.join(CLI_DIR, "bar")
+    out, sec = run_cli([path, "--precision", "mixed", "--out-dir", out_dir,
+                        "--output-num", str(CLI_FRAMES), "--timings"], 900)
+    if f"time_num:{CLI_STEPS}" not in out:
+        raise AssertionError(f"[cli] time_num line: {out[:400]}")
+    timing = next(x for x in out.splitlines() if x.startswith("timings:"))
+    same = []
+    for i in range(CLI_FRAMES + 1):
+        name = f"file{i:03d}.vtk"
+        with open(os.path.join(out_dir, name), "rb") as fa, \
+                open(os.path.join(RUN_DIR, name), "rb") as fb:
+            same.append(fa.read() == fb.read())
+    log(f"[cli] [run]'s deck ({big.n_element} elements, "
+        f"{os.path.getsize(path) / 1e6:.1f} MB, written in {t_write:.2f} s) "
+        f"through the CLI, mixed, {CLI_STEPS} steps: {timing}; subprocess "
+        f"{sec:.2f} s in all; frames at steps "
+        f"{[i * CLI_STEPS // CLI_FRAMES for i in range(CLI_FRAMES + 1)]} "
+        f"byte-identical to [run]'s: {same} [{smi_line}]")
+    if not all(same):
+        raise AssertionError("[cli] frames differ from [run]'s")
 
 
 def main() -> int:
@@ -1197,6 +1545,10 @@ def main() -> int:
         "f64": check_element(with_padding(bench64, 128), rng, "bench"),
         "mixed": check_element(with_padding(mixed, 128), rng, "bench",
                                want_triax=True),
+        "u_f32": check_update(with_padding(bench, 128), rng, "bench"),
+        "u_f32_triax": check_update(with_padding(bench, 128), rng, "bench",
+                                    want_triax=True),
+        "u_f64": check_update(with_padding(bench64, 128), rng, "bench"),
         "asm_f32": check_assemble(bench, rng, "bench"),
         "asm_f64": check_assemble(bench64, rng, "bench"),
         "asm_mixed": check_assemble(mixed, rng, "bench", torch.float64),
@@ -1211,7 +1563,8 @@ def main() -> int:
         f"({busy_us:.2f} of {step_us:.2f} us)")
 
     fracture()
-    launches2, final2, run_us = second_path(mixed, smi_line)
+    launches2, final2, run_us, run_first, run_alive = second_path(mixed,
+                                                                  smi_line)
     busy2 = trace(mixed, final2, smi_line, "mixed ductile")[0]
     log(f"[trace] mixed ductile: device idle share "
         f"{1.0 - busy2 / run_us:.4f} of the run() step ({busy2:.2f} of "
@@ -1228,6 +1581,34 @@ def main() -> int:
     del impact, final3, s_kern
     contact_cpu()
 
+    t0 = time.perf_counter()
+    gen = lower(bar_model(nx=NX, ny=NY, nz=NZ, d_time=1e-8, end_time=1.0),
+                SolverConfig(dtype="float32", gather_mode="xla", node_pad=128,
+                             elem_pad=128), device="cuda")
+    torch.cuda.synchronize()
+    log(f"[lower] {NX}x{NY}x{NZ} bar float32 gather_mode=xla: E={gen.E} "
+        f"N={gen.N} coord_e={gen.coord_e is not None} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if gen.coord_e is not None:
+        raise AssertionError("the gather_mode=xla bar carries coord_e")
+    launches4, final4, gen_us = main_path(
+        gen, smi_line, "[generic]", ("update", "assemble",
+                                     "update[float32+triax]"))
+    busy4 = trace(gen, final4, smi_line, "generic float32 elastic")[0]
+    log(f"[trace] generic float32 elastic: device idle share "
+        f"{1.0 - busy4 / gen_us:.4f} of the median untraced step "
+        f"({busy4:.2f} of {gen_us:.2f} us)")
+    del gen, final4
+    gen_mixed, launches5, final5, gen_run_us = generic_run(
+        smi_line, run_first, run_alive)
+    busy5 = trace(gen_mixed, final5, smi_line, "generic mixed ductile")[0]
+    log(f"[trace] generic mixed ductile: device idle share "
+        f"{1.0 - busy5 / gen_run_us:.4f} of the run() step ({busy5:.2f} of "
+        f"{gen_run_us:.2f} us)")
+    del gen_mixed, final5
+    generic_cpu()
+    cli_phase(smi_line)
+
     if any(k.split(".")[0] in ("jax", "jaxlib", "hakai_tpu")
            for k in sys.modules):
         raise AssertionError("the port's smoke run imported jax or the JAX "
@@ -1235,11 +1616,12 @@ def main() -> int:
     src = "hakai_tpu/ops/element_pallas.py"
 
     def entry(name, source, replaces, count, r):
-        # launches: the variant's launches in the three main-path runs
+        # launches: the variant's launches in the five main-path runs
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(x.get(count, 0) for x in
-                                (launches1, launches2, launches3)),
+                                (launches1, launches2, launches3, launches4,
+                                 launches5)),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
@@ -1247,11 +1629,12 @@ def main() -> int:
                    "hakai_tpu_torch/csrc/assemble.cu",
                    "hakai_tpu_torch/csrc/contact.cu")
     gp = "hakai_tpu/ops/gather_pallas.py"
-    # the instantiations the three main paths run, and the float64 element
-    # one, which none runs (its launches are 0); the float32+triax element,
-    # float64 assembly and float64 contact instantiations are checked (and
-    # the first two timed) in [kernels] and [contact-kernels] and reported
-    # on their lines.  A narrow_phase launch is its node and its triangle
+    # the instantiations the five main paths run, and the float64 element
+    # ones, which none runs (their launches are 0); the float32+triax
+    # packed element, float32 unpacked element without triax, float64
+    # assembly and float64 contact instantiations are checked (and the
+    # first three timed) in [kernels] and [contact-kernels] and reported on
+    # their lines.  A narrow_phase launch is its node and its triangle
     # kernel for one pair.
     kernels = [
         entry("element_core_packed[float32]", el, f"{src}:210",
@@ -1262,6 +1645,11 @@ def main() -> int:
         entry("element_core_packed[mixed+triax]", el,
               f"{src}:561 and {src}:93", "element[mixed+triax]",
               rec["mixed"]),
+        entry("element_update[float32+triax]", el, f"{src}:25 (call :63)",
+              "update[float32+triax]", rec["u_f32_triax"]),
+        entry("element_update[float64]", el,
+              f"{src}:25 (call :63; f64 takes the XLA math there)",
+              "update[float64]", rec["u_f64"]),
         entry("assemble_internal_force[float32]", asm,
               "hakai_tpu/ops/gather_pallas.py:413",
               "assemble[hk_assemble_f32]", rec["asm_f32"]),

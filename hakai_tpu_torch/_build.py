@@ -60,6 +60,12 @@ _SIGNATURES = {
     "hk_element_f32": (_P,) * 13 + (_I, _I, _I, _P, _P, _P, _P),
     "hk_element_f64": (_P,) * 13 + (_I, _I, _I, _P, _P, _P, _P),
     "hk_element_mixed": (_P,) * 13 + (_I, _I, _I, _P, _P, _P, _P),
+    # elem, position, d_disp, stress, strain, eq_ps, yield, G, lam, mat,
+    # hasp, flag, hard_strain, hard_slope, hard_n, hard_cols, E, N,
+    # stress_out, strain_out, eq_out, yield_out, qe, triax (None: no
+    # triaxiality output), stream
+    "hk_element_update_f32": (_P,) * 15 + (_I, _I, _I) + (_P,) * 7,
+    "hk_element_update_f64": (_P,) * 15 + (_I, _I, _I) + (_P,) * 7,
     # qe, inc_idx, inc_mask, V, N, E, Q, stream
     "hk_assemble_f32": (_P, _P, _P, _I, _I, _I, _P, _P),
     "hk_assemble_f64": (_P, _P, _P, _I, _I, _I, _P, _P),

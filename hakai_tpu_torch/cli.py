@@ -1,0 +1,209 @@
+"""Command-line entry point of the port (mirrors ``hakai_tpu/cli.py``).
+
+Reference CLI: ``julia HAKAI_j.jl <file.inp>`` (HAKAI_j.jl:3729-3735).
+Here: ``python -m hakai_tpu_torch <file.inp> [options]``, on the GPU
+unless ``--device cpu`` is given.
+
+The flags keep the JAX package's names, defaults and meaning, apart from
+three that drive XLA or the TPU's matrix unit and mean nothing on the card
+(``--compile-cache``, ``--mxu-precision``, ``--chunk-unroll``).  The
+multi-device flags (``--devices``, ``--halo``, ``--multihost``) are kept
+and raise NotImplementedError until multi-GPU runs are ported.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def _resolve_energy_flags(energy_check: bool, energy_abort: float | None):
+    """Energy-guard CLI resolution (default-on):
+
+    * default: check on, abort at 0.1 of the energy scale (conservative —
+      the documented N2k f32 blow-up crosses it thousands of steps before
+      NaN; healthy f64/mixed runs sit orders of magnitude below);
+    * --energy-abort REL implies the check (any REL, including 0 =
+      report-only);
+    * --no-energy-check alone turns both off.
+    """
+    if energy_abort is not None:
+        return (True if energy_abort > 0 else energy_check,
+                energy_abort if (energy_check or energy_abort > 0) else 0.0)
+    return energy_check, (0.1 if energy_check else 0.0)
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="hakai_tpu_torch",
+        description="dynamic-explicit FEM solver on one NVIDIA GPU, the "
+                    "PyTorch + CUDA port of hakai_tpu (.inp in, VTK out)")
+    ap.add_argument("inp", help="Abaqus .inp input deck")
+    ap.add_argument("--precision", choices=["f32", "f64", "mixed"],
+                    default="f64",
+                    help="f64 matches the reference; mixed = f64 nodal "
+                         "kinematics + f32 element/contact math (fast and "
+                         "stable for long contact runs)")
+    ap.add_argument("--out-dir", default="temp", help="VTK output directory")
+    ap.add_argument("--output-num", type=int, default=100,
+                    help="number of VTK frames (reference: 100)")
+    ap.add_argument("--no-output", action="store_true",
+                    help="skip VTK writing (benchmarking)")
+    ap.add_argument("--kc", type=float, default=1.0,
+                    help="contact penalty scale (reference kc)")
+    ap.add_argument("--myu", type=float, default=0.25,
+                    help="contact friction coefficient")
+    ap.add_argument("--node-pad", type=int, default=8)
+    ap.add_argument("--elem-pad", type=int, default=8)
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="save a resumable checkpoint every N frames")
+    ap.add_argument("--resume", default=None,
+                    help="checkpoint file to resume from")
+    ap.add_argument("--metrics", default=None,
+                    help="write per-chunk JSONL diagnostics to this path")
+    ap.add_argument("--check-nan", action="store_true",
+                    help="abort when displacements go non-finite")
+    ap.add_argument("--energy-check", action="store_true", default=True,
+                    help="accumulate the discrete energy balance (external/"
+                         "constraint work vs kinetic + internal work); its "
+                         "residual is exact in real arithmetic, so its "
+                         "growth detects roundoff-energy injection.  ON by "
+                         "default (two (3,N) dot-reductions per step); "
+                         "reported in --metrics records")
+    ap.add_argument("--no-energy-check", dest="energy_check",
+                    action="store_false",
+                    help="disable the energy-balance guard")
+    ap.add_argument("--energy-abort", type=float, default=None,
+                    metavar="REL",
+                    help="abort when the energy residual exceeds REL of the "
+                         "run's energy scale (default 0.1); 0 = report in "
+                         "metrics only, never abort")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="element-shard the run over this many devices "
+                         "(not ported yet: raises)")
+    ap.add_argument("--halo", type=int, default=None,
+                    help="node-sharded halo-exchange decomposition over "
+                         "this many devices (not ported yet: raises)")
+    ap.add_argument("--multihost", default=None, metavar="SPEC",
+                    help="multi-host run (not ported yet: raises)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace of the whole run "
+                         "into DIR/trace.json (Chrome trace format)")
+    ap.add_argument("--element-kernel", default="auto",
+                    choices=["auto", "xla", "pallas", "pallas_mxu"],
+                    help="the JAX package's element-math backends; on the "
+                         "card all four run the one hand-written element "
+                         "kernel (the choice between them is a TPU matter), "
+                         "and pallas/pallas_mxu keep their f64 refusal and "
+                         "1,024-element padding")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default: the current "
+                         "GPU); 'cpu' runs the kernels' plain versions")
+    ap.add_argument("--timings", action="store_true",
+                    help="print the host seconds of the parse, the "
+                         "lowering, the step chunks and the frame output")
+    return ap
+
+
+def main(argv=None):
+    ap = _parser()
+    args = ap.parse_args(argv)
+    args.energy_check, args.energy_abort = _resolve_energy_flags(
+        args.energy_check, args.energy_abort)
+    if args.multihost:
+        raise NotImplementedError(
+            "multi-host runs (--multihost) are not ported yet (ROADMAP "
+            "Queue 1 item 11)")
+
+    elem_pad = args.elem_pad
+    if args.element_kernel in ("pallas", "pallas_mxu"):
+        if args.precision == "f64":
+            ap.error(f"--element-kernel {args.element_kernel} requires "
+                     "--precision f32 or mixed (TPU custom calls cannot "
+                     "take f64; the kernel would silently never engage)")
+        elem_pad = max(elem_pad, 1024)   # kernel tile divisibility
+
+    from .config import ContactConfig, SolverConfig
+    cfg = SolverConfig(
+        dtype={"f64": "float64", "f32": "float32",
+               "mixed": "mixed"}[args.precision],
+        out_dir=args.out_dir,
+        output_num=args.output_num,
+        node_pad=(args.node_pad if not args.halo
+                  else max(args.node_pad, 8) * args.halo),
+        elem_pad=(elem_pad if not args.devices
+                  else max(elem_pad, 16) * args.devices),
+        element_kernel=args.element_kernel,
+        contact=ContactConfig(kc=args.kc, kc_self=args.kc, myu=args.myu),
+        renumber=("always" if args.halo else "auto"),
+        metrics_path=args.metrics,
+        checkpoint_every=args.checkpoint_every,
+        check_nan=args.check_nan,
+        energy_check=args.energy_check,
+        energy_abort_rel=args.energy_abort,
+    )
+
+    from .core.lowering import lower
+    from .core.state import init_state
+    from .io.inp import read_inp_file
+    from .solver.explicit import run
+    from .utils.checkpoint import load_checkpoint, save_checkpoint
+    from .utils.profiling import trace
+
+    t0 = time.perf_counter()
+    model_in = read_inp_file(args.inp)
+    t_parse = time.perf_counter() - t0
+    print(f"nNode:{model_in.n_node}")
+    print(f"nElement:{model_in.n_element}")
+    print(f"contact_flag:{model_in.contact_flag}")
+    print(f"mass_scaling:{model_in.mass_scaling}")
+    t0 = time.perf_counter()
+    model = lower(model_in, cfg, device=args.device)
+    t_lower = time.perf_counter() - t0
+    print(f"time_num:{model.time_num}")
+    print(f"elementMinSize:{model.element_min_size}")
+    print(f"elementMaxSize:{model.element_max_size}")
+    if model.dt > model.cfl_dt:
+        print(f"WARNING: dt={model.dt:.3e} exceeds CFL estimate "
+              f"{model.cfl_dt:.3e} — expect instability")
+    if (args.precision == "f64" and model.pairs
+            and not model.fracture_enabled):
+        # the JAX package's hint, word for word
+        print("hint: this contact deck runs full f64 (reference-matching "
+              "default).  --precision mixed (f64 kinematics + f32 element/"
+              "contact math) is validated on the crash decks and ~5.8x "
+              "faster; the energy-balance guard (on by default) monitors "
+              "precision health either way")
+
+    state = init_state(model)
+    resume_halo = None
+    if args.resume:
+        import numpy as np
+        with np.load(args.resume) as data:
+            halo_file = "halo_format" in data
+        if halo_file:
+            if not args.halo or args.halo < 2:
+                raise SystemExit(f"{args.resume} is a shard-major halo "
+                                 "checkpoint; pass the matching --halo N")
+            resume_halo = args.resume     # run() raises: not ported yet
+            print("resuming from halo checkpoint")
+        else:
+            state = load_checkpoint(args.resume, state)
+            print(f"resumed at step {int(state.t)}")
+    timings = {}
+    with trace(args.profile):
+        state = run(model, state, write_output=not args.no_output,
+                    devices=args.devices, halo=args.halo,
+                    resume_halo=resume_halo, device=args.device,
+                    timings=timings)
+    if args.checkpoint_every:
+        save_checkpoint(f"{args.out_dir}/final.ckpt.npz", state)
+    if args.timings:
+        print(f"timings: parse {t_parse:.3f} s, lower {t_lower:.3f} s, "
+              f"steps {timings['step_s']:.3f} s for {timings['steps']} "
+              f"steps, frames {timings['frame_s']:.3f} s for "
+              f"{timings['frames']} frames")
+    return state
+
+
+if __name__ == "__main__":
+    main()

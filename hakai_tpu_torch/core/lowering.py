@@ -5,8 +5,9 @@ A NumPy-only twin of ``hakai_tpu/core/lowering.py:lower``.  It reproduces
 that lowering's padding rules, renumbering rule, lumped mass, time
 stepping, incidence table, material constants, ductile (fracture) tables,
 BC dedup and amplitude tables, its precision split, the node-0-centred
-element coordinates and the contact pair inventories, so the internal
-numbering and every array equal the JAX lowering's.  It builds none of the
+element coordinates (on the meshes where it forms them) and the contact
+pair inventories, so the internal numbering and every array equal the JAX
+lowering's.  It builds none of the
 TPU's window plans; in their place contact gets two flat tables (the merged
 kinematics index list and a per-node force table, see
 :func:`_contact_tables`).
@@ -145,7 +146,9 @@ class LoweredModel:
     inc_idx: torch.Tensor           # (V, N) int32 into flattened (8*E) Qe
     inc_mask: torch.Tensor          # (V, N) bool
     diag_M: torch.Tensor            # (N,) lumped nodal mass (scaled)
-    coord_e: torch.Tensor           # (3, 8, E) node-0-centred element coords
+    # (3, 8, E) node-0-centred element coords; None where the JAX lowering
+    # builds none (no window plans), and then run_chunk takes step()
+    coord_e: torch.Tensor | None
     pusai: torch.Tensor             # (8, 3, 8) shape gradients
 
     # ---- per-element material ----
@@ -239,9 +242,9 @@ def model_from_numpy(fields: dict, static: dict, device) -> LoweredModel:
 
     ``fields`` maps field names to arrays; float arrays take the nodal or
     the element dtype of ``static["config"].dtype`` (see ``_NODAL_FIELDS``).
-    ``coord_e`` may be absent (the JAX lowering builds it only with window
-    plans): it is then formed from ``coord`` and ``elem`` in float64 and
-    cast.  ``static`` holds the metadata fields (n_node, ..., config,
+    ``coord_e`` is kept as given, None when absent (the JAX lowering builds
+    it only with window plans; without it ``run_chunk`` takes the generic
+    ``step()``, as the JAX package does).  ``static`` holds the metadata fields (n_node, ..., config,
     fracture_enabled, pl_tables, du_tables, contact_flag).
     ``fields["pairs"]`` holds one mapping per directional contact pair with
     the arrays and metadata of ``hakai_tpu.core.lowering.ContactPairArrays``;
@@ -272,11 +275,7 @@ def model_from_numpy(fields: dict, static: dict, device) -> LoweredModel:
     for k in names:
         if k in fields and fields[k] is not None and k not in kw:
             kw[k] = tensor(k, fields[k])
-    if fields.get("coord_e") is None:
-        coord = np.asarray(fields["coord"], np.float64)
-        elem = np.asarray(fields["elem"], np.int64)
-        kw["coord_e"] = tensor("coord_e",
-                               coord[:, elem] - coord[:, elem[0]][:, None, :])
+    kw.setdefault("coord_e", None)
     for k in ("node_new2old", "elem_new2old"):
         if fields.get(k) is not None:
             kw[k] = torch.as_tensor(np.asarray(fields[k], np.int64),
@@ -385,6 +384,16 @@ def _contact_tables(pairs, N: int):
             cols[order].astype(np.int32), tuple(offsets), width)
 
 
+def uses_plans(model: Model, cfg: SolverConfig) -> bool:
+    """The JAX lowering's window-plan rule (``use_plans``): a mesh of at
+    least 2,048 elements and 2,048 nodes, unless ``gather_mode="xla"``.
+    The port builds no plans, but keeps the rule's padding and its
+    node-0-centred ``coord_e``, and with them the JAX package's choice of
+    chunk loop."""
+    return (cfg.gather_mode != "xla" and model.n_element >= _PLAN_TILE
+            and model.n_node >= _PLAN_TILE)
+
+
 def _renumbers(model: Model, cfg: SolverConfig) -> bool:
     """The JAX lowering's renumbering rule (``lower``): always with
     ``renumber="always"``; with ``"auto"`` when the mesh is large enough
@@ -395,8 +404,7 @@ def _renumbers(model: Model, cfg: SolverConfig) -> bool:
         return False
     if cfg.renumber == "always":
         return True
-    return (cfg.renumber == "auto" and model.n_element >= _PLAN_TILE
-            and model.n_node >= _PLAN_TILE and cfg.gather_mode != "xla")
+    return cfg.renumber == "auto" and uses_plans(model, cfg)
 
 
 def lower_numpy(model: Model, cfg: SolverConfig) -> tuple[dict, dict]:
@@ -405,7 +413,8 @@ def lower_numpy(model: Model, cfg: SolverConfig) -> tuple[dict, dict]:
     ``hakai_tpu/core/lowering.py:_lower_impl`` line by line."""
     nN, nE = model.n_node, model.n_element
     node_pad, elem_pad = cfg.node_pad, cfg.elem_pad
-    if cfg.gather_mode != "xla" and nE >= _PLAN_TILE and nN >= _PLAN_TILE:
+    plans = uses_plans(model, cfg)
+    if plans:
         node_pad = int(np.lcm(node_pad, _PLAN_TILE))
         elem_pad = int(np.lcm(elem_pad, _PLAN_TILE))
     N = _round_up(max(nN, 1), node_pad)
@@ -533,7 +542,8 @@ def lower_numpy(model: Model, cfg: SolverConfig) -> tuple[dict, dict]:
         amp_time=amp_time, amp_value=amp_value, amp_n=amp_n, velo0=velo0,
         vol_e=np.concatenate([volume, np.zeros(E - nE)]),
         # computed in f64 so the f32 cast carries no cancellation noise
-        coord_e=coord[:, elem] - coord[:, elem[0]][:, None, :])
+        coord_e=(coord[:, elem] - coord[:, elem[0]][:, None, :]
+                 if plans else None))
     # the JAX lowering's flag_fracture rule: a ductile table or a failure
     # stress (only the ductile table acts at run time)
     fracture = bool(any(m.ductile.shape[0] > 0 for m in mats)

@@ -8,40 +8,56 @@
 //    its plain call on pos24/du24 rows (the mixed-precision path of
 //    packed_element_step);
 //  * _make_packed_kernel through element_core_packed (element_kernel=
-//    "pallas"), which computes the same function on the VPU alone.
-// Same contract: packed Gauss state P (72, E) in and out (stress rows
-// c*8+k, GP-mean strain 48:54, zero pad 54:56, eq_ps 56:64, yield 64:72),
-// qe (24, E) out with rows b*8+i, masked by the life flag, and with a triax
-// pointer the (8, E) triaxiality of the final stress (want_triax; the
-// formula and the vm < 1e-10 / vm == 0 guards of element_pallas.py:448-455).
-// The math is hakai_tpu/ops/element.py:_element_math, direct form.
+//    "pallas"), which computes the same function on the VPU alone;
+//  * _make_kernel through element_core_pallas, the unpacked element update
+//    of the generic step() (hakai_tpu/ops/element.py:element_core).
+//
+// Two load stages and two state layouts of one kernel template:
+//  * packed (the chunk loop): packed Gauss state P (72, E) in and out
+//    (stress rows c*8+k, GP-mean strain 48:54, zero pad 54:56, eq_ps 56:64,
+//    yield 64:72); the kernel gathers the nodal disp and dprev and forms
+//    pos = coord_e + (d - d_node0), du = d - dprev;
+//  * generic (step()): stress (6, 8, E), strain (6, E), eq_ps (8, E) and
+//    yield (8, E) as separate arrays, whose rows are the packed rows 0:48,
+//    48:54, 56:64 and 64:72, so one struct of four row bases serves both;
+//    the kernel gathers the nodal position (coord + disp) and increment in
+//    the element type and centres the position on node 0 in that type,
+//    after the gather: the bits of _element_math's pos_e - pos_e[:, 0:1].
+// Both write qe (24, E) = (3, 8, E) with rows b*8+i, masked by the life
+// flag, and with a triax pointer the (8, E) triaxiality of the final stress
+// (want_triax; the formula and the vm < 1e-10 / vm == 0 guards of
+// element_pallas.py:448-455).  The math is hakai_tpu/ops/element.py:
+// _element_math, direct form.
 //
 // Two scalar types: K for the nodal disp/dprev, T for the element math and
-// every element array.  Instantiated <float, float>, <double, double> and
-// <double, float> (mixed precision).  In mixed mode both kinematic
-// differences, d - d_node0 and d - dprev, are taken in K and cast to T
-// once, which gives the bits the JAX package's gather_disp_e +
-// element_kinematics hand its TPU kernel; the (3, 8, E) float64 element
-// copy of disp that the JAX package carries through its chunk loop is never
-// formed.
+// every element array.  The packed stage is instantiated <float, float>,
+// <double, double> and <double, float> (mixed precision), the generic one
+// <float, float> and <double, double>: in mixed mode the generic step hands
+// the kernel float32 positions and increments, as the JAX step hands its
+// element math.  In mixed mode the packed stage takes both kinematic
+// differences, d - d_node0 and d - dprev, in K and casts to T once, which
+// gives the bits the JAX package's gather_disp_e + element_kinematics hand
+// its TPU kernel; the (3, 8, E) float64 element copy of disp that the JAX
+// package carries through its chunk loop is never formed.
 //
 // What bounds it on an H100: device-memory bytes.  Per element a step
 // reads P (72 values), coord_e (24), 8 node ids, 6 values for each of the 8
 // nodes from disp/dprev, and the per-element constants, and writes P (72)
 // and qe (24) (and triax (8)) -- about 1 KB in f32 against ~6 kFLOP, far
-// below the card's FLOP:byte balance.
+// below the card's FLOP:byte balance.  The generic stage reads no coord_e.
 //
 // Design:
 //  * one block = 32 elements x 8 Gauss points (blockDim (32, 8)); thread
 //    (x, k) owns Gauss point k of element x.  Each warp is one Gauss point
-//    of 32 consecutive elements, so every P/coord_e/qe row access is one
-//    coalesced 128-byte (f32) transaction and every read of the constant
-//    shape-gradient table is warp-uniform (a __constant__ broadcast).
+//    of 32 consecutive elements, so every state/coord_e/qe row access is
+//    one coalesced 128-byte (f32) transaction and every read of the
+//    constant shape-gradient table is warp-uniform (a __constant__
+//    broadcast).
 //  * the gather is indexed loads through elem (8, E): thread (x, j) loads
-//    node j's disp/dprev and builds pos = coord_e + (d - d_node0) and
-//    du = d - dprev in shared memory, so no (24, E) pos/du copy ever
-//    reaches device memory (the TPU kernel needed window DMAs and a
-//    diagonal resolve for the same thing).
+//    node j's two nodal values and builds the node-0-centred position and
+//    the increment in shared memory, so no (3, 8, E) pos/du copy ever
+//    reaches device memory (the TPU kernels needed window DMAs and a
+//    diagonal resolve, or an XLA gather, for the same thing).
 //  * the constant contractions (J, Gdu, the Qe fold) are register FMAs in
 //    full precision; the TPU kernel's MXU matmuls and their bf16x3 split
 //    do not carry over.
@@ -51,7 +67,7 @@
 //    deterministic and uses no atomics.  For the Qe fold, thread (x, i)
 //    sums node i's three force rows over k, so the qe stores coalesce too.
 //  * the triaxiality is formed by each Gauss-point thread from the final
-//    stress still in its registers: no second pass over P.
+//    stress still in its registers: no second pass over the stress.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,13 +89,39 @@ template <> __device__ __forceinline__ double pus<double>(int k, int a,
   return c_pus_d[(k * 3 + a) * 8 + i];
 }
 
-template <typename K, typename T, bool TRIAX>
+// Row bases of the Gauss-point state: stress rows c*8+k, GP-mean strain
+// rows c, eq_ps and yield rows k, each row E long.  ``pad`` (output only)
+// is the packed layout's two zero rows, nullptr in the unpacked one.
+template <typename T> struct StateIn {
+  const T* stress;
+  const T* strain;
+  const T* eq;
+  const T* yield;
+};
+template <typename T> struct StateOut {
+  T* stress;
+  T* strain;
+  T* eq;
+  T* yield;
+  T* pad;
+};
+
+template <typename T> StateIn<T> packed_in(const T* P, int64_t E) {
+  return {P, P + 48 * E, P + 56 * E, P + 64 * E};
+}
+template <typename T> StateOut<T> packed_out(T* P, int64_t E) {
+  return {P, P + 48 * E, P + 56 * E, P + 64 * E, P + 54 * E};
+}
+
+// GENERIC: a = position, b = d_disp (3, N) in T, centred after the gather,
+// coord_e unused; else a = disp, b = dprev (3, N) in K with coord_e.
+template <typename K, typename T, bool GENERIC, bool TRIAX>
 __global__ void __launch_bounds__(kTE * kNG)
 element_kernel(const int32_t* __restrict__ elem,      // (8, E)
                const T* __restrict__ coord_e,         // (24, E)
                const K* __restrict__ disp,            // (3, N)
                const K* __restrict__ dprev,           // (3, N)
-               const T* __restrict__ P,               // (72, E)
+               const StateIn<T> gp,                   // Gauss-point state
                const T* __restrict__ G_e,             // (E,)
                const T* __restrict__ lam_e,           // (E,)
                const int32_t* __restrict__ mat,       // (E,)
@@ -89,7 +131,7 @@ element_kernel(const int32_t* __restrict__ elem,      // (8, E)
                const T* __restrict__ hard_slope,      // (M, W - 1)
                const int32_t* __restrict__ hard_n,    // (M,)
                int W, int E, int N,
-               T* __restrict__ P_out,                 // (72, E)
+               const StateOut<T> gpo,                 // new state
                T* __restrict__ qe,                    // (24, E)
                T* __restrict__ triax) {               // (8, E) if TRIAX
   __shared__ T s_kin[48][kTE];        // pos rows b*8+i, du rows 24+b*8+i
@@ -104,8 +146,9 @@ element_kernel(const int32_t* __restrict__ elem,      // (8, E)
   const int64_t ec = live ? e : (int64_t)E - 1;   // clamped for loads
   const int64_t sE = E;
 
-  // ---- gather: thread (x, j = k) loads node slot j of element x; both
-  // differences are taken in the nodal type K, then cast to T ----
+  // ---- gather: thread (x, j = k) loads node slot j of element x.  The
+  // packed stage takes both differences in the nodal type K, then casts to
+  // T; the generic stage centres the T position on node 0 in T ----
   {
     const int j = k;
     const int64_t n = elem[j * sE + ec];
@@ -113,14 +156,16 @@ element_kernel(const int32_t* __restrict__ elem,      // (8, E)
 #pragma unroll
     for (int b = 0; b < 3; ++b) {
       d[b] = disp[b * (int64_t)N + n];
-      s_kin[24 + b * 8 + j][x] = T(d[b] - dprev[b * (int64_t)N + n]);
+      s_kin[24 + b * 8 + j][x] = GENERIC ? T(dprev[b * (int64_t)N + n])
+                                         : T(d[b] - dprev[b * (int64_t)N + n]);
       if (j == 0) s_d0[b][x] = d[b];
     }
     __syncthreads();
 #pragma unroll
     for (int b = 0; b < 3; ++b)   // node-0-centred position
       s_kin[b * 8 + j][x] =
-          coord_e[(b * 8 + j) * sE + ec] + T(d[b] - s_d0[b][x]);
+          GENERIC ? T(d[b] - s_d0[b][x])
+                  : coord_e[(b * 8 + j) * sE + ec] + T(d[b] - s_d0[b][x]);
     __syncthreads();
   }
 
@@ -191,10 +236,11 @@ element_kernel(const int32_t* __restrict__ elem,      // (8, E)
   T trial[6];
 #pragma unroll
   for (int c = 0; c < 3; ++c)
-    trial[c] = P[(c * 8 + k) * sE + ec] + (le * tr_de + T(2) * Ge * de[c]);
+    trial[c] = gp.stress[(c * 8 + k) * sE + ec]
+             + (le * tr_de + T(2) * Ge * de[c]);
 #pragma unroll
   for (int c = 3; c < 6; ++c)
-    trial[c] = P[(c * 8 + k) * sE + ec] + Ge * de[c];
+    trial[c] = gp.stress[(c * 8 + k) * sE + ec] + Ge * de[c];
   const T mean_s = (trial[0] + trial[1] + trial[2]) / T(3);
   T dev[6] = {trial[0] - mean_s, trial[1] - mean_s, trial[2] - mean_s,
               trial[3], trial[4], trial[5]};
@@ -202,8 +248,8 @@ element_kernel(const int32_t* __restrict__ elem,      // (8, E)
                               + dev[2] * dev[2]
                               + T(2) * (dev[3] * dev[3] + dev[4] * dev[4]
                                         + dev[5] * dev[5])));
-  const T eq = P[(56 + k) * sE + ec];
-  const T ys = P[(64 + k) * sE + ec];
+  const T eq = gp.eq[k * sE + ec];
+  const T ys = gp.yield[k * sE + ec];
   // hardening slope: count table strains (rows >= 1) strictly below eq_ps,
   // capped at npp - 2; zero for materials with fewer than two rows
   const int m = mat[ec];
@@ -224,9 +270,9 @@ element_kernel(const int32_t* __restrict__ elem,      // (8, E)
     fin[c] = plastic ? dev[c] * scale + (c < 3 ? mean_s : T(0)) : trial[c];
   if (live) {
 #pragma unroll
-    for (int c = 0; c < 6; ++c) P_out[(c * 8 + k) * sE + e] = fin[c];
-    P_out[(56 + k) * sE + e] = plastic ? eq + d_ep : eq;
-    P_out[(64 + k) * sE + e] = plastic ? ys + H * d_ep : ys;
+    for (int c = 0; c < 6; ++c) gpo.stress[(c * 8 + k) * sE + e] = fin[c];
+    gpo.eq[k * sE + e] = plastic ? eq + d_ep : eq;
+    gpo.yield[k * sE + e] = plastic ? ys + H * d_ep : ys;
     if (TRIAX) {   // triaxiality of the final stress
       const T a0 = fin[0] - fin[1], a1 = fin[1] - fin[2], a2 = fin[0] - fin[2];
       const T vm_t = sqrt(T(0.5) * (a0 * a0 + a1 * a1 + a2 * a2
@@ -250,14 +296,15 @@ element_kernel(const int32_t* __restrict__ elem,      // (8, E)
 #pragma unroll
   for (int kk = 1; kk < kNG; ++kk) swsm += s_red[6][kk][x];
   if (live) {
-    // thread k < 6 writes GP-mean strain row 48 + k; rows 54:56 are zero
-    T out = T(0);
+    // thread k < 6 writes GP-mean strain row k; threads 6 and 7 the packed
+    // layout's zero rows
     if (k < 6) {
       T sde = s_red[k][0][x];
       for (int kk = 1; kk < kNG; ++kk) sde += s_red[k][kk][x];
-      out = P[(48 + k) * sE + ec] + T(0.125) * sde;
+      gpo.strain[k * sE + e] = gp.strain[k * sE + ec] + T(0.125) * sde;
+    } else if (gpo.pad != nullptr) {
+      gpo.pad[(k - 6) * sE + e] = T(0);
     }
-    P_out[(48 + k) * sE + e] = out;
   }
 
   // ---- internal-force moments M[c][b] at k ----
@@ -293,24 +340,55 @@ element_kernel(const int32_t* __restrict__ elem,      // (8, E)
   }
 }
 
-template <typename K, typename T>
-int launch(const int32_t* elem, const T* coord_e, const K* disp,
-           const K* dprev, const T* P, const T* G_e, const T* lam_e,
-           const int32_t* mat, const uint8_t* hasp, const uint8_t* flag,
-           const T* hard_strain, const T* hard_slope, const int32_t* hard_n,
-           int W, int E, int N, T* P_out, T* qe, T* triax, void* stream) {
+template <typename K, typename T, bool GENERIC>
+int launch(const int32_t* elem, const T* coord_e, const K* a, const K* b,
+           StateIn<T> gp, const T* G_e, const T* lam_e, const int32_t* mat,
+           const uint8_t* hasp, const uint8_t* flag, const T* hard_strain,
+           const T* hard_slope, const int32_t* hard_n, int W, int E, int N,
+           StateOut<T> gpo, T* qe, T* triax, void* stream) {
   if (E <= 0) return 0;
   const dim3 block(kTE, kNG);
   const dim3 grid((E + kTE - 1) / kTE);
   if (triax != nullptr)
-    element_kernel<K, T, true><<<grid, block, 0, (cudaStream_t)stream>>>(
-        elem, coord_e, disp, dprev, P, G_e, lam_e, mat, hasp, flag,
-        hard_strain, hard_slope, hard_n, W, E, N, P_out, qe, triax);
+    element_kernel<K, T, GENERIC, true>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(
+            elem, coord_e, a, b, gp, G_e, lam_e, mat, hasp, flag,
+            hard_strain, hard_slope, hard_n, W, E, N, gpo, qe, triax);
   else
-    element_kernel<K, T, false><<<grid, block, 0, (cudaStream_t)stream>>>(
-        elem, coord_e, disp, dprev, P, G_e, lam_e, mat, hasp, flag,
-        hard_strain, hard_slope, hard_n, W, E, N, P_out, qe, triax);
+    element_kernel<K, T, GENERIC, false>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(
+            elem, coord_e, a, b, gp, G_e, lam_e, mat, hasp, flag,
+            hard_strain, hard_slope, hard_n, W, E, N, gpo, qe, triax);
   return (int)cudaGetLastError();
+}
+
+template <typename K, typename T>
+int launch_packed(const int32_t* elem, const T* coord_e, const K* disp,
+                  const K* dprev, const T* P, const T* G_e, const T* lam_e,
+                  const int32_t* mat, const uint8_t* hasp,
+                  const uint8_t* flag, const T* hard_strain,
+                  const T* hard_slope, const int32_t* hard_n, int W, int E,
+                  int N, T* P_out, T* qe, T* triax, void* stream) {
+  return launch<K, T, false>(elem, coord_e, disp, dprev, packed_in(P, E),
+                             G_e, lam_e, mat, hasp, flag, hard_strain,
+                             hard_slope, hard_n, W, E, N,
+                             packed_out(P_out, E), qe, triax, stream);
+}
+
+template <typename T>
+int launch_generic(const int32_t* elem, const T* position, const T* d_disp,
+                   const T* stress, const T* strain, const T* eq,
+                   const T* yield, const T* G_e, const T* lam_e,
+                   const int32_t* mat, const uint8_t* hasp,
+                   const uint8_t* flag, const T* hard_strain,
+                   const T* hard_slope, const int32_t* hard_n, int W, int E,
+                   int N, T* stress_out, T* strain_out, T* eq_out,
+                   T* yield_out, T* qe, T* triax, void* stream) {
+  return launch<T, T, true>(
+      elem, nullptr, position, d_disp, {stress, strain, eq, yield}, G_e,
+      lam_e, mat, hasp, flag, hard_strain, hard_slope, hard_n, W, E, N,
+      {stress_out, strain_out, eq_out, yield_out, nullptr}, qe, triax,
+      stream);
 }
 
 }  // namespace
@@ -335,7 +413,7 @@ int hk_element_f32(const int32_t* elem, const float* coord_e,
                    const float* hard_strain, const float* hard_slope,
                    const int32_t* hard_n, int W, int E, int N, float* P_out,
                    float* qe, float* triax, void* stream) {
-  return launch<float, float>(elem, coord_e, disp, dprev, P, G_e, lam_e, mat,
+  return launch_packed<float, float>(elem, coord_e, disp, dprev, P, G_e, lam_e, mat,
                               hasp, flag, hard_strain, hard_slope, hard_n, W,
                               E, N, P_out, qe, triax, stream);
 }
@@ -347,7 +425,7 @@ int hk_element_f64(const int32_t* elem, const double* coord_e,
                    const double* hard_strain, const double* hard_slope,
                    const int32_t* hard_n, int W, int E, int N, double* P_out,
                    double* qe, double* triax, void* stream) {
-  return launch<double, double>(elem, coord_e, disp, dprev, P, G_e, lam_e,
+  return launch_packed<double, double>(elem, coord_e, disp, dprev, P, G_e, lam_e,
                                 mat, hasp, flag, hard_strain, hard_slope,
                                 hard_n, W, E, N, P_out, qe, triax, stream);
 }
@@ -360,9 +438,49 @@ int hk_element_mixed(const int32_t* elem, const float* coord_e,
                      const float* hard_strain, const float* hard_slope,
                      const int32_t* hard_n, int W, int E, int N,
                      float* P_out, float* qe, float* triax, void* stream) {
-  return launch<double, float>(elem, coord_e, disp, dprev, P, G_e, lam_e,
+  return launch_packed<double, float>(elem, coord_e, disp, dprev, P, G_e, lam_e,
                                mat, hasp, flag, hard_strain, hard_slope,
                                hard_n, W, E, N, P_out, qe, triax, stream);
+}
+
+// The generic step's unpacked update: position and d_disp (3, N) in the
+// element type; stress (6, 8, E), strain (6, E), eq_ps and yield (8, E) in
+// and out as separate arrays; qe (3, 8, E).
+int hk_element_update_f32(const int32_t* elem, const float* position,
+                          const float* d_disp, const float* stress,
+                          const float* strain, const float* eq,
+                          const float* yield, const float* G_e,
+                          const float* lam_e, const int32_t* mat,
+                          const uint8_t* hasp, const uint8_t* flag,
+                          const float* hard_strain, const float* hard_slope,
+                          const int32_t* hard_n, int W, int E, int N,
+                          float* stress_out, float* strain_out,
+                          float* eq_out, float* yield_out, float* qe,
+                          float* triax, void* stream) {
+  return launch_generic<float>(elem, position, d_disp, stress, strain, eq,
+                               yield, G_e, lam_e, mat, hasp, flag,
+                               hard_strain, hard_slope, hard_n, W, E, N,
+                               stress_out, strain_out, eq_out, yield_out, qe,
+                               triax, stream);
+}
+
+int hk_element_update_f64(const int32_t* elem, const double* position,
+                          const double* d_disp, const double* stress,
+                          const double* strain, const double* eq,
+                          const double* yield, const double* G_e,
+                          const double* lam_e, const int32_t* mat,
+                          const uint8_t* hasp, const uint8_t* flag,
+                          const double* hard_strain,
+                          const double* hard_slope, const int32_t* hard_n,
+                          int W, int E, int N, double* stress_out,
+                          double* strain_out, double* eq_out,
+                          double* yield_out, double* qe, double* triax,
+                          void* stream) {
+  return launch_generic<double>(elem, position, d_disp, stress, strain, eq,
+                                yield, G_e, lam_e, mat, hasp, flag,
+                                hard_strain, hard_slope, hard_n, W, E, N,
+                                stress_out, strain_out, eq_out, yield_out, qe,
+                                triax, stream);
 }
 
 const char* hk_error_string(int err) {

@@ -11,9 +11,13 @@ float64, and in mixed mode (float64 nodal fields, float32 element math).
 Layouts: nodal fields (3, N); element-node fields (3, 8, E) indexed
 [axis, node slot, element]; Gauss-point fields (8, E); packed Gauss state
 P (72, E) with stress rows c*8+k (0:48), GP-mean strain 48:54, zero pad
-54:56, eq_ps 56:64 and yield 64:72; qe (24, E) with rows b*8+i.
+54:56, eq_ps 56:64 and yield 64:72; qe (24, E) with rows b*8+i.  The
+generic step's unpacked state is stress (6, 8, E), strain (6, E), eq_ps and
+yield (8, E), with qe (3, 8, E).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -133,6 +137,49 @@ def element_math(pl_tables, mat_id, G_e, lam_e, has_plastic_e, pus, pos_e,
     return Qe, final, new_strain, new_eq, new_y
 
 
+class ElementResult(NamedTuple):
+    """The unpacked element update (``hakai_tpu/ops/element.py``)."""
+    Qe: torch.Tensor            # (3, 8, E) nodal internal forces
+    stress: torch.Tensor        # (6, 8, E) updated Cauchy stress
+    strain: torch.Tensor        # (6, E) GP-mean strain accumulator
+    eq_ps: torch.Tensor         # (8, E)
+    yield_s: torch.Tensor       # (8, E)
+    neg_jacobian: torch.Tensor  # () int32 count of negative detJ
+
+
+def gather_element_nodes(model: LoweredModel, position, d_disp):
+    """(3, N) nodal fields -> per-element (3, 8, E) copies."""
+    return position[:, model.elem], d_disp[:, model.elem]
+
+
+def neg_jacobian_count(model: LoweredModel, pos_e, element_flag):
+    """() int32: Gauss points of live elements whose Jacobian determinant
+    is negative (``_det_sign_negative``; a diagnostic)."""
+    J = torch.einsum("kai,bie->abke", model.pusai.to(pos_e.dtype),
+                     pos_e - pos_e[:, 0:1, :])
+    neg = (_det3(J) < 0) & element_flag[None, :]
+    return neg.sum(dtype=torch.int32)
+
+
+def element_core_plain(model: LoweredModel, pos_e, du, stress, strain,
+                       eq_ps, yield_s, element_flag) -> ElementResult:
+    """Plain version of the unpacked element kernel (TPU kernel #3,
+    ``element_core_pallas``): the element math on (3, 8, E) positions and
+    increments in the element dtype, centred on node 0 here, in that dtype
+    (``_element_math(pre_centered=False)``).  ``neg_jacobian`` is counted
+    when the config streams metrics (``metrics_path``), else 0, as
+    ``element_core`` fills it."""
+    qe, s, e, eq, y = element_math(
+        model.pl_tables, model.mat_id, model.G_e, model.lam_e,
+        model.has_plastic_e, model.pusai, pos_e - pos_e[:, 0:1, :], du,
+        [stress[c] for c in range(6)], [strain[c] for c in range(6)],
+        eq_ps, yield_s, element_flag)
+    neg = (neg_jacobian_count(model, pos_e, element_flag)
+           if model.config.metrics_path is not None
+           else torch.zeros((), dtype=torch.int32, device=pos_e.device))
+    return ElementResult(qe, torch.stack(s), torch.stack(e), eq, y, neg)
+
+
 def element_core_packed_plain(model: LoweredModel, P, flag, disp, disp_prev,
                               want_triax=False):
     """Plain version of the fused element kernel: one step of the element
@@ -169,6 +216,11 @@ def assemble_internal_force_plain(model: LoweredModel, qe24):
     qf = qe24.reshape(3, -1)                          # (3, 8E), i*E+e
     gathered = qf[:, model.inc_idx]                   # (3, V, N)
     return torch.where(model.inc_mask[None], gathered, 0.0).sum(dim=1)
+
+
+def triax_stress(stress, eps: float = 1e-10):
+    """Triaxiality per Gauss point of a (6, 8, E) stress."""
+    return triax_components([stress[c] for c in range(6)], eps)
 
 
 def triax_components(s, eps: float = 1e-10):

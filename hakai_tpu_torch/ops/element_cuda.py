@@ -1,18 +1,23 @@
-"""Wrapper of the fused element kernel (``csrc/element.cu``) and the packed
-step's dispatch and fracture epilogue (mirrors
+"""Wrappers of the fused element kernel (``csrc/element.cu``): the packed
+chunk loop's entry with its dispatch and fracture epilogue (mirrors
 ``hakai_tpu/ops/element_pallas.py:packed_element_step`` and
-``_fracture_epilogue``).
+``_fracture_epilogue``), and the generic step's unpacked entry
+:func:`element_update` (mirrors ``hakai_tpu/ops/element.py:
+element_update``).
 
-The one CUDA kernel replaces three TPU kernels of
+The one CUDA kernel replaces four TPU kernels of
 ``hakai_tpu/ops/element_pallas.py``: ``_make_mxu_kernel`` in its fused-gather
 call (float32) and its plain call on pos/du rows (the mixed-precision path),
-and ``_make_packed_kernel`` (``element_kernel="pallas"``).  The MXU/VPU split
-between them is a TPU matter, so ``"auto"``, ``"pallas_mxu"`` and
-``"pallas"`` all reach it.
+``_make_packed_kernel`` (``element_kernel="pallas"``) and, through its
+unpacked entry, ``_make_kernel`` (``element_core_pallas``, the generic
+step's).  The MXU/VPU split between them and the XLA/Pallas choice are TPU
+matters, so ``"auto"``, ``"pallas_mxu"``, ``"pallas"`` and ``"xla"`` all
+reach it, on both loops.
 
-For tensors on the CPU the wrapper runs the plain version,
-:func:`~hakai_tpu_torch.ops.element.element_core_packed_plain`; for CUDA
-tensors it launches the kernel on the current stream, or raises.
+For tensors on the CPU the wrappers run the plain versions
+(:func:`~hakai_tpu_torch.ops.element.element_core_packed_plain`,
+:func:`~hakai_tpu_torch.ops.element.element_core_plain`); for CUDA tensors
+they launch the kernel on the current stream, or raise.
 """
 from __future__ import annotations
 
@@ -21,7 +26,9 @@ import torch
 
 from .. import _build
 from ..core.lowering import LoweredModel
-from .element import element_core_packed_plain
+from .element import (ElementResult, element_core_packed_plain,
+                      element_core_plain, gather_element_nodes,
+                      neg_jacobian_count, triax_stress)
 from .erosion import erosion_delete_mask
 from .shape import pusai_hexa
 
@@ -29,7 +36,11 @@ from .shape import pusai_hexa
 _ENTRIES = {(torch.float32, torch.float32): ("hk_element_f32", "float32"),
             (torch.float64, torch.float64): ("hk_element_f64", "float64"),
             (torch.float64, torch.float32): ("hk_element_mixed", "mixed")}
-ELEMENT_KERNELS = ("auto", "pallas_mxu", "pallas")
+# element dtype -> C entry of the unpacked update (the generic step hands
+# it positions and increments in the element dtype, mixed mode included)
+_UPDATE_ENTRIES = {torch.float32: ("hk_element_update_f32", "float32"),
+                   torch.float64: ("hk_element_update_f64", "float64")}
+ELEMENT_KERNELS = ("auto", "pallas_mxu", "pallas", "xla")
 
 _pusai_ready: set = set()     # devices whose constant table is loaded
 
@@ -44,22 +55,31 @@ def _ensure_pusai(lib, device: torch.device) -> None:
     _pusai_ready.add(device.index)
 
 
+def _model_spec(model: LoweredModel) -> dict:
+    """The model arrays every entry of the kernel reads."""
+    E, edt = model.E, model.edtype
+    M, W = model.hard_strain.shape
+    return {"elem": (model.elem, (8, E), torch.int32),
+            "G_e": (model.G_e, (E,), edt), "lam_e": (model.lam_e, (E,), edt),
+            "mat_id": (model.mat_id, (E,), torch.int32),
+            "has_plastic_e": (model.has_plastic_e, (E,), torch.bool),
+            "hard_strain": (model.hard_strain, (M, W), edt),
+            "hard_slope": (model.hard_slope, (M, W - 1), edt),
+            "hard_n": (model.hard_n, (M,), torch.int32)}
+
+
 def _check(model: LoweredModel, P, flag, disp, disp_prev) -> None:
     E, N, kdt, edt = model.E, model.N, model.dtype, model.edtype
     if (kdt, edt) not in _ENTRIES:
         raise TypeError(f"no element kernel for dtypes {kdt}/{edt}")
-    M, W = model.hard_strain.shape
+    if model.coord_e is None:
+        raise ValueError("the packed element kernel needs model.coord_e "
+                         "(lowered without window plans: use the generic "
+                         "step)")
     _build.check_inputs(P.device, {
         "P": (P, (72, E), edt), "flag": (flag, (E,), torch.bool),
         "disp": (disp, (3, N), kdt), "disp_prev": (disp_prev, (3, N), kdt),
-        "elem": (model.elem, (8, E), torch.int32),
-        "coord_e": (model.coord_e, (3, 8, E), edt),
-        "G_e": (model.G_e, (E,), edt), "lam_e": (model.lam_e, (E,), edt),
-        "mat_id": (model.mat_id, (E,), torch.int32),
-        "has_plastic_e": (model.has_plastic_e, (E,), torch.bool),
-        "hard_strain": (model.hard_strain, (M, W), edt),
-        "hard_slope": (model.hard_slope, (M, W - 1), edt),
-        "hard_n": (model.hard_n, (M,), torch.int32)})
+        "coord_e": (model.coord_e, (3, 8, E), edt), **_model_spec(model)})
 
 
 def element_core_packed(model: LoweredModel, P, flag, disp, disp_prev,
@@ -111,6 +131,79 @@ element_core_packed.launches_by = {v + t: 0 for _, v in _ENTRIES.values()
                                    for t in ("", "+triax")}
 
 
+def _element_kernel(model: LoweredModel):
+    """Raise unless ``config.element_kernel`` names one of the settings
+    that all reach the kernel."""
+    if model.config.element_kernel not in ELEMENT_KERNELS:
+        raise ValueError(f"element_kernel={model.config.element_kernel!r}:"
+                         f" expected one of {ELEMENT_KERNELS}")
+
+
+def element_update(model: LoweredModel, position, d_disp, stress, strain,
+                   eq_ps, yield_s, element_flag, want_triax=False):
+    """The generic step's element update: an :class:`ElementResult` and,
+    with ``want_triax``, the (8, E) triaxiality of the final stress.
+
+    ``position`` and ``d_disp`` (3, N) are the new nodal positions
+    (coord + disp) and the step's increment in the element dtype;
+    ``stress`` (6, 8, E), ``strain`` (6, E), ``eq_ps``/``yield_s`` (8, E)
+    the Gauss-point state in the element dtype and ``element_flag`` (E,)
+    bool.  The kernel gathers both nodal fields through ``model.elem`` and
+    centres the positions on each element's node 0 in the element dtype.
+    ``neg_jacobian`` is counted (plain PyTorch) only when the config
+    streams metrics, as the JAX package counts it beside its TPU kernel."""
+    _element_kernel(model)
+    if position.device.type == "cpu":
+        pos_e, du = gather_element_nodes(model, position, d_disp)
+        res = element_core_plain(model, pos_e, du, stress, strain, eq_ps,
+                                 yield_s, element_flag)
+        return (res, triax_stress(res.stress)) if want_triax else res
+    if position.device.type != "cuda":
+        raise ValueError(f"no element kernel for device {position.device}")
+    E, N, edt = model.E, model.N, model.edtype
+    if edt not in _UPDATE_ENTRIES:
+        raise TypeError(f"no element kernel for dtype {edt}")
+    _build.check_inputs(position.device, {
+        "position": (position, (3, N), edt), "d_disp": (d_disp, (3, N), edt),
+        "stress": (stress, (6, 8, E), edt), "strain": (strain, (6, E), edt),
+        "eq_ps": (eq_ps, (8, E), edt), "yield_s": (yield_s, (8, E), edt),
+        "element_flag": (element_flag, (E,), torch.bool),
+        **_model_spec(model)})
+    lib = _build.library()
+    entry, variant = _UPDATE_ENTRIES[edt]
+    out = [torch.empty_like(x) for x in (stress, strain, eq_ps, yield_s)]
+    qe = torch.empty((3, 8, E), dtype=edt, device=position.device)
+    triax = (torch.empty((8, E), dtype=edt, device=position.device)
+             if want_triax else None)
+    with torch.cuda.device(position.device):
+        _ensure_pusai(lib, position.device)
+        err = getattr(lib, entry)(
+            model.elem.data_ptr(), position.data_ptr(), d_disp.data_ptr(),
+            stress.data_ptr(), strain.data_ptr(), eq_ps.data_ptr(),
+            yield_s.data_ptr(), model.G_e.data_ptr(), model.lam_e.data_ptr(),
+            model.mat_id.data_ptr(), model.has_plastic_e.data_ptr(),
+            element_flag.data_ptr(), model.hard_strain.data_ptr(),
+            model.hard_slope.data_ptr(), model.hard_n.data_ptr(),
+            model.hard_strain.shape[1], E, N,
+            *(x.data_ptr() for x in out), qe.data_ptr(),
+            None if triax is None else triax.data_ptr(),
+            torch.cuda.current_stream(position.device).cuda_stream)
+    _build.check(lib, err, "element kernel (unpacked)")
+    element_update.launches += 1
+    element_update.launches_by[variant + "+triax" * want_triax] += 1
+    neg = (neg_jacobian_count(model, position[:, model.elem], element_flag)
+           if model.config.metrics_path is not None
+           else torch.zeros((), dtype=torch.int32, device=position.device))
+    res = ElementResult(qe, *out, neg)
+    return (res, triax) if want_triax else res
+
+
+element_update.launches = 0
+# launches by entry: "float32", "float64", each also with "+triax"
+element_update.launches_by = {v + t: 0 for _, v in _UPDATE_ENTRIES.values()
+                              for t in ("", "+triax")}
+
+
 def packed_element_step(model: LoweredModel, P, flag, disp, disp_prev):
     """The packed element update plus the fracture bookkeeping of one
     chunk-loop step: ``(P_new, qe, triax, flag)``.
@@ -120,11 +213,7 @@ def packed_element_step(model: LoweredModel, P, flag, disp, disp_prev):
     stale stress counts as zero) and the erosion table is walked on the new
     eq_ps, giving the post-erosion flag.  ``triax`` is None on
     fracture-free decks (the chunk loop forms it once at its exit)."""
-    if model.config.element_kernel not in ELEMENT_KERNELS:
-        raise NotImplementedError(
-            f"element_kernel={model.config.element_kernel!r}: the generic "
-            "(unpacked) element path is not ported yet (ROADMAP Queue 2 "
-            "row #3)")
+    _element_kernel(model)
     out = element_core_packed(model, P, flag, disp, disp_prev,
                               want_triax=model.fracture_enabled)
     P_new, qe = out[0], out[1]

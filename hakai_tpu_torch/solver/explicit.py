@@ -1,5 +1,5 @@
-"""Explicit central-difference time integration on the packed Gauss state
-(mirrors the packed chunk loop and the single-device ``run()`` of
+"""Explicit central-difference time integration (mirrors the generic
+``step()``, the packed chunk loop and the single-device ``run()`` of
 ``hakai_tpu/solver/explicit.py``).
 
 A step is five things: on contact decks the contact force (activity
@@ -8,9 +8,15 @@ scatter kernels), the central-difference update with amplitude-scaled
 boundary conditions (plain PyTorch), the fused element kernel, the
 assembly kernel, and on fracture decks the erosion table walk (plain
 PyTorch).  The step counter and the current time stay on the
-device: nothing in a chunk reads a value back to the host.  ``run()``
-drives chunks from the host and writes VTK frames, checkpoints and
-metrics between them.
+device: nothing in a chunk reads a value back to the host.
+
+``run_chunk`` picks the loop as the JAX package does: the packed loop on
+models that carry ``coord_e`` (the lowering forms it on meshes of 2,048
+elements and nodes and more, unless ``gather_mode="xla"``), else the
+generic :func:`step`, which keeps the unpacked state, zeroes a dead
+element's stress and strain every step and reports its triaxiality from
+the trial stress.  ``run()`` drives chunks from the host and writes VTK
+frames, checkpoints and metrics between them.
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ from ..io.vtk import write_pvd, write_vtk
 from ..ops.assemble_cuda import assemble_internal_force
 from ..ops.contact import contact_forces
 from ..ops.element import triax_components
-from ..ops.element_cuda import packed_element_step
+from ..ops.element_cuda import element_update, packed_element_step
+from ..ops.erosion import erode
 from ..utils.checkpoint import save_checkpoint
 from ..utils.metrics import MetricsWriter, energy_guard
 from .output import node_fields
@@ -100,6 +107,41 @@ def _integrate(model: LoweredModel, state: SimState):
     return t, disp_new, velo, cforce, dwork
 
 
+def _finish(model: LoweredModel, state: SimState, t, disp_new, velo, cforce,
+            res, triax) -> SimState:
+    """Assembly, erosion and the state swap of the generic step.  ``triax``
+    is the element kernel's, of the final stress; on fracture decks
+    ``erode`` walks the table on it and zeroes every dead element's stress
+    and strain."""
+    Q = assemble_internal_force(model, res.Qe.reshape(24, model.E),
+                                out_dtype=model.dtype)
+    flag = state.element_flag
+    stress, strain = res.stress, res.strain
+    if model.fracture_enabled:
+        er = erode(model, stress, strain, res.eq_ps, triax, flag)
+        flag, stress, strain = er.element_flag, er.stress, er.strain
+    return state.replace(
+        t=t, disp=disp_new, disp_pre=state.disp, velo=velo, Q=Q,
+        stress=stress, strain=strain, eq_ps=res.eq_ps, yield_s=res.yield_s,
+        triax=triax, element_flag=flag, contact_force=cforce)
+
+
+def step(model: LoweredModel, state: SimState) -> SimState:
+    """One generic step on the unpacked state.  The new position
+    ``coord + disp`` and the increment ``disp_new - disp`` are formed in the
+    nodal dtype and cast to the element dtype before the element kernel
+    gathers them (in mixed mode its math, centring included, is float32)."""
+    t, disp_new, velo, cforce, dwork = _integrate(model, state)
+    edt = model.edtype
+    res, triax = element_update(
+        model, (model.coord + disp_new).to(edt),
+        (disp_new - state.disp).to(edt), state.stress, state.strain,
+        state.eq_ps, state.yield_s, state.element_flag, want_triax=True)
+    out = _finish(model, state, t, disp_new, velo, cforce, res, triax)
+    return out.replace(work=state.work if dwork is None
+                       else state.work + dwork)
+
+
 def step_fast_packed(model: LoweredModel, state: SimState, P):
     """One step on the packed Gauss state ``P`` (72, E): returns the new
     state (its stress fields stale until :func:`unpack_gauss_state`) and
@@ -141,10 +183,16 @@ def unpack_gauss_state(state: SimState, P) -> SimState:
 
 
 def run_chunk(model: LoweredModel, state: SimState, n_steps: int) -> SimState:
-    """Advance ``n_steps`` steps.  Dead elements keep stale stress inside
-    the chunk and are zeroed once at its exit.  On fracture-free decks the
-    triaxiality is formed once at exit from the final stress; on fracture
-    decks it is the last step's (the erosion walk needs it every step)."""
+    """Advance ``n_steps`` steps: the generic :func:`step` when the model
+    has no ``coord_e``, else the packed loop.  In the packed loop dead
+    elements keep stale stress inside the chunk and are zeroed once at its
+    exit; on fracture-free decks the triaxiality is formed once at exit
+    from the final stress, on fracture decks it is the last step's (the
+    erosion walk needs it every step)."""
+    if model.coord_e is None:
+        for _ in range(n_steps):
+            state = step(model, state)
+        return state
     P = pack_gauss_state(state)
     for _ in range(n_steps):
         state, P = step_fast_packed(model, state, P)

@@ -18,7 +18,7 @@ from hakai_tpu_torch.pre import synthetic as tsyn
 from hakai_tpu_torch.utils.checkpoint import load_checkpoint
 from ref_oracle import Oracle
 from test_torch_run import _sections
-from test_torch_slice import carried, jax_fast_model
+from test_torch_slice import carried, jax_fast_model, port_fast_model
 
 
 def tie_free_impact(syn, n=3, d_time=2e-8, end_time=6e-6):
@@ -111,9 +111,10 @@ def _oracle_view(tm, ts):
 
 
 def test_self_contact_matches_oracle():
-    """The port's own lowering of the self-contact plates against the
-    NumPy oracle's transliteration of the reference (explicit B matrices,
-    dynamic triangle lists), 300 steps, within 1e-9 as the JAX package."""
+    """The port's own lowering of the self-contact plates (32 elements:
+    the generic step) against the NumPy oracle's transliteration of the
+    reference (explicit B matrices, dynamic triangle lists), 300 steps,
+    within 1e-9 as the JAX package."""
     m = tsyn.self_contact_model()
     o = Oracle(jsyn.self_contact_model())
     tm = lower(m, SolverConfig(dtype="float64"), device="cpu")
@@ -139,11 +140,11 @@ def _cfg(out_dir):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """run() of the tie-free impact (300 steps, 6 frames) in both
-    packages, float64."""
+    packages, float64, both on their packed chunk loops."""
     jdir, tdir = (tmp_path_factory.mktemp(k) for k in ("jax", "port"))
     jm = jax_fast_model(tie_free_impact(jsyn), _cfg(jdir))
     js = jax_run(jm, verbose=False)
-    tm = lower(tie_free_impact(tsyn), _cfg(tdir), device="cpu")
+    tm = port_fast_model(tie_free_impact(tsyn), _cfg(tdir))
     ts = run(tm, verbose=False, device="cpu")
     return dict(jdir=jdir, tdir=tdir, js=js, tm=tm, ts=ts)
 

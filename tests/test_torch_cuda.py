@@ -6,6 +6,8 @@ with nvcc and without JAX (``--noconftest`` skips ``tests/conftest.py``,
 which configures JAX):
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -13,8 +15,11 @@ import torch
 from hakai_tpu_torch import SolverConfig, init_state, lower, run_chunk
 from hakai_tpu_torch.ops.assemble_cuda import assemble_internal_force
 from hakai_tpu_torch.ops.element import (assemble_internal_force_plain,
-                                         element_core_packed_plain)
-from hakai_tpu_torch.ops.element_cuda import element_core_packed
+                                         element_core_packed_plain,
+                                         element_core_plain,
+                                         gather_element_nodes, triax_stress)
+from hakai_tpu_torch.ops.element_cuda import (element_core_packed,
+                                              element_update)
 from hakai_tpu_torch.pre.synthetic import bar_model
 
 pytestmark = pytest.mark.cuda
@@ -24,6 +29,18 @@ TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # the triaxiality mean/vm: a quotient with cancelling deviatoric
 # differences, 10x the element bound
 TRIAX_TOL = {torch.float32: 1e-4, torch.float64: 1e-11}
+
+
+def port_fast_model(deck, cfg, device="cpu"):
+    """The port's lowering of ``deck`` with ``coord_e`` formed as the
+    lowering forms it on meshes of 2,048 elements and more (f64
+    difference, then the element dtype), so ``run_chunk`` takes the packed
+    loop also on a smaller mesh (the twin of ``test_torch_slice.
+    jax_fast_model``)."""
+    m = lower(deck, cfg, device=device)
+    coord, elem = m.coord.double(), m.elem.long()
+    return dataclasses.replace(m, coord_e=(
+        coord[:, elem] - coord[:, elem[0]][:, None, :]).to(m.edtype))
 
 
 @pytest.fixture
@@ -77,7 +94,8 @@ def test_assembly_kernel_matches_plain(cuda, dtype):
 
 
 def test_wrappers_refuse_wrong_inputs(cuda):
-    m = lower(bar_model(4, 4, 16), SolverConfig(dtype="float32"), device=cuda)
+    m = port_fast_model(bar_model(4, 4, 16), SolverConfig(dtype="float32"),
+                        cuda)
     P, flag, disp, dprev = _inputs(m, 2)
     with pytest.raises(TypeError):
         element_core_packed(m, P.double(), flag, disp, dprev)
@@ -85,12 +103,64 @@ def test_wrappers_refuse_wrong_inputs(cuda):
         element_core_packed(m, P[:, :8], flag, disp, dprev)
     with pytest.raises(ValueError):
         assemble_internal_force(m, torch.zeros(24, m.E + 8, device=cuda))
+    with pytest.raises(ValueError, match="coord_e"):
+        element_core_packed(dataclasses.replace(m, coord_e=None), P, flag,
+                            disp, dprev)
+    u = _update_inputs(m, 2)
+    with pytest.raises(TypeError):
+        element_update(m, u[0].double(), *u[1:])
+    with pytest.raises(ValueError):
+        element_update(m, *u[:2], u[2][..., :8], *u[3:])
 
 
-def test_run_chunk_card_matches_cpu_f64(cuda):
+def _update_inputs(m, seed):
+    """(position, d_disp, stress, strain, eq_ps, yield_s, flag) for the
+    unpacked entry, in the element dtype, from :func:`_inputs`."""
+    P, flag, disp, dprev = _inputs(m, seed)
+    E, edt = m.E, m.edtype
+    return ((m.coord + disp).to(edt), (disp - dprev).to(edt),
+            P[:48].reshape(6, 8, E).contiguous(), P[48:54].contiguous(),
+            P[56:64].contiguous(), P[64:72].contiguous(), flag)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "mixed"])
+@pytest.mark.parametrize("want_triax", [False, True])
+def test_element_update_kernel_matches_plain(cuda, dtype, want_triax):
+    """The unpacked entry (TPU kernel #3, the generic step's) against its
+    plain version on the 8x8x32 bar with 2,048 padding lanes: every output
+    within the element bounds, dead and padding lanes without force, the
+    launch counted by entry."""
+    m = lower(bar_model(8, 8, 32), SolverConfig(dtype=dtype, elem_pad=4096,
+                                                gather_mode="xla"),
+              device=cuda)
+    assert m.coord_e is None and m.E == 4096
+    u = _update_inputs(m, 4)
+    before = dict(element_update.launches_by)
+    out = element_update(m, *u, want_triax=want_triax)
+    pos_e, du = gather_element_nodes(m, u[0], u[1])
+    ref = element_core_plain(m, pos_e, du, *u[2:])
+    res = out[0] if want_triax else out
+    key = str(m.edtype).split(".")[1] + "+triax" * want_triax
+    assert element_update.launches_by[key] == before[key] + 1
+    for name in ("Qe", "stress", "strain", "eq_ps", "yield_s"):
+        a, b = getattr(res, name), getattr(ref, name)
+        assert a.dtype == b.dtype == m.edtype and a.shape == b.shape, name
+        assert _rel(a, b) <= TOL[m.edtype], name
+    assert not res.Qe[..., ~u[-1]].any()
+    if want_triax:
+        assert _rel(out[1], triax_stress(ref.stress)) <= TRIAX_TOL[m.edtype]
+
+
+@pytest.mark.parametrize("loop", ["generic", "packed"])
+def test_run_chunk_card_matches_cpu_f64(cuda, loop):
+    """The 4x4x16 bar (below 2,048 elements: the generic step; with
+    port_fast_model the packed loop) for 50 plastic f64 steps on the card
+    and on the CPU."""
     bar = bar_model(4, 4, 16, d_time=5e-8, end_time=1e-4)
     cfg = SolverConfig(dtype="float64")
-    mg, mc = lower(bar, cfg, device=cuda), lower(bar, cfg, device="cpu")
+    low = lower if loop == "generic" else port_fast_model
+    mg, mc = low(bar, cfg, device=cuda), low(bar, cfg, device="cpu")
+    assert (mg.coord_e is None) == (loop == "generic")
     g = run_chunk(mg, init_state(mg), 50)
     c = run_chunk(mc, init_state(mc), 50)
     assert c.eq_ps.max() > 0
@@ -257,15 +327,18 @@ def test_pairs_left_on_the_cpu_raise(cuda):
         run_chunk(dataclasses.replace(m, pairs=cpu_pairs), s, 1)
 
 
-def test_mixed_fracture_run_chunk_card_matches_cpu(cuda):
+@pytest.mark.parametrize("loop", ["generic", "packed"])
+def test_mixed_fracture_run_chunk_card_matches_cpu(cuda, loop):
     """The ductile bar in mixed precision for 500 steps (past the first
-    deletions, at step 454 on the CPU) on the card and on the CPU: equal
-    flags, and each state field within 10x the float32 envelope (the CPU
-    mixed run against the CPU float64 run)."""
+    deletions, near step 454-480 on the CPU) on the card and on the CPU,
+    on the generic step and on the packed loop: equal flags, and each
+    state field within 10x the float32 envelope (the CPU mixed run against
+    the CPU float64 run)."""
     bar = bar_model(4, 4, 16, d_time=5e-8, end_time=1e-4, ductile=True)
+    low = lower if loop == "generic" else port_fast_model
     out = {}
     for dev, dt in ((cuda, "mixed"), ("cpu", "mixed"), ("cpu", "float64")):
-        m = lower(bar, SolverConfig(dtype=dt), device=dev)
+        m = low(bar, SolverConfig(dtype=dt), device=dev)
         out[(str(dev), dt)] = run_chunk(m, init_state(m), 500)
     g, c, c64 = out[("cuda", "mixed")], out[("cpu", "mixed")], \
         out[("cpu", "float64")]

@@ -21,6 +21,7 @@ from hakai_tpu.solver.explicit import _interleave_nodal, pack_gauss_state
 from hakai_tpu_torch.core.lowering import lower
 from hakai_tpu_torch.ops import element as tel
 from hakai_tpu_torch.ops.element_cuda import element_core_packed
+from test_torch_cuda import port_fast_model
 
 
 def _state(rng, E, N, dtype):
@@ -93,7 +94,7 @@ def test_plain_matches_xla_element_math_f64():
     so agreement is to roundoff: 1e-12 of each output's scale."""
     bar = bar_model(4, 4, 16, d_time=1e-8, end_time=1.0)
     cfg = SolverConfig(dtype="float64", elem_pad=512)
-    jm, tm = jax_lower(bar, cfg), lower(bar, cfg, device="cpu")
+    jm, tm = jax_lower(bar, cfg), port_fast_model(bar, cfg)
     E, N = tm.E, tm.N
     assert E == 512 and tm.n_element == 256
     disp, dprev, stress, strain, eq, ys = _state(
@@ -166,8 +167,7 @@ def test_triax_matches_jax():
 
 
 def test_wrapper_runs_plain_version_on_cpu():
-    m = lower(bar_model(4, 4, 16), SolverConfig(dtype="float32"),
-              device="cpu")
+    m = port_fast_model(bar_model(4, 4, 16), SolverConfig(dtype="float32"))
     disp, dprev, stress, strain, eq, ys = _state(
         np.random.default_rng(2), m.E, m.N, np.float32)
     args = (torch.from_numpy(_packed(stress, strain, eq, ys)),

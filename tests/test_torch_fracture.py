@@ -10,7 +10,8 @@ from hakai_tpu.pre.synthetic import bar_model
 from hakai_tpu.solver.explicit import run_chunk as jax_run_chunk
 from hakai_tpu_torch import init_state, lower, run_chunk
 from hakai_tpu_torch.solver.explicit import pack_gauss_state
-from test_torch_slice import STATE, _compare, carried, jax_fast_model
+from test_torch_slice import (STATE, _compare, carried, jax_fast_model,
+                              port_fast_model)
 
 
 def test_ductile_bar_f64_matches_jax():
@@ -38,12 +39,12 @@ def test_ductile_bar_f64_matches_jax():
 
 @pytest.mark.parametrize("split", [(450, 100), (480, 40)])
 def test_fracture_chunks_compose(split):
-    """Across the first deletions, run_chunk(k1) then run_chunk(k2) equals
-    run_chunk(k1 + k2) bitwise: a dead element's stale stress only feeds
-    values that its flag masks, so zeroing it at a chunk exit changes
-    nothing that lives on."""
-    m = lower(bar_model(4, 4, 16, d_time=5e-8, end_time=1e-4, ductile=True),
-              SolverConfig(dtype="mixed"), device="cpu")
+    """Across the first deletions, on the packed loop, run_chunk(k1) then
+    run_chunk(k2) equals run_chunk(k1 + k2) bitwise: a dead element's stale
+    stress only feeds values that its flag masks, so zeroing it at a chunk
+    exit changes nothing that lives on."""
+    m = port_fast_model(bar_model(4, 4, 16, d_time=5e-8, end_time=1e-4,
+                                  ductile=True), SolverConfig(dtype="mixed"))
     whole = run_chunk(m, init_state(m), sum(split))
     parts = run_chunk(m, run_chunk(m, init_state(m), split[0]), split[1])
     assert not whole.element_flag[:m.n_element].all()

@@ -14,7 +14,7 @@ from hakai_tpu.solver.explicit import run_chunk as jax_run_chunk
 from hakai_tpu_torch import run_chunk
 from hakai_tpu_torch.core.lowering import lower
 from hakai_tpu_torch.ops.element_cuda import packed_element_step
-from test_torch_slice import carried, jax_fast_model
+from test_torch_slice import carried, jax_fast_model, port_fast_model
 
 STATE = ("disp", "disp_pre", "velo", "Q", "stress", "strain", "eq_ps",
          "yield_s", "triax", "work")
@@ -38,7 +38,7 @@ def test_plain_twin_matches_mixed_kernels(element_kernel):
     bar = bar_model(4, 4, 64, d_time=5e-8, end_time=1e-4, ductile=True)
     cfg = SolverConfig(dtype="mixed", element_kernel=element_kernel)
     jm = jax_fast_model(bar, cfg)
-    tm = lower(bar, cfg, device="cpu")
+    tm = port_fast_model(bar, cfg)
     E, N = tm.E, tm.N
     assert E == 1024 and jm.fracture_enabled and tm.fracture_enabled
     rng = np.random.default_rng(23)

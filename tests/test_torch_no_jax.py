@@ -1,9 +1,10 @@
 """The port runs without JAX and without the JAX package: a fresh
 interpreter imports every module of hakai_tpu_torch, builds the ductile bar
 and the impact contact deck from the port's own pre.synthetic and runs
-run() on each on the CPU; no module of jax or hakai_tpu is ever loaded.
-And no source file of the port, nor chip_smoke.py, has an import of
-either."""
+run() on each on the CPU; ``python -m hakai_tpu_torch deck.inp --device
+cpu`` runs a written deck; no module of jax or hakai_tpu is ever loaded.
+And no source file of the port, nor chip_smoke.py or the deck writer
+scripts/inp_deck.py, has an import of either."""
 import ast
 import os
 import subprocess
@@ -49,6 +50,31 @@ def test_port_never_imports_jax():
     assert "FORBIDDEN_MODULES []" in r.stdout, r.stdout
 
 
+def test_cli_never_imports_jax(tmp_path):
+    """``python -m hakai_tpu_torch deck.inp --device cpu`` in a fresh
+    interpreter, on a ductile bar written by scripts/inp_deck.py: it runs
+    to its end, and ``-X importtime`` lists every module it imported,
+    none of jax or the JAX package."""
+    deck = tmp_path / "bar.inp"
+    w = subprocess.run([sys.executable, str(ROOT / "scripts" / "inp_deck.py"),
+                        str(deck), "2", "2", "4", "--ductile",
+                        "--end-time", "1e-6"],
+                       capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert w.returncode == 0, w.stderr
+    r = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "hakai_tpu_torch",
+         str(deck), "--device", "cpu", "--out-dir", str(tmp_path / "out"),
+         "--output-num", "2"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "time_num:20" in r.stdout
+    assert (tmp_path / "out" / "file002.vtk").exists()
+    mods = [line.rsplit("|", 1)[1].strip() for line in r.stderr.splitlines()
+            if line.startswith("import time:") and "|" in line]
+    assert "hakai_tpu_torch.cli" in mods and "torch" in mods
+    assert not [m for m in mods if m.split(".")[0] in FORBIDDEN]
+
+
 def _imports(path: Path):
     """Top-level package names of every import statement in ``path``,
     including those inside functions (relative imports excluded)."""
@@ -62,7 +88,7 @@ def _imports(path: Path):
 
 def test_no_source_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "hakai_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "inp_deck.py"]
     assert len(files) > 20
     bad = {str(p.relative_to(ROOT)): sorted(set(_imports(p))
                                             & set(FORBIDDEN))

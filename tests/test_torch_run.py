@@ -17,7 +17,7 @@ from hakai_tpu_torch import init_state, lower, run
 from hakai_tpu_torch.io import vtk as tvtk
 from hakai_tpu_torch.solver.output import NodeData
 from hakai_tpu_torch.utils.checkpoint import load_checkpoint
-from test_torch_slice import STATE, _compare, jax_fast_model
+from test_torch_slice import STATE, _compare, jax_fast_model, port_fast_model
 
 BAR = dict(nx=4, ny=4, nz=16, d_time=5e-8, end_time=1e-4, ductile=True)
 
@@ -30,14 +30,14 @@ def _cfg(out_dir, **kw):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """One JAX run (its packed chunk loop, see jax_fast_model) and one port
-    run of the same deck, each in a directory of its own."""
+    """One JAX run and one port run of the same deck, both on their packed
+    chunk loops (see jax_fast_model), each in a directory of its own."""
     jdir = tmp_path_factory.mktemp("jax")
     tdir = tmp_path_factory.mktemp("port")
     bar = bar_model(**BAR)
     jm = jax_fast_model(bar, _cfg(jdir))
     js = jax_run(jm, verbose=False)
-    tm = lower(bar, _cfg(tdir), device="cpu")
+    tm = port_fast_model(bar, _cfg(tdir))
     ts = run(tm, verbose=False, device="cpu")
     return dict(jdir=jdir, tdir=tdir, jm=jm, js=js, tm=tm, ts=ts)
 
@@ -184,8 +184,7 @@ def test_energy_guard_aborts_like_jax(tmp_path):
             if pkg == "jax":
                 jax_run(jax_fast_model(bar, cfg), verbose=False)
             else:
-                run(lower(bar, cfg, device="cpu"), verbose=False,
-                    device="cpu")
+                run(port_fast_model(bar, cfg), verbose=False, device="cpu")
         msgs.append(str(err.value))
     assert msgs[0].split(":")[0] == msgs[1].split(":")[0]
     assert msgs[1].endswith("re-run with --precision f64 or mixed")

@@ -17,6 +17,7 @@ from hakai_tpu_torch import init_state, lower, run_chunk
 from hakai_tpu_torch.core.lowering import model_from_numpy
 from hakai_tpu_torch.core.state import SimState, state_from_numpy
 from hakai_tpu_torch.solver.explicit import pack_gauss_state
+from test_torch_cuda import port_fast_model
 
 STATE = ("disp", "disp_pre", "velo", "Q", "stress", "strain", "eq_ps",
          "yield_s", "triax", "work")
@@ -54,10 +55,11 @@ def jax_fast_model(bar, cfg):
     forms it on meshes of 2,048 elements and more (f64 difference, then
     the element dtype).  With it the JAX ``run_chunk`` takes its packed
     chunk loop (``step_fast``: deferred erosion zeroing, triaxiality masked
-    by the pre-erosion flag), the loop the port implements, also on a mesh
-    too small for window plans; without it the JAX package takes its
-    generic ``step()``, which reports a dead element's triaxiality from its
-    trial stress instead of 0."""
+    by the pre-erosion flag) also on a mesh too small for window plans;
+    without it the JAX package takes its generic ``step()``, which reports
+    a dead element's triaxiality from its trial stress instead of 0.  The
+    port's twin is ``port_fast_model``: the two hold the packed loops
+    against each other on small meshes."""
     jm = jax_lower(bar, cfg)
     coord, elem = np.asarray(jm.coord, np.float64), np.asarray(jm.elem)
     return dataclasses.replace(jm, coord_e=jnp.asarray(
@@ -85,14 +87,16 @@ def _compare(js, ts, rel):
 
 
 def test_run_chunk_matches_jax_f64():
-    """100 plastic steps in f64 with the energy balance on: the JAX run
-    takes its generic step (no window plans at this size), the port its
-    packed step.  Same math, other summation orders: near roundoff."""
+    """100 plastic steps in f64 with the energy balance on, from the JAX
+    model carried across: no window plans at this size, so neither model
+    has ``coord_e`` and both take the generic step.  Same math, other
+    summation orders: near roundoff."""
     bar = bar_model(4, 4, 16, d_time=5e-8, end_time=1e-4)
     cfg = SolverConfig(dtype="float64", energy_check=True)
     jm = jax_lower(bar, cfg)
     js0 = jax_init_state(jm)
     tm, ts0 = carried(jm, js0)
+    assert jm.coord_e is None and tm.coord_e is None
     js = jax_run_chunk(jm, js0, 100)
     ts = run_chunk(tm, ts0, 100)
     assert float(np.asarray(js.eq_ps).max()) > 0.01     # plasticity engaged
@@ -146,10 +150,11 @@ def test_determinism_bitwise():
 
 @pytest.mark.parametrize("split", [(10, 0), (4, 6)])
 def test_chunks_compose(split):
-    """run_chunk(k1) then run_chunk(k2) equals run_chunk(k1 + k2) bitwise
-    (the chunk-exit zeroing and triax are pure functions of the state)."""
-    m = lower(bar_model(4, 4, 16, d_time=5e-8, end_time=1e-4),
-              SolverConfig(dtype="float32"), device="cpu")
+    """On the packed loop, run_chunk(k1) then run_chunk(k2) equals
+    run_chunk(k1 + k2) bitwise (the chunk-exit zeroing and triax are pure
+    functions of the state)."""
+    m = port_fast_model(bar_model(4, 4, 16, d_time=5e-8, end_time=1e-4),
+                        SolverConfig(dtype="float32"))
     whole = run_chunk(m, init_state(m), sum(split))
     parts = run_chunk(m, run_chunk(m, init_state(m), split[0]), split[1])
     P1, P2 = pack_gauss_state(whole), pack_gauss_state(parts)
