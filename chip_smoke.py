@@ -60,7 +60,27 @@ without its last line):
    cpu``, frames compared; then [run]'s ductile bar written as a deck
    (depth cut to CLI_STEPS steps, its amplitude kept) and run through the
    CLI in mixed precision: its frames equal [run]'s byte for byte at the
-   steps both wrote; the parse, lowering, step and frame seconds.
+   steps both wrote; the parse, lowering, step and frame seconds;
+14. grouped-asm (fifth slice, TPU kernels #9/#10): in the kernels phase,
+   the grouped entry of the assembly kernel on the node-block-major
+   grouping of the bench bar's incidence table, float32, float64 and
+   float32 -> float64, against its plain version and bit for bit against
+   the assembly kernel, timed with its bound and ``index_add_``; after the
+   main path, the bench bar with the grouped plan through ``run_chunk``,
+   bitwise equal to the main path's run;
+15. sharded (fifth slice): one launch of two element-sharded ranks (gloo,
+   sharing the card; NCCL with a card per rank where there are two): the
+   bench bar in the packed loop and on the generic step, bitwise equal to
+   one device, with us/step, the all-gathers' share and rank 0's device
+   busy; single sharded steps around the next phases' events;
+16. sharded-run: [run]'s deck cut to 2,000 steps through
+   ``run(devices=2)``: first deletion, alive count, frames byte-identical
+   to [run]'s, its checkpoint resumed on one device bitwise;
+17. sharded-contact: [contact]'s deck cut to 400 steps through
+   ``run(devices=2)``: first contact and first deletion, the alive count
+   and the contact force against one device;
+18. nccl: one NCCL rank on the bench bar, bitwise equal to ``run_chunk``;
+   two NCCL ranks on one card refused.
 
 The line before the last is nvidia-smi's name and power limit; the one
 before that the per-kernel JSON record; the last line is
@@ -166,6 +186,38 @@ GCPU_STEPS = 300
 CLI_STEPS, CLI_FRAMES = 4000, 2
 CLI_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        "smoke_cli")
+# [grouped-asm]: TPU kernels #9/#10 on the node-block-major grouping of the
+# bench bar's incidence table (N = 141,312 = 69 tiles of 2,048 nodes)
+GROUPED_R_TILE = 2048
+# [sharded]: element-sharded runs on SHARD_RANKS ranks, one per card under
+# NCCL where the machine has as many cards, else sharing the one card
+# under gloo; the bench bar in both loops, SHARD_STEPS steps after
+# SHARD_WARM dropped ones, then SHARD_TRACE traced ones (few steps keep the
+# script short: gloo's steps on one card take 10-17 ms)
+SHARD_RANKS, SHARD_STEPS, SHARD_WARM, SHARD_TRACE = 2, 200, 10, 10
+# [sharded-run]: [run]'s deck cut to SHARD_RUN_STEPS steps (its amplitude
+# ramp kept), frames at steps 0 and 2,000 and a checkpoint, resumed on one
+# device for
+# SHARD_RUN_RESUME steps; [run] and [generic] recorded the first deletion
+# and the alive count at step 2,000
+SHARD_RUN_STEPS, SHARD_RUN_RESUME = 2000, 100
+SHARD_RUN_FIRST, SHARD_RUN_ALIVE = 1424, 129868
+SHARD_RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "smoke_sharded_run")
+# [sharded-contact]: [contact]'s deck cut to SHARD_CONTACT_STEPS steps;
+# [contact] recorded the first contact and first deletion.  The narrow
+# phase is dealt out by whole node and triangle blocks, so every sum runs
+# on one rank in the single-device order: the state is bitwise the
+# single-device one (dealing single block pairs, as JAX does, left the
+# mixed contact force 0.39 of its scale apart at step 400 on the card)
+SHARD_CONTACT_STEPS, CONTACT_FIRST, CONTACT_FIRST_DEL = 400, 252, 295
+SHARD_CONTACT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "build", "smoke_sharded_contact")
+# the single steps that locate [sharded-run]'s and [sharded-contact]'s
+# events start this many steps before them, from the one-device state
+SHARD_LEAD = 2
+# [nccl]: one NCCL rank on the card, the bench bar
+NCCL_STEPS = 200
 # H100 SXM peaks (NVIDIA data sheet, dense, no tensor cores): HBM
 # 3.35 TB/s; 67 TFLOP/s float32, 34 TFLOP/s float64.
 HBM_BPS = 3.35e12
@@ -427,6 +479,19 @@ def check_update(model, rng, name, want_triax=False):
     return rec
 
 
+def index_add_yardstick(model, qe, out_dtype, ref):
+    """One PyTorch call for the assembly's sum (another order): index_add_
+    of the (3, 8E) qe columns into the nodes of elem, in qe's dtype.
+    (its normwise distance from ``ref``, its ms)."""
+    import torch
+    idx = model.elem.flatten().long()
+    src = qe.view(3, 8 * model.E)
+    Q0 = torch.zeros((3, model.N), dtype=qe.dtype, device=qe.device)
+    lib = Q0.clone().index_add_(1, idx, src)
+    return (relerr(lib.to(out_dtype), ref),
+            time_ms(lambda: Q0.clone().index_add_(1, idx, src)))
+
+
 def check_assemble(model, rng, name, out_dtype=None):
     import torch
     from hakai_tpu_torch.ops.assemble_cuda import assemble_internal_force
@@ -455,14 +520,8 @@ def check_assemble(model, rng, name, out_dtype=None):
     rec["plain_ms"] = time_ms(
         lambda: assemble_internal_force_plain(model, qe).to(out_dtype),
         reps=10)
-    # one PyTorch call for the same sum (another order): index_add_ of the
-    # (3, 8E) qe columns into the nodes of elem, in qe's dtype
-    idx = model.elem.flatten().long()
-    src = qe.view(3, 8 * model.E)
-    Q0 = torch.zeros((3, model.N), dtype=qe.dtype, device=qe.device)
-    lib = Q0.clone().index_add_(1, idx, src)
-    rec["library_err"] = relerr(lib.to(out_dtype), Qp)
-    rec["library_ms"] = time_ms(lambda: Q0.clone().index_add_(1, idx, src))
+    rec["library_err"], rec["library_ms"] = index_add_yardstick(
+        model, qe, out_dtype, Qp)
     moved = nbytes(qe, model.inc_idx, model.inc_mask, Qk)
     rec["bound_ms"], rec["bound_by"] = bound(moved, 24 * model.E, kind)
     log(f"[kernels] assemble {name} {kind}: kernel {rec['ms']:.4f} ms, plain "
@@ -509,13 +568,15 @@ def trajectory():
 
 
 def _wrappers() -> dict:
-    from hakai_tpu_torch.ops.assemble_cuda import assemble_internal_force
+    from hakai_tpu_torch.ops.assemble_cuda import (assemble_internal_force,
+                                                   blocked_assemble)
     from hakai_tpu_torch.ops.contact_cuda import narrow_phase, scatter_forces
     from hakai_tpu_torch.ops.element_cuda import (element_core_packed,
                                                   element_update)
     from hakai_tpu_torch.ops.gather_cuda import gather_cols
     return {"element": element_core_packed, "update": element_update,
-            "assemble": assemble_internal_force, "gather": gather_cols,
+            "assemble": assemble_internal_force, "grouped": blocked_assemble,
+            "gather": gather_cols,
             "narrow": narrow_phase, "scatter": scatter_forces}
 
 
@@ -1484,6 +1545,334 @@ def cli_phase(smi_line):
         raise AssertionError("[cli] frames differ from [run]'s")
 
 
+def grouped_plan(model):
+    """The node-block-major grouping of ``model``'s incidence table as a
+    grouped plan on its device: output tile b sums its V slot tiles of
+    GROUPED_R_TILE nodes in the order v = 0..V-1 (vl = V)."""
+    import numpy as np
+    from hakai_tpu_torch.ops.assemble_cuda import plan_assemble
+    idx, mask = (x.cpu().numpy() for x in (model.inc_idx, model.inc_mask))
+    V, N = idx.shape
+    nblk = -(-N // GROUPED_R_TILE)
+
+    def grouped(a):
+        return np.pad(a, ((0, 0), (0, nblk * GROUPED_R_TILE - N))).reshape(
+            V, nblk, GROUPED_R_TILE).transpose(1, 0, 2).reshape(-1)
+    return plan_assemble(grouped(idx), grouped(mask), 8 * model.E, V,
+                         GROUPED_R_TILE).to(model.device)
+
+
+def check_grouped(model, rng, name, out_dtype=None):
+    """The grouped entry (TPU kernels #9/#10) against its plain version and
+    bitwise against kernel B on one random qe; returns the JSON record's
+    numbers."""
+    import torch
+    from hakai_tpu_torch.ops.assemble_cuda import (assemble_internal_force,
+                                                   blocked_assemble,
+                                                   blocked_assemble_plain)
+    qe = torch.as_tensor(rng.normal(scale=100.0, size=(24, model.E)),
+                         device=model.device).to(model.edtype).contiguous()
+    out_dtype = qe.dtype if out_dtype is None else out_dtype
+    plan = grouped_plan(model)
+    src = qe.view(3, 8 * model.E)
+    Ok = blocked_assemble(src, plan, out_dtype)
+    Op = blocked_assemble_plain(src, plan).to(out_dtype)
+    QB = assemble_internal_force(model, qe, out_dtype)
+    torch.cuda.synchronize()
+    kind = kind_of(model)
+    tol = TOL[("assemble", kind)]
+    err = relerr(Ok, Op)
+    max_abs = (Ok - Op).abs().max().item()
+    same = torch.equal(Ok[:, :model.N], QB)
+    log(f"[grouped-asm] {name} {kind} N={model.N}, vl={plan.vl}, r_tile="
+        f"{plan.r_tile}, r_pad={plan.r_pad}: {qe.dtype} -> {Ok.dtype}, rel "
+        f"err {err:.3e} (tol {tol:g}); max_abs={max_abs:.3e}; bitwise equal "
+        f"to kernel B: {same}")
+    if Ok.dtype != out_dtype or tuple(Ok.shape) != (3, plan.r_pad // plan.vl):
+        raise AssertionError(f"grouped entry wrote {Ok.dtype} {Ok.shape}")
+    if not err <= tol:
+        raise AssertionError(f"grouped assembly kernel disagrees: {err}")
+    if not same:
+        raise AssertionError("grouped entry differs from kernel B")
+    if not torch.equal(Ok, blocked_assemble(src, plan, out_dtype)):
+        raise AssertionError("grouped assembly kernel is not deterministic")
+    rec = {"max_abs_err": max_abs}
+    rec["ms"] = time_ms(lambda: blocked_assemble(src, plan, out_dtype))
+    rec["plain_ms"] = time_ms(
+        lambda: blocked_assemble_plain(src, plan).to(out_dtype), reps=10)
+    rec["library_err"], rec["library_ms"] = index_add_yardstick(
+        model, qe, out_dtype, Op[:, :model.N])
+    moved = nbytes(src, plan.idx, plan.mask, Ok)
+    ops = 3 * int(plan.mask.sum())
+    rec["bound_ms"], rec["bound_by"] = bound(moved, ops, kind)
+    log(f"[grouped-asm] {name} {kind}: kernel {rec['ms']:.4f} ms (kernel B "
+        f"on the same qe: see [kernels]), plain {rec['plain_ms']:.4f} ms, "
+        f"index_add_ {rec['library_ms']:.4f} ms (rel err "
+        f"{rec['library_err']:.1e}), bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}: {moved / 1e6:.1f} MB, {ops / 1e6:.2f} Mop)")
+    return rec
+
+
+def grouped_path(model, ref, smi_line):
+    """run_chunk on ``model`` carrying the grouped plan, N2 steps from its
+    initial state: every step assembles through the grouped entry and
+    none through kernel B, and the state equals ``ref`` (the same run
+    without the plan) bit for bit."""
+    import torch
+    from hakai_tpu_torch import init_state, run_chunk
+    grouped = dataclasses.replace(model, plan_asm=grouped_plan(model))
+    reset_counts()
+    t0 = time.perf_counter()
+    s = run_chunk(grouped, init_state(grouped), N2)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = read_counts()
+    want = {"grouped": N2, "grouped[hk_blocked_assemble_f32]": N2,
+            "assemble": 0, "element": N2}
+    diff = [f.name for f in dataclasses.fields(s)
+            if not torch.equal(getattr(s, f.name), getattr(ref, f.name))]
+    log(f"[grouped-asm] bench bar with a grouped plan_asm through run_chunk, "
+        f"{N2} steps in {sec:.2f} s: launches {launches}; fields differing "
+        f"from the run without the plan: {diff} [{smi_line}]")
+    if any(launches.get(k, 0) != v for k, v in want.items()):
+        raise AssertionError(f"kernel launches {launches} != {want}")
+    if diff:
+        raise AssertionError(f"the grouped run differs in {diff}")
+    return launches
+
+
+def shard_backend():
+    """(backend, words): NCCL with a rank per card where the machine has
+    SHARD_RANKS cards, else gloo with the ranks sharing the one card."""
+    import torch
+    if torch.cuda.device_count() >= SHARD_RANKS:
+        return "nccl", f"{SHARD_RANKS} ranks, one per card"
+    return "gloo", f"{SHARD_RANKS} ranks sharing one card (not scaling)"
+
+
+def cut_to(model, steps, **cfg):
+    """``model`` with its run cut to ``steps`` steps (the amplitude tables
+    kept, so the steps are the full run's) and its config changed."""
+    return dataclasses.replace(
+        model, time_num=steps, end_time=steps * model.dt,
+        config=dataclasses.replace(model.config, **cfg))
+
+
+def _top(rec) -> str:
+    """A traced job's host ops of the most self time, as 'name us; ...'."""
+    return "; ".join(f"{k} {us:.1f}" for k, us in rec["host_top"])
+
+
+def state_diff(a, b) -> list:
+    """The state fields in which ``a`` and ``b`` differ (any device)."""
+    import torch
+    return [f.name for f in dataclasses.fields(a)
+            if not torch.equal(getattr(a, f.name).cpu(),
+                               getattr(b, f.name).cpu())]
+
+
+def sharded_phase(bench, gen, cut, impact, smi_line):
+    """One launch of SHARD_RANKS ranks running sharded chunks: the bench
+    bar in the packed loop and on the generic step (bitwise against one
+    device, us/step, the all-gathers' share, rank 0's device busy), then
+    the single steps around [sharded-run]'s first deletion and
+    [sharded-contact]'s first contact and first deletion, from the one
+    device states SHARD_LEAD steps before them (a sharded run is bitwise
+    the one-device run, so these are its states too).  Returns (the
+    launch's records, the one-device states the jobs started from)."""
+    import torch
+    from hakai_tpu_torch import init_state, run_chunk
+    from hakai_tpu_torch.parallel.dist import launch
+    from hakai_tpu_torch.parallel.sharding import chunk_rank
+    backend, setup = shard_backend()
+    starts = {"cut": run_chunk(cut, init_state(cut),
+                               SHARD_RUN_FIRST - SHARD_LEAD)}
+    starts["contact"] = run_chunk(impact, init_state(impact),
+                                  CONTACT_FIRST - SHARD_LEAD)
+    starts["contact_del"] = run_chunk(impact, starts["contact"],
+                                      CONTACT_FIRST_DEL - CONTACT_FIRST)
+    single = [1] * SHARD_LEAD
+    jobs = [dict(model=bench.to("cpu"), chunks=[SHARD_STEPS],
+                 warm=SHARD_WARM, trace=SHARD_TRACE),
+            dict(model=gen.to("cpu"), chunks=[SHARD_STEPS],
+                 warm=SHARD_WARM, trace=SHARD_TRACE),
+            dict(model=cut.to("cpu"), state=starts["cut"].to("cpu"),
+                 chunks=single)]
+    impact_cpu = impact.to("cpu")
+    jobs += [dict(model=impact_cpu, state=starts[k].to("cpu"), chunks=single)
+             for k in ("contact", "contact_del")]
+    t0 = time.perf_counter()
+    res = launch(chunk_rank, SHARD_RANKS, "cuda", backend, jobs)
+    log(f"[sharded] {backend}, {setup}: one launch of {len(jobs)} jobs in "
+        f"{time.perf_counter() - t0:.2f} s (spawn, model transfer and every"
+        f" chunk)")
+    for tag, m, r, kernel in (("packed f32", bench, res[0],
+                               "element_core_packed"),
+                              ("generic f32", gen, res[1],
+                               "element_update")):
+        ref = run_chunk(m, init_state(m), SHARD_STEPS)
+        diff = state_diff(r["state"], ref)
+        sec, coll = r["seconds"][0], r["collective_s"][0]
+        us = sec / SHARD_STEPS * 1e6
+        log(f"[sharded] bench bar {tag}, {SHARD_STEPS} steps: {us:.2f} "
+            f"us/step on the host clock, all-gathers {coll * 1e3:.2f} ms = "
+            f"{coll / sec:.4f} of the chunk (CUDA events); rank 0 device "
+            f"busy {r['busy_us']:.2f} us/step, {r['kernels']:.1f} kernels/"
+            f"step, idle share {1.0 - r['busy_us'] / us:.4f} of its step; "
+            f"rank 0 host ops of the most self time (us/step, traced) "
+            f"{_top(r)}; rank 0 launches {r['launches']}; fields differing "
+            f"from one "
+            f"device: {diff} [{smi_line}]")
+        want = {kernel: SHARD_STEPS, "assemble_internal_force": SHARD_STEPS}
+        if any(r["launches"][k] != v for k, v in want.items()):
+            raise AssertionError(f"[sharded] launches {r['launches']}")
+        if diff:
+            raise AssertionError(f"[sharded] {tag} differs in {diff}")
+        r.update(us=us, share=coll / sec)
+    if not (int(starts["cut"].element_flag.sum()) == cut.n_element
+            and float(starts["contact"].contact_force.abs().max()) == 0.0
+            and int(starts["contact_del"].element_flag.sum())
+            == impact.n_element):
+        raise AssertionError("[sharded] a job starts past its event")
+    return res, starts
+
+
+def sharded_run(cut, job, start, smi_line):
+    """run(devices=SHARD_RANKS) of [run]'s deck cut to SHARD_RUN_STEPS
+    steps: its frames byte-identical to [run]'s at steps 0 and 2,000, its
+    final state and checkpoint equal to the one-device run's, the
+    checkpoint resuming there bitwise; the first deletion from
+    [sharded]'s single steps (``job``, from the one-device state
+    ``start``)."""
+    from hakai_tpu_torch import init_state, run, run_chunk
+    from hakai_tpu_torch.utils.checkpoint import load_checkpoint
+    backend, setup = shard_backend()
+    n = cut.n_element
+    a = job["alive"]
+    first = (SHARD_RUN_FIRST if a[-2] == n and a[-1] < n
+             and int(start.t) == SHARD_RUN_FIRST - SHARD_LEAD else None)
+    shutil.rmtree(SHARD_RUN_DIR, ignore_errors=True)
+    os.makedirs(SHARD_RUN_DIR)
+    timings = {}
+    t0 = time.perf_counter()
+    final = run(cut, devices=SHARD_RANKS, dist_backend=backend,
+                timings=timings)
+    wall = time.perf_counter() - t0
+    same = []
+    for i in range(2):
+        name = f"file{i:03d}.vtk"
+        with open(os.path.join(SHARD_RUN_DIR, name), "rb") as fa, \
+                open(os.path.join(RUN_DIR, name), "rb") as fb:
+            same.append(fa.read() == fb.read())
+    ref = run_chunk(cut, start, SHARD_RUN_STEPS - int(start.t))
+    ck = load_checkpoint(os.path.join(SHARD_RUN_DIR, "ckpt_001.npz"),
+                         init_state(cut))
+    ck_diff, final_diff = state_diff(ck, ref), state_diff(final, ref)
+    resume_diff = state_diff(run_chunk(cut, ck, SHARD_RUN_RESUME),
+                             run_chunk(cut, ref, SHARD_RUN_RESUME))
+    alive = int(final.element_flag.sum())
+    us = timings["step_s"] / timings["steps"] * 1e6
+    log(f"\n[sharded-run] run(devices={SHARD_RANKS}, dist_backend="
+        f"{backend!r}), {setup}: [run]'s deck cut to {SHARD_RUN_STEPS} steps,"
+        f" step loop {timings['step_s']:.2f} s = {us:.2f} us/step, "
+        f"{timings['frames']} frames in {timings['frame_s']:.2f} s, run() "
+        f"wall {wall:.2f} s (spawn included); first deletion at step {first}"
+        f" (sharded single steps from step {int(start.t)}: alive {a}), "
+        f"{alive} alive at step {SHARD_RUN_STEPS}; frames 0 and 1 "
+        f"byte-identical to [run]'s: {same}; fields differing from one "
+        f"device: final {final_diff}, checkpoint {ck_diff}, "
+        f"{SHARD_RUN_RESUME} steps resumed on one device {resume_diff} "
+        f"[{smi_line}]")
+    if first != SHARD_RUN_FIRST or alive != SHARD_RUN_ALIVE:
+        raise AssertionError(f"[sharded-run] deletions {a}, {alive} alive")
+    if not all(same) or ck_diff or final_diff or resume_diff:
+        raise AssertionError("[sharded-run] differs from one device")
+    return us
+
+
+def sharded_contact(impact, jobs, starts, smi_line):
+    """run(devices=SHARD_RANKS) of [contact]'s deck cut to
+    SHARD_CONTACT_STEPS steps: the alive count, the contact force and
+    every other field equal to one device's; the first contact and first
+    deletion from [sharded]'s single steps (``jobs``, from the one-device
+    states ``starts``)."""
+    from hakai_tpu_torch import run, run_chunk
+    backend, setup = shard_backend()
+    n = impact.n_element
+    c, a = jobs[0]["contact_max"], jobs[1]["alive"]
+    first_c = CONTACT_FIRST if c[-2] == 0 and c[-1] > 0 else None
+    first_d = CONTACT_FIRST_DEL if a[-2] == n and a[-1] < n else None
+    shutil.rmtree(SHARD_CONTACT_DIR, ignore_errors=True)
+    os.makedirs(SHARD_CONTACT_DIR)
+    timings = {}
+    t0 = time.perf_counter()
+    final = run(impact, devices=SHARD_RANKS, dist_backend=backend,
+                timings=timings)
+    wall = time.perf_counter() - t0
+    ref = run_chunk(impact, starts["contact_del"],
+                    SHARD_CONTACT_STEPS - int(starts["contact_del"].t))
+    alive, alive_ref = (int(s.element_flag.sum()) for s in (final, ref))
+    err = relerr(final.contact_force, ref.contact_force)
+    diff = state_diff(final, ref)
+    cells = vtk_cells(os.path.join(SHARD_CONTACT_DIR, "file001.vtk"))
+    us = timings["step_s"] / timings["steps"] * 1e6
+    log(f"[sharded-contact] run(devices={SHARD_RANKS}, dist_backend="
+        f"{backend!r}), {setup}: [contact]'s deck cut to "
+        f"{SHARD_CONTACT_STEPS} steps, step loop {timings['step_s']:.2f} s "
+        f"= {us:.2f} us/step, run() wall {wall:.2f} s; first contact at "
+        f"step {first_c} (sharded single steps from step "
+        f"{int(starts['contact'].t)}: contact_force max {c}), first "
+        f"deletion at step {first_d} (from step "
+        f"{int(starts['contact_del'].t)}: alive {a}); {alive} alive at step "
+        f"{SHARD_CONTACT_STEPS} (one device: {alive_ref}, frame CELLS "
+        f"{cells}); contact force {err:.3e} from one device's, normwise; "
+        f"fields differing from one device: {diff} [{smi_line}]")
+    if first_c != CONTACT_FIRST or first_d != CONTACT_FIRST_DEL:
+        raise AssertionError(f"[sharded-contact] first contact/deletion "
+                             f"{c} {a}")
+    if alive != alive_ref or cells != alive or diff:
+        raise AssertionError("[sharded-contact] differs from one device")
+    return us
+
+
+def nccl_phase(bench, smi_line):
+    """The NCCL backend driven on the card: one rank, the bench bar,
+    bitwise equal to run_chunk; with one card, two NCCL ranks refused."""
+    import torch
+    from hakai_tpu_torch import init_state, run, run_chunk
+    from hakai_tpu_torch.parallel.dist import launch
+    from hakai_tpu_torch.parallel.sharding import chunk_rank
+    refused = "not tried: the machine has a card per rank"
+    if torch.cuda.device_count() < 2:
+        try:
+            run(bench, devices=2, dist_backend="nccl", write_output=False)
+        except ValueError as e:
+            refused = f"refused: {e}"
+        else:
+            raise AssertionError("NCCL ran two ranks on one card")
+    t0 = time.perf_counter()
+    r = launch(chunk_rank, 1, "cuda", "nccl",
+               [dict(model=bench.to("cpu"), chunks=[NCCL_STEPS],
+                     warm=SHARD_WARM, trace=SHARD_TRACE)])[0]
+    sec = time.perf_counter() - t0
+    diff = state_diff(r["state"], run_chunk(bench, init_state(bench),
+                                            NCCL_STEPS))
+    us = r["seconds"][0] / NCCL_STEPS * 1e6
+    log(f"[nccl] one rank under nccl, bench bar, {NCCL_STEPS} steps after "
+        f"{SHARD_WARM} dropped ones (the communicator forms at the first "
+        f"collective): {us:.2f} us/step, all-gathers "
+        f"{r['collective_s'][0] / r['seconds'][0]:.4f} of the chunk (CUDA "
+        f"events); {SHARD_TRACE} traced steps: device busy "
+        f"{r['busy_us']:.2f} us/step, {r['kernels']:.1f} kernels/step, idle "
+        f"share {1.0 - r['busy_us'] / us:.4f}; host ops of the most self "
+        f"time (us/step, traced) {_top(r)}; {sec:.2f} s with the spawn; "
+        f"launches {r['launches']}; fields differing from "
+        f"run_chunk: {diff}; two NCCL ranks on one card {refused} "
+        f"[{smi_line}]")
+    if diff or r["launches"]["element_core_packed"] != NCCL_STEPS:
+        raise AssertionError("[nccl] differs from run_chunk")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1500,6 +1889,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+
+    def lap(what):
+        log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
     smi_line = smi()
     log(f"[device] {smi_line}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
@@ -1552,24 +1944,36 @@ def main() -> int:
         "asm_f32": check_assemble(bench, rng, "bench"),
         "asm_f64": check_assemble(bench64, rng, "bench"),
         "asm_mixed": check_assemble(mixed, rng, "bench", torch.float64),
+        "gasm_f32": check_grouped(bench, rng, "bench"),
+        "gasm_f64": check_grouped(bench64, rng, "bench"),
+        "gasm_mixed": check_grouped(mixed, rng, "bench", torch.float64),
     }
     del bench64, models
+    lap("[kernels] and [grouped-asm] kernels")
 
     trajectory()
+    lap("[trajectory]")
     launches1, final, step_us = main_path(bench, smi_line)
     busy_us = trace(bench, final, smi_line, "float32 elastic")[0]
     log(f"[trace] float32 elastic: device idle share "
         f"{1.0 - busy_us / step_us:.4f} of the median untraced step "
         f"({busy_us:.2f} of {step_us:.2f} us)")
+    launches_g = grouped_path(bench, final, smi_line)
+    lap("[main], its [trace] and [grouped-asm]'s run")
 
     fracture()
+    lap("[fracture]")
     launches2, final2, run_us, run_first, run_alive = second_path(mixed,
                                                                   smi_line)
     busy2 = trace(mixed, final2, smi_line, "mixed ductile")[0]
     log(f"[trace] mixed ductile: device idle share "
         f"{1.0 - busy2 / run_us:.4f} of the run() step ({busy2:.2f} of "
         f"{run_us:.2f} us)")
+    cut = cut_to(mixed, SHARD_RUN_STEPS, output_num=1, checkpoint_every=1,
+                 out_dir=SHARD_RUN_DIR,
+                 metrics_path=os.path.join(SHARD_RUN_DIR, "metrics.jsonl"))
     del mixed, final2
+    lap("[run] and its [trace]")
 
     impact = contact_model(smi_line)
     launches3, final3, contact_us, s_kern = contact_path(impact, smi_line)
@@ -1578,8 +1982,13 @@ def main() -> int:
         f" of the same steps untraced ({busy3:.2f} of {wall3:.2f} us; run()"
         f" averaged {contact_us:.2f} us/step over its 5,000 steps)")
     crec = contact_kernels(impact, s_kern, smi_line)
+    impact_cut = cut_to(impact, SHARD_CONTACT_STEPS, output_num=1,
+                        checkpoint_every=0, out_dir=SHARD_CONTACT_DIR,
+                        metrics_path=None)
     del impact, final3, s_kern
+    lap("[contact], its [trace] and [contact-kernels]")
     contact_cpu()
+    lap("[contact-cpu]")
 
     t0 = time.perf_counter()
     gen = lower(bar_model(nx=NX, ny=NY, nz=NZ, d_time=1e-8, end_time=1.0),
@@ -1598,7 +2007,7 @@ def main() -> int:
     log(f"[trace] generic float32 elastic: device idle share "
         f"{1.0 - busy4 / gen_us:.4f} of the median untraced step "
         f"({busy4:.2f} of {gen_us:.2f} us)")
-    del gen, final4
+    del final4
     gen_mixed, launches5, final5, gen_run_us = generic_run(
         smi_line, run_first, run_alive)
     busy5 = trace(gen_mixed, final5, smi_line, "generic mixed ductile")[0]
@@ -1606,8 +2015,19 @@ def main() -> int:
         f"{1.0 - busy5 / gen_run_us:.4f} of the run() step ({busy5:.2f} of "
         f"{gen_run_us:.2f} us)")
     del gen_mixed, final5
+    lap("[generic] and its [trace]s")
     generic_cpu()
+    lap("[generic-cpu]")
     cli_phase(smi_line)
+    lap("[cli]")
+    shard, starts = sharded_phase(bench, gen, cut, impact_cut, smi_line)
+    lap("[sharded]")
+    sharded_run(cut, shard[2], starts["cut"], smi_line)
+    lap("[sharded-run]")
+    sharded_contact(impact_cut, shard[3:], starts, smi_line)
+    lap("[sharded-contact]")
+    nccl_phase(bench, smi_line)
+    lap("[nccl]")
 
     if any(k.split(".")[0] in ("jax", "jaxlib", "hakai_tpu")
            for k in sys.modules):
@@ -1616,12 +2036,12 @@ def main() -> int:
     src = "hakai_tpu/ops/element_pallas.py"
 
     def entry(name, source, replaces, count, r):
-        # launches: the variant's launches in the five main-path runs
+        # launches: the variant's launches in the six main-path runs
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(x.get(count, 0) for x in
                                 (launches1, launches2, launches3, launches4,
-                                 launches5)),
+                                 launches5, launches_g)),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
@@ -1629,8 +2049,9 @@ def main() -> int:
                    "hakai_tpu_torch/csrc/assemble.cu",
                    "hakai_tpu_torch/csrc/contact.cu")
     gp = "hakai_tpu/ops/gather_pallas.py"
-    # the instantiations the five main paths run, and the float64 element
-    # ones, which none runs (their launches are 0); the float32+triax
+    # the instantiations the six main paths run, and the float64 element
+    # and the float64 and mixed grouped ones, which none runs (their
+    # launches are 0); the float32+triax
     # packed element, float32 unpacked element without triax, float64
     # assembly and float64 contact instantiations are checked (and the
     # first three timed) in [kernels] and [contact-kernels] and reported on
@@ -1656,6 +2077,15 @@ def main() -> int:
         entry("assemble_internal_force[float32->float64]", asm,
               "hakai_tpu/ops/gather_pallas.py:413",
               "assemble[hk_assemble_f32_f64]", rec["asm_mixed"]),
+        entry("blocked_assemble[float32]", asm,
+              f"{gp}:479 and :539 (blocked_assemble, {gp}:589)",
+              "grouped[hk_blocked_assemble_f32]", rec["gasm_f32"]),
+        entry("blocked_assemble[float64]", asm,
+              f"{gp}:596 (blocked_assemble's XLA path: no TPU kernel takes "
+              "f64)", "grouped[hk_blocked_assemble_f64]", rec["gasm_f64"]),
+        entry("blocked_assemble[float32->float64]", asm,
+              f"{gp}:479 and :539 (blocked_assemble, {gp}:589)",
+              "grouped[hk_blocked_assemble_f32_f64]", rec["gasm_mixed"]),
         entry("gather_cols[float32]", "hakai_tpu_torch/csrc/gather.cu",
               f"{gp}:413, :361 and :314 (blocked_gather, {gp}:660)",
               "gather", crec[0]),

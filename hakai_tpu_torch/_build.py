@@ -70,6 +70,10 @@ _SIGNATURES = {
     "hk_assemble_f32": (_P, _P, _P, _I, _I, _I, _P, _P),
     "hk_assemble_f64": (_P, _P, _P, _I, _I, _I, _P, _P),
     "hk_assemble_f32_f64": (_P, _P, _P, _I, _I, _I, _P, _P),
+    # src, S, idx, mask, vl, r_tile, n_out, out, stream
+    "hk_blocked_assemble_f32": (_P, _I, _P, _P, _I, _I, _I, _P, _P),
+    "hk_blocked_assemble_f64": (_P, _I, _P, _P, _I, _I, _I, _P, _P),
+    "hk_blocked_assemble_f32_f64": (_P, _I, _P, _P, _I, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()

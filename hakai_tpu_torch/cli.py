@@ -6,9 +6,12 @@ unless ``--device cpu`` is given.
 
 The flags keep the JAX package's names, defaults and meaning, apart from
 three that drive XLA or the TPU's matrix unit and mean nothing on the card
-(``--compile-cache``, ``--mxu-precision``, ``--chunk-unroll``).  The
-multi-device flags (``--devices``, ``--halo``, ``--multihost``) are kept
-and raise NotImplementedError until multi-GPU runs are ported.
+(``--compile-cache``, ``--mxu-precision``, ``--chunk-unroll``).
+``--devices n`` runs the element-sharded loop on n ranks over
+``torch.distributed``, with ``--dist-backend`` (the port's counterpart of
+JAX's choice of collectives backend) choosing NCCL or gloo.  ``--halo``
+and ``--multihost`` are kept and raise NotImplementedError until the halo
+decomposition and multi-host runs are ported.
 """
 from __future__ import annotations
 
@@ -78,8 +81,9 @@ def _parser() -> argparse.ArgumentParser:
                          "run's energy scale (default 0.1); 0 = report in "
                          "metrics only, never abort")
     ap.add_argument("--devices", type=int, default=None,
-                    help="element-shard the run over this many devices "
-                         "(not ported yet: raises)")
+                    help="element-shard the run over this many ranks, one "
+                         "process each (one card each under nccl; gloo "
+                         "lets ranks share a card or run on the CPU)")
     ap.add_argument("--halo", type=int, default=None,
                     help="node-sharded halo-exchange decomposition over "
                          "this many devices (not ported yet: raises)")
@@ -98,6 +102,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the current "
                          "GPU); 'cpu' runs the kernels' plain versions")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                    default=None,
+                    help="torch.distributed backend of --devices runs of "
+                         "two or more ranks (default: nccl on the GPU, gloo "
+                         "on the CPU)")
     ap.add_argument("--timings", action="store_true",
                     help="print the host seconds of the parse, the "
                          "lowering, the step chunks and the frame output")
@@ -111,8 +120,9 @@ def main(argv=None):
         args.energy_check, args.energy_abort)
     if args.multihost:
         raise NotImplementedError(
-            "multi-host runs (--multihost) are not ported yet (ROADMAP "
-            "Queue 1 item 11)")
+            "multi-host runs (--multihost) are not ported yet: they come "
+            "with the halo decomposition, the next slice (ROADMAP Queue 1 "
+            "item 11)")
 
     elem_pad = args.elem_pad
     if args.element_kernel in ("pallas", "pallas_mxu"):
@@ -194,7 +204,7 @@ def main(argv=None):
         state = run(model, state, write_output=not args.no_output,
                     devices=args.devices, halo=args.halo,
                     resume_halo=resume_halo, device=args.device,
-                    timings=timings)
+                    timings=timings, dist_backend=args.dist_backend)
     if args.checkpoint_every:
         save_checkpoint(f"{args.out_dir}/final.ckpt.npz", state)
     if args.timings:

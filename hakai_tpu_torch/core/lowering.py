@@ -118,6 +118,27 @@ class ContactPair:
 
 
 @dataclass(frozen=True)
+class AssemblePlan:
+    """A grouped gather-and-accumulate (``hakai_tpu.ops.gather_pallas.
+    plan_assemble`` without its TPU windows): ``vl`` consecutive tiles of
+    ``r_tile`` entries of ``idx``/``mask`` sum into one output tile, so the
+    output has ``r_pad // vl`` columns.  Built by
+    :func:`hakai_tpu_torch.ops.assemble_cuda.plan_assemble`."""
+    idx: torch.Tensor               # (r_pad,) int32 source columns
+    mask: torch.Tensor              # (r_pad,) bool
+    vl: int
+    r_tile: int
+
+    @property
+    def r_pad(self) -> int:
+        return self.idx.shape[0]
+
+    def to(self, device) -> "AssemblePlan":
+        return dataclasses.replace(self, idx=self.idx.to(device),
+                                   mask=self.mask.to(device))
+
+
+@dataclass(frozen=True)
 class LoweredModel:
     """Static-shape solver inputs as tensors on one device.  Mesh axes are
     the last axes; layouts equal ``hakai_tpu.core.lowering.LoweredModel``."""
@@ -192,6 +213,10 @@ class LoweredModel:
     fs_col: torch.Tensor | None = None         # (nnz,) int32
     fs_offsets: tuple = ()          # (force_i column, force_t column) per pair
     fs_width: int = 0
+    # a grouped assembly plan: when set, the assembly runs through
+    # blocked_assemble (hakai_tpu/ops/element.py:619-621); no lowering
+    # builds one, as the JAX lowering builds no plan_asm with vl > 0
+    plan_asm: AssemblePlan | None = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -212,7 +237,9 @@ class LoweredModel:
         ``device``."""
         kw = {k: v.to(device) for k, v in _tensor_fields(self).items()}
         return dataclasses.replace(
-            self, pairs=tuple(p.to(device) for p in self.pairs), **kw)
+            self, pairs=tuple(p.to(device) for p in self.pairs),
+            plan_asm=None if self.plan_asm is None
+            else self.plan_asm.to(device), **kw)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -268,9 +295,10 @@ def model_from_numpy(fields: dict, static: dict, device) -> LoweredModel:
         dt = kdt if name in _NODAL_FIELDS else edt
         return torch.as_tensor(a.astype(np.float64), device=device).to(dt)
 
-    # the contact fields are formed below from fields["pairs"]
+    # the contact fields are formed below from fields["pairs"]; a grouped
+    # assembly plan is carried only as the port's AssemblePlan
     names = {f.name for f in dataclasses.fields(LoweredModel)} - {
-        "pairs", "ckin_slices", "fs_offsets", "fs_width"}
+        "pairs", "ckin_slices", "fs_offsets", "fs_width", "plan_asm"}
     kw = {k: static[k] for k in names if k in static}
     for k in names:
         if k in fields and fields[k] is not None and k not in kw:
@@ -288,6 +316,8 @@ def model_from_numpy(fields: dict, static: dict, device) -> LoweredModel:
     kw["hard_slope"] = tensor("hard_slope", slope)
     kw["hard_n"] = torch.as_tensor(rows, device=device)
     kw["dt_t"] = tensor("dt_t", np.float64(static["dt"]))
+    if isinstance(fields.get("plan_asm"), AssemblePlan):
+        kw["plan_asm"] = fields["plan_asm"].to(device)
     pairs = [_pair_numpy(p, cfg.contact) for p in fields.get("pairs") or ()]
     if pairs:
         idx, slices, ptr, mid, col, offsets, width = _contact_tables(

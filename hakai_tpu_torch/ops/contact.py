@@ -12,10 +12,16 @@ nodes.  Nothing reads a value back to the host: where the JAX package
 compacts the surviving block pairs and loops over them with a dynamic trip
 count under ``lax.cond(overlap)``, the kernels read ``pair_ok`` and
 ``overlap`` on the device and skip culled work.
+
+Under element sharding each rank runs the broad phase on the whole
+(replicated) node state and a share of the narrow phase
+(:func:`deal_block_pairs`), and the ranks sum their pair-force buffers
+with one ``all_reduce`` before the one scatter.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..core.lowering import ContactPair, LoweredModel
 from .contact_cuda import (BroadPhase, PairConstants, kin_views, narrow_phase,
@@ -100,16 +106,38 @@ def broad_phase(pair: ContactPair, kin, ksl, activity,
                       pair_ok, overlap, (bmin_t, bmax_t), (bmin_n, bmax_n))
 
 
+def deal_block_pairs(pair_ok, rank: int, world: int):
+    """Rank ``rank``'s share of the narrow phase: (the node launch's, the
+    triangle launch's) block-pair masks.  The k-th node block that has a
+    surviving pair goes whole to rank ``k % world``'s node launch, the k-th
+    such triangle block to its triangle launch, so every node's and every
+    triangle's force is summed on one rank, in the single-device order,
+    and the other ranks add exact zeros: the sharded contact force is the
+    single-device one, bit for bit.  (JAX deals single block pairs
+    round-robin, contact.py:350-370, which splits a node's sum over ranks
+    and reassociates it; in float32 that flips accept decisions near
+    their thresholds.)  Found with cumsums on the device; nothing reads
+    back to the host."""
+    def share(active):
+        k = torch.cumsum(active, 0) - 1
+        return active & (k % world == rank)
+    return (pair_ok & share(pair_ok.any(dim=0))[None, :],
+            pair_ok & share(pair_ok.any(dim=1))[:, None])
+
+
 def contact_kinematics(model: LoweredModel, position, velo):
     """The merged (6, R) kinematics of every pair: one gather (kernel G)
     of the (6, N) position/velocity rows through ``ckin_idx``."""
     return gather_cols(torch.cat([position, velo]), model.ckin_idx)
 
 
-def contact_forces_pv(model: LoweredModel, position, velo, element_flag):
+def contact_forces_pv(model: LoweredModel, position, velo, element_flag,
+                      group=None):
     """Sum of all directional pair forces, (3, N) in the nodal dtype, from
     (3, N) position and velocity in the element dtype and the (E,) life
-    mask.  The pairs' sums run in the element dtype, in one scatter."""
+    mask.  The pairs' sums run in the element dtype, in one scatter.  With
+    a process ``group`` the narrow phase is dealt out over its ranks and
+    the pair-force buffers summed over them (every rank gets the total)."""
     kin = contact_kinematics(model, position, velo)
     force = torch.empty((3, model.fs_width), dtype=kin.dtype,
                         device=kin.device)
@@ -118,13 +146,20 @@ def contact_forces_pv(model: LoweredModel, position, velo, element_flag):
         ksl = model.ckin_slices[i]
         bp = broad_phase(pair, kin, ksl, pair_activity(pair, element_flag),
                          consts)
-        narrow_phase(pair, kin, ksl, bp, consts, force, model.fs_offsets[i])
+        sides = None if group is None else deal_block_pairs(
+            bp.pair_ok, dist.get_rank(group), dist.get_world_size(group))
+        narrow_phase(pair, kin, ksl, bp, consts, force, model.fs_offsets[i],
+                     sides=sides)
+    if group is not None:
+        dist.all_reduce(force, group=group)
     return scatter_forces(model, force, model.dtype)
 
 
-def contact_forces(model: LoweredModel, state):
+def contact_forces(model: LoweredModel, state, group=None):
     """Contact force of ``state``, (3, N) in the nodal dtype; the narrow
-    phase runs in the element dtype (float32 in mixed mode)."""
+    phase runs in the element dtype (float32 in mixed mode).  With a
+    process ``group``, ``state.element_flag`` is the whole life mask and
+    the narrow phase is dealt out over the group's ranks."""
     edt = model.edtype
     return contact_forces_pv(model, (model.coord + state.disp).to(edt),
-                             state.velo.to(edt), state.element_flag)
+                             state.velo.to(edt), state.element_flag, group)

@@ -133,12 +133,16 @@ def constants_on(consts: PairConstants, dtype, device) -> dict:
 
 
 def narrow_phase_plain(pair: ContactPair, kin, ksl, bp: BroadPhase,
-                       consts: PairConstants, record: bool = False):
+                       consts: PairConstants, record: bool = False,
+                       sides=None):
     """(force_i (3, Cp), force_t (3, Tp)[, info]) of one pair: the block
     loop of ``_pair_force`` (contact.py:252-374).  With ``record``, ``info``
     holds the accepted (triangle, node slot) pairs in loop order and the
     pairs that reached each test (``cell``: both sides in and the cell
-    test passed; ``dist``: the circumradius cull passed; ``accept``)."""
+    test passed; ``dist``: the circumradius cull passed; ``accept``).
+    ``sides`` = (node side's, triangle side's) block-pair masks, by default
+    both ``bp.pair_ok``: force_i sums the first's pairs, force_t the
+    second's."""
     q0, q1, q2, vj0, pos_i, vel_i, _ = kin_views(kin, ksl)
     dt, dev = kin.dtype, kin.device
     F2, Ci, TB, nb = q0.shape[1], pos_i.shape[1], pair.tb, pair.nb
@@ -151,7 +155,9 @@ def narrow_phase_plain(pair: ContactPair, kin, ksl, bp: BroadPhase,
         cell_t = _cells(q0, bp.all_min, c["ddiv"])
         cell_n = _cells(pos_i, bp.all_min, c["ddiv"])
         ids = pair.cand_nodes
-        for pid in torch.nonzero(bp.pair_ok.reshape(-1)).reshape(-1).tolist():
+        ok_i, ok_t = (x.reshape(-1).tolist() for x in
+                      (sides if sides is not None else (bp.pair_ok,) * 2))
+        for pid in (p for p, ok in enumerate(zip(ok_i, ok_t)) if any(ok)):
             t0 = (pid // pair.n_chunks) * TB
             c0 = (pid % pair.n_chunks) * nb
             ts, cs = slice(t0, min(t0 + TB, F2)), slice(c0, min(c0 + nb, Ci))
@@ -182,8 +188,10 @@ def narrow_phase_plain(pair: ContactPair, kin, ksl, bp: BroadPhase,
                                         * kpen[ts, None])) * c["Cr"]
             f = (F * n3 - (c["myu"] * F) * (ve - dot * n3)) - Cd * vr
             f = torch.where(m, f, 0.0)
-            force_i[:, cs] += f.sum(dim=1)
-            force_t[:, ts] += f.sum(dim=2) / c["three"]
+            if ok_i[pid]:
+                force_i[:, cs] += f.sum(dim=1)
+            if ok_t[pid]:
+                force_t[:, ts] += f.sum(dim=2) / c["three"]
             if record:
                 hit = torch.nonzero(m)
                 info["pairs"].append(torch.stack([hit[:, 0] + t0,
@@ -208,7 +216,8 @@ def narrow_splits(own_blocks, own_len, other_blocks):
 
 
 def narrow_phase(pair: ContactPair, kin, ksl, bp: BroadPhase,
-                 consts: PairConstants, force, offsets, count=False):
+                 consts: PairConstants, force, offsets, count=False,
+                 sides=None):
     """Write one pair's force_i into ``force[:, off_i:off_i + Cp]`` and its
     force_t (reactions over 3) into ``force[:, off_t:off_t + Tp]``.
 
@@ -217,10 +226,13 @@ def narrow_phase(pair: ContactPair, kin, ksl, bp: BroadPhase,
     the triangle kernels run one after the other, each over
     :func:`narrow_splits` splits of the other side's blocks.  With
     ``count`` it returns the accepted pairs per node slot (Cp,) and per
-    triangle slot (Tp,), int32, as each side counted them; else None."""
+    triangle slot (Tp,), int32, as each side counted them; else None.
+    ``sides`` = (node launch's, triangle launch's) block-pair masks, by
+    default both ``bp.pair_ok``."""
     off_i, off_t = offsets
     if kin.device.type == "cpu":
-        out = narrow_phase_plain(pair, kin, ksl, bp, consts, record=count)
+        out = narrow_phase_plain(pair, kin, ksl, bp, consts, record=count,
+                                 sides=sides)
         force[:, off_i:off_i + pair.Cp] = out[0]
         force[:, off_t:off_t + pair.Tp] = out[1]
         if count:
@@ -235,11 +247,13 @@ def narrow_phase(pair: ContactPair, kin, ksl, bp: BroadPhase,
         raise TypeError(f"no narrow-phase kernel for {kin.dtype}")
     dt, R, W = kin.dtype, kin.shape[1], force.shape[1]
     F2, Ci = pair.tri_nodes.shape[1], pair.cand_nodes.shape[0]
+    oks = (bp.pair_ok,) * 2 if sides is None else tuple(sides)
+    blocks = (pair.tri_chunks, pair.n_chunks)
     spec = {"kin": (kin, (6, R), dt), "force": (force, (3, W), dt),
             "tri_in": (bp.tri_in, (F2,), torch.bool),
             "node_in": (bp.node_in, (Ci,), torch.bool),
-            "pair_ok": (bp.pair_ok, (pair.tri_chunks, pair.n_chunks),
-                        torch.bool),
+            "pair_ok (nodes)": (oks[0], blocks, torch.bool),
+            "pair_ok (triangles)": (oks[1], blocks, torch.bool),
             "overlap": (bp.overlap, (), torch.bool),
             "all_min": (bp.all_min, (3,), dt),
             "tri_box min": (bp.tri_box[0], (3, pair.tri_chunks), dt),
@@ -271,7 +285,7 @@ def narrow_phase(pair: ContactPair, kin, ksl, bp: BroadPhase,
             err = getattr(lib, entry)(
                 kin.data_ptr(), R, t0, t1, t2, cs, F2, Ci, pair.tb, pair.nb,
                 pair.tri_chunks, pair.n_chunks, bp.tri_in.data_ptr(),
-                bp.node_in.data_ptr(), bp.pair_ok.data_ptr(),
+                bp.node_in.data_ptr(), oks[side].data_ptr(),
                 bp.overlap.data_ptr(), *(x.data_ptr() for x in
                                          bp.tri_box + bp.node_box),
                 bp.all_min.data_ptr(),

@@ -1,5 +1,5 @@
 """Explicit central-difference time integration (mirrors the generic
-``step()``, the packed chunk loop and the single-device ``run()`` of
+``step()``, the packed chunk loop and ``run()`` of
 ``hakai_tpu/solver/explicit.py``).
 
 A step is five things: on contact decks the contact force (activity
@@ -16,7 +16,9 @@ elements and nodes and more, unless ``gather_mode="xla"``), else the
 generic :func:`step`, which keeps the unpacked state, zeroes a dead
 element's stress and strain every step and reports its triaxiality from
 the trial stress.  ``run()`` drives chunks from the host and writes VTK
-frames, checkpoints and metrics between them.
+frames, checkpoints and metrics between them, on one device or, with
+``devices``, on element-sharded ranks (``parallel/sharding.py``), whose
+steps are these same functions given a ``comm``.
 """
 from __future__ import annotations
 
@@ -68,12 +70,16 @@ def apply_bc(model: LoweredModel, disp_new, current_time):
     return torch.where(model.bcd_mask, model.bcd_value * fac, disp_new)
 
 
-def _integrate(model: LoweredModel, state: SimState):
+def _integrate(model: LoweredModel, state: SimState, comm=None):
     """Contact + central difference + BCs.  Returns (t, disp_new, velo,
     cforce, dwork); cforce is the step's contact force (the state's, unchanged,
     on decks without contact) and dwork the [dW_ext, dW_int] increment
     pair, or None unless ``config.energy_check``.  Time and a1 = M/dt^2 are
     formed in the model dtype, as the JAX step forms them.
+
+    ``comm`` (a :class:`~hakai_tpu_torch.parallel.sharding.ShardComm`) makes
+    this an element-sharded rank's step: contact reads the life mask of
+    every rank's elements and deals its narrow phase out over the ranks.
 
     The contact activity masks are formed every step from the step's life
     mask: they are pure functions of it, so this gives the bits the JAX
@@ -86,7 +92,10 @@ def _integrate(model: LoweredModel, state: SimState):
     a2 = model.diag_M * model.config.damping_C / (2.0 * dt)
     cforce, external = state.contact_force, None
     if model.pairs:
-        cforce = external = contact_forces(model, state)
+        cforce = external = (contact_forces(model, state) if comm is None
+                             else contact_forces(model, state.replace(
+                                 element_flag=comm.global_flag(
+                                     state.element_flag)), comm.group))
     force = -state.Q if external is None else external - state.Q
     numer = (force + a1 * (2.0 * state.disp - state.disp_pre)
              + a2 * state.disp_pre)
@@ -107,14 +116,20 @@ def _integrate(model: LoweredModel, state: SimState):
     return t, disp_new, velo, cforce, dwork
 
 
+def _assemble(model: LoweredModel, qe24, comm):
+    """Q in the nodal dtype from this rank's qe (24, E)."""
+    if comm is None:
+        return assemble_internal_force(model, qe24, out_dtype=model.dtype)
+    return comm.assemble(qe24, model.dtype)
+
+
 def _finish(model: LoweredModel, state: SimState, t, disp_new, velo, cforce,
-            res, triax) -> SimState:
+            res, triax, comm=None) -> SimState:
     """Assembly, erosion and the state swap of the generic step.  ``triax``
     is the element kernel's, of the final stress; on fracture decks
     ``erode`` walks the table on it and zeroes every dead element's stress
     and strain."""
-    Q = assemble_internal_force(model, res.Qe.reshape(24, model.E),
-                                out_dtype=model.dtype)
+    Q = _assemble(model, res.Qe.reshape(24, model.E), comm)
     flag = state.element_flag
     stress, strain = res.stress, res.strain
     if model.fracture_enabled:
@@ -126,23 +141,25 @@ def _finish(model: LoweredModel, state: SimState, t, disp_new, velo, cforce,
         triax=triax, element_flag=flag, contact_force=cforce)
 
 
-def step(model: LoweredModel, state: SimState) -> SimState:
+def step(model: LoweredModel, state: SimState, comm=None) -> SimState:
     """One generic step on the unpacked state.  The new position
     ``coord + disp`` and the increment ``disp_new - disp`` are formed in the
     nodal dtype and cast to the element dtype before the element kernel
-    gathers them (in mixed mode its math, centring included, is float32)."""
-    t, disp_new, velo, cforce, dwork = _integrate(model, state)
+    gathers them (in mixed mode its math, centring included, is float32).
+    With ``comm``, ``model`` and ``state`` are a rank's element shard
+    (:mod:`hakai_tpu_torch.parallel.sharding`)."""
+    t, disp_new, velo, cforce, dwork = _integrate(model, state, comm)
     edt = model.edtype
     res, triax = element_update(
         model, (model.coord + disp_new).to(edt),
         (disp_new - state.disp).to(edt), state.stress, state.strain,
         state.eq_ps, state.yield_s, state.element_flag, want_triax=True)
-    out = _finish(model, state, t, disp_new, velo, cforce, res, triax)
+    out = _finish(model, state, t, disp_new, velo, cforce, res, triax, comm)
     return out.replace(work=state.work if dwork is None
                        else state.work + dwork)
 
 
-def step_fast_packed(model: LoweredModel, state: SimState, P):
+def step_fast_packed(model: LoweredModel, state: SimState, P, comm=None):
     """One step on the packed Gauss state ``P`` (72, E): returns the new
     state (its stress fields stale until :func:`unpack_gauss_state`) and
     the new P.
@@ -156,10 +173,10 @@ def step_fast_packed(model: LoweredModel, state: SimState, P):
     the kernel's, masked by the pre-erosion flag, and the flag is the
     post-erosion one; dead elements keep stale stress in ``P`` until the
     chunk exit."""
-    t, disp_new, velo, cforce, dwork = _integrate(model, state)
+    t, disp_new, velo, cforce, dwork = _integrate(model, state, comm)
     P_new, qe, triax, flag = packed_element_step(
         model, P, state.element_flag, disp_new, state.disp)
-    Q = assemble_internal_force(model, qe, out_dtype=model.dtype)
+    Q = _assemble(model, qe, comm)
     work = state.work if dwork is None else state.work + dwork
     return state.replace(
         t=t, disp=disp_new, disp_pre=state.disp, velo=velo, Q=Q,
@@ -182,20 +199,23 @@ def unpack_gauss_state(state: SimState, P) -> SimState:
                          eq_ps=P[56:64], yield_s=P[64:72])
 
 
-def run_chunk(model: LoweredModel, state: SimState, n_steps: int) -> SimState:
+def run_chunk(model: LoweredModel, state: SimState, n_steps: int,
+              comm=None) -> SimState:
     """Advance ``n_steps`` steps: the generic :func:`step` when the model
     has no ``coord_e``, else the packed loop.  In the packed loop dead
     elements keep stale stress inside the chunk and are zeroed once at its
     exit; on fracture-free decks the triaxiality is formed once at exit
     from the final stress, on fracture decks it is the last step's (the
-    erosion walk needs it every step)."""
+    erosion walk needs it every step).  With ``comm``, ``model`` and
+    ``state`` are a rank's element shard (every per-element act of the
+    chunk, its exit included, stays on the rank's elements)."""
     if model.coord_e is None:
         for _ in range(n_steps):
-            state = step(model, state)
+            state = step(model, state, comm)
         return state
     P = pack_gauss_state(state)
     for _ in range(n_steps):
-        state, P = step_fast_packed(model, state, P)
+        state, P = step_fast_packed(model, state, P, comm)
     P = torch.cat([torch.where(state.element_flag[None, :], P[:56], 0.0),
                    P[56:]])
     if not model.fracture_enabled:
@@ -237,8 +257,9 @@ def run(model: LoweredModel, state: SimState | None = None,
         verbose: bool = True, write_output: bool = True,
         devices: int | None = None, halo: int | None = None,
         resume_halo: str | None = None, device="cuda",
-        timings: dict | None = None) -> SimState:
-    """Whole simulation on one device: ``time_num`` steps in chunks of
+        timings: dict | None = None,
+        dist_backend: str | None = None) -> SimState:
+    """Whole simulation: ``time_num`` steps in chunks of
     ``time_num // output_num``, a VTK frame after each chunk (and frame 0
     before the first) plus ``collection.pvd``, a checkpoint every
     ``checkpoint_every`` frames, the metrics JSONL when ``metrics_path`` is
@@ -247,25 +268,54 @@ def run(model: LoweredModel, state: SimState | None = None,
     (frames continue from its step).
 
     Runs on ``device`` (default: the current GPU; pass ``device="cpu"`` for
-    the plain versions); the model and state are moved there.  ``devices``,
-    ``halo`` and ``resume_halo`` (the JAX package's multi-device paths)
+    the plain versions); the model and state are moved there.
+    ``devices=n`` with n > 1 runs the element-sharded loop on ``n`` ranks
+    over ``torch.distributed``
+    (:func:`hakai_tpu_torch.parallel.sharding.run_sharded`; backend
+    ``dist_backend``, default NCCL on CUDA and gloo on the CPU; with one
+    device ``dist_backend`` is unused, as no collective runs): rank 0
+    writes the frames, checkpoints (the single-device format), metrics and
+    console lines, and its final state is returned, on ``device``.
+    ``halo`` and ``resume_halo`` (the JAX package's node-sharded path)
     raise NotImplementedError.  With a ``timings`` dict, fills in the host
     seconds spent in step chunks (each ends in a device sync) and in frame
     output.  Returns the final state."""
-    if ((devices or 1) > 1 or (halo or 1) > 1 or resume_halo is not None):
+    if (halo or 1) > 1 or resume_halo is not None:
         raise NotImplementedError(
-            "multi-device runs (devices, halo, resume_halo) are not ported "
-            "yet (ROADMAP Queue 1 item 11)")
+            "the node-sharded halo decomposition (halo, resume_halo) is not "
+            "ported yet: it is the next slice (ROADMAP Queue 1 item 11)")
+    if (devices or 1) > 1:
+        from ..parallel.sharding import run_sharded
+        state, clock = run_sharded(model, state, devices, device,
+                                   dist_backend, verbose, write_output)
+        if timings is not None:
+            timings.update(clock)
+        return state.to(device)
     model = model.to(device)
-    cfg = model.config
     state = init_state(model) if state is None else state.to(device)
+    return run_loop(model, state, lambda s, n: run_chunk(model, s, n),
+                    lambda s: s, True, verbose, write_output, timings)
+
+
+def run_loop(model: LoweredModel, state: SimState, chunk, view, root: bool,
+             verbose: bool = True, write_output: bool = True,
+             timings: dict | None = None) -> SimState:
+    """The host loop of :func:`run` on one rank: ``chunk(state, n)``
+    advances the rank's state n steps; ``view(state)`` is the whole state
+    (on element-sharded ranks a collective every rank calls at the same
+    points); only the ``root`` rank writes files and console lines.
+    ``model`` is the whole model.  Returns the view of the final state."""
+    cfg = model.config
+    verbose = verbose and root
     time_num = model.time_num
     d_out = max(time_num // cfg.output_num, 1)
     n_frames = time_num // d_out if time_num else 0
-    metrics = MetricsWriter(cfg.metrics_path)
+    metrics = MetricsWriter(cfg.metrics_path if root else None)
     clock = {"step_s": 0.0, "frame_s": 0.0, "frames": 0, "steps": 0}
 
     def frame(index, s):
+        if not root:
+            return
         t0 = _time.perf_counter()
         nd = node_fields(model, s.stress, s.strain, s.eq_ps, s.triax)
         co, el, fl, di, ve, nd_o = _deck_order_frame(
@@ -275,27 +325,30 @@ def run(model: LoweredModel, state: SimState | None = None,
         clock["frame_s"] += _time.perf_counter() - t0
         clock["frames"] += 1
 
+    sv = view(state)
     frame_times = []
     if write_output:
-        frame(0, state)
+        frame(0, sv)
         frame_times.append((0, float(int(state.t)) * model.dt))
 
     t0 = _time.time()
-    alive_prev = int(state.element_flag.sum())
+    alive_prev = int(sv.element_flag.sum())
     done = int(state.t)
     i_out = done // d_out + 1
     while done < time_num:
         n = min(d_out, time_num - done)
         tc = _time.perf_counter()
-        state = run_chunk(model, state, n)
-        alive = int(state.element_flag.sum())        # syncs the device
+        state = chunk(state, n)
+        int(state.t)                                  # syncs the device
         clock["step_s"] += _time.perf_counter() - tc
         clock["steps"] += n
         done += n
-        if cfg.check_nan and not bool(torch.isfinite(state.disp).all()):
+        sv = view(state)
+        alive = int(sv.element_flag.sum())
+        if cfg.check_nan and not bool(torch.isfinite(sv.disp).all()):
             raise FloatingPointError(f"NaN/Inf in displacement at step {done}")
         if cfg.energy_check and cfg.energy_abort_rel > 0:
-            rel = float(energy_guard(model, state))
+            rel = float(energy_guard(model, sv))
             if rel > cfg.energy_abort_rel:
                 raise FloatingPointError(
                     f"energy balance diverged at step {done}: "
@@ -309,21 +362,22 @@ def run(model: LoweredModel, state: SimState | None = None,
             sys.stdout.write(f"\r{done * model.dt:.4e} / "
                              f"{model.end_time:.4e}     ")
             sys.stdout.flush()
-        if cfg.metrics_path is not None:
-            metrics.record(model, state, done, _time.time() - t0)
+        if cfg.metrics_path is not None and root:
+            metrics.record(model, sv, done, _time.time() - t0)
         if write_output and done % d_out == 0 and i_out <= n_frames:
-            frame(i_out, state)
+            frame(i_out, sv)
             frame_times.append((i_out, done * model.dt))
-            if cfg.checkpoint_every and i_out % cfg.checkpoint_every == 0:
+            if (cfg.checkpoint_every and i_out % cfg.checkpoint_every == 0
+                    and root):
                 save_checkpoint(cfg.checkpoint_path
                                 or f"{cfg.out_dir}/ckpt_{i_out:03d}.npz",
-                                state)
+                                sv)
             i_out += 1
     metrics.close()
-    if write_output and frame_times:
+    if write_output and frame_times and root:
         write_pvd(cfg.out_dir, frame_times)
     if verbose:
         print(f"\nwall: {_time.time() - t0:.2f}s for {time_num} steps")
     if timings is not None:
         timings.update(clock)
-    return state
+    return sv

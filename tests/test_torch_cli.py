@@ -208,14 +208,38 @@ def test_pallas_f64_refused_by_both(tmp_path, capsys):
 
 
 def test_devices_not_ported(tmp_path):
-    """``--devices 2`` (and ``--multihost``) raise NotImplementedError
-    naming the ROADMAP item: multi-GPU runs are not ported yet."""
+    """``--halo 2`` and ``--multihost`` raise NotImplementedError naming
+    the ROADMAP item: the halo decomposition and multi-host runs are the
+    next slice (``--devices`` runs: test_devices_frames_match)."""
     deck = tmp_path / "deck.inp"
     deck.write_text(DECKS["ductile"]())
-    for flags in (["--devices", "2"], ["--multihost", "auto"]):
+    for flags in (["--halo", "2"], ["--multihost", "auto"]):
         with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
             tcli.main([str(deck), "--device", "cpu", "--no-output",
                        "--out-dir", str(tmp_path)] + flags)
+
+
+def test_devices_frames_match(tmp_path):
+    """``--devices 2 --device cpu --dist-backend gloo`` on the 256-element
+    ductile deck writes the frames of the single-device ``--devices 1``
+    run, byte for byte, and returns the same final state."""
+    deck = tmp_path / "deck.inp"
+    deck.write_text(DECKS["ductile"]())
+    states, dirs = {}, {}
+    for n, extra in (("1", []), ("2", ["--dist-backend", "gloo"])):
+        dirs[n] = tmp_path / f"dev{n}"
+        with redirect_stdout(StringIO()):
+            states[n] = tcli.main(
+                [str(deck), "--device", "cpu", "--out-dir", str(dirs[n]),
+                 "--precision", "f64", "--output-num", "4", "--devices", n]
+                + extra)
+    names = sorted(p.name for p in dirs["1"].glob("*.vtk"))
+    assert len(names) == 5
+    for name in names:
+        assert (dirs["1"] / name).read_bytes() == \
+            (dirs["2"] / name).read_bytes(), name
+    assert int(states["2"].element_flag.sum()) < 256
+    assert torch.equal(states["1"].disp, states["2"].disp)
 
 
 def test_profile_writes_chrome_trace(tmp_path, capsys):

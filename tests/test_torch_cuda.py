@@ -13,7 +13,10 @@ import pytest
 import torch
 
 from hakai_tpu_torch import SolverConfig, init_state, lower, run_chunk
-from hakai_tpu_torch.ops.assemble_cuda import assemble_internal_force
+from hakai_tpu_torch.ops.assemble_cuda import (assemble_internal_force,
+                                               blocked_assemble,
+                                               blocked_assemble_plain,
+                                               plan_assemble)
 from hakai_tpu_torch.ops.element import (assemble_internal_force_plain,
                                          element_core_packed_plain,
                                          element_core_plain,
@@ -91,6 +94,44 @@ def test_assembly_kernel_matches_plain(cuda, dtype):
     Q = assemble_internal_force(m, qe)
     assert _rel(Q, assemble_internal_force_plain(m, qe)) <= TOL[m.dtype]
     assert torch.equal(Q, assemble_internal_force(m, qe))   # no atomics
+
+
+def node_block_grouping(inc_idx, inc_mask, r_tile):
+    """The incidence table (V, N), padded with masked entries to whole
+    tiles of nodes, as node-block-major (nblk, V, r_tile) rows: output
+    tile b sums its V slot tiles in the order v = 0..V-1."""
+    V, N = inc_idx.shape
+    nblk = -(-N // r_tile)
+    idx = np.zeros((V, nblk * r_tile), np.int64)
+    mask = np.zeros((V, nblk * r_tile), bool)
+    idx[:, :N], mask[:, :N] = inc_idx, inc_mask
+    return (idx.reshape(V, nblk, r_tile).transpose(1, 0, 2).reshape(-1),
+            mask.reshape(V, nblk, r_tile).transpose(1, 0, 2).reshape(-1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "mixed"])
+def test_grouped_assembly_matches_kernel_b(cuda, dtype):
+    """The grouped entry (TPU kernels #9/#10) on the node-block-major
+    grouping of the incidence table: bitwise kernel B's Q, within the
+    assembly tolerance of its plain version, and what a model carrying
+    the plan assembles with, one grouped launch and no kernel B launch."""
+    m = lower(bar_model(8, 8, 32), SolverConfig(dtype=dtype), device=cuda)
+    V, N, E = m.inc_idx.shape[0], m.N, m.E
+    idx, mask = node_block_grouping(m.inc_idx.cpu().numpy(),
+                                    m.inc_mask.cpu().numpy(), 2048)
+    plan = plan_assemble(idx, mask, 8 * E, V).to(cuda)
+    qe = torch.randn(24, E, dtype=m.edtype, device=cuda)
+    src = qe.reshape(3, 8 * E)
+    got = blocked_assemble(src, plan, m.dtype)[:, :N]
+    assert got.dtype == m.dtype
+    assert torch.equal(got, assemble_internal_force(m, qe, m.dtype))
+    plain = blocked_assemble_plain(src, plan).to(m.dtype)[:, :N]
+    assert _rel(got, plain) <= TOL[m.edtype]
+    grouped = dataclasses.replace(m, plan_asm=plan)
+    before = (blocked_assemble.launches, assemble_internal_force.launches)
+    assert torch.equal(assemble_internal_force(grouped, qe, m.dtype), got)
+    assert (blocked_assemble.launches, assemble_internal_force.launches) \
+        == (before[0] + 1, before[1])
 
 
 def test_wrappers_refuse_wrong_inputs(cuda):

@@ -117,10 +117,11 @@ def test_mixed_ductile_lowering_matches_jax(shape):
 @pytest.mark.parametrize("case", ["halo", "fracture", "mixed"])
 def test_unported_features_raise(case):
     """What the port does not run yet raises NotImplementedError naming its
-    ROADMAP item: the halo decomposition of run() on a contact deck,
-    multi-device run() on a fracture deck and on a mixed deck (the generic
-    element path, element_kernel="xla" included, runs since it was
-    ported: tests/test_torch_generic.py)."""
+    ROADMAP item: the node-sharded halo decomposition of run() on a
+    contact deck, its checkpoint resume on a fracture deck, and the halo
+    path alongside element-sharded devices on a mixed deck (element-sharded
+    runs themselves run since they were ported: tests/test_torch_sharding.
+    py)."""
     if case == "halo":
         m = lower(impact_model(n=2), SolverConfig(), device="cpu")
 
@@ -130,7 +131,7 @@ def test_unported_features_raise(case):
         m = lower(bar_model(ductile=True), SolverConfig(), device="cpu")
 
         def go():
-            run(m, devices=2, device="cpu", write_output=False)
+            run(m, resume_halo="ckpt.npz", device="cpu", write_output=False)
     else:
         m = lower(bar_model(d_time=5e-8),
                   SolverConfig(dtype="mixed", element_kernel="xla"),
@@ -138,8 +139,7 @@ def test_unported_features_raise(case):
         run_chunk(m, init_state(m), 1)
 
         def go():
-            run(m, devices=2, device="cpu", write_output=False)
+            run(m, devices=2, halo=2, device="cpu", write_output=False)
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 11" if case == "halo"
-                       else "ROADMAP"):
+                       match="ROADMAP Queue 1 item 11"):
         go()

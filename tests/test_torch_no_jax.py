@@ -1,8 +1,10 @@
 """The port runs without JAX and without the JAX package: a fresh
-interpreter imports every module of hakai_tpu_torch, builds the ductile bar
-and the impact contact deck from the port's own pre.synthetic and runs
-run() on each on the CPU; ``python -m hakai_tpu_torch deck.inp --device
-cpu`` runs a written deck; no module of jax or hakai_tpu is ever loaded.
+interpreter imports every module of hakai_tpu_torch (``parallel``
+included), builds the ductile bar and the impact contact deck from the
+port's own pre.synthetic and runs run() on each on the CPU, the bar also
+on two element-sharded ranks; ``python -m hakai_tpu_torch deck.inp
+--device cpu`` runs a written deck; no module of jax or hakai_tpu is ever
+loaded, in the interpreter or in a spawned rank.
 And no source file of the port, nor chip_smoke.py or the deck writer
 scripts/inp_deck.py, has an import of either."""
 import ast
@@ -29,13 +31,18 @@ m = ht.lower(bar_model(4, 4, 16, d_time=5e-8, end_time=5e-7, ductile=True),
              cfg, device="cpu")
 s = ht.run(m, verbose=False, device="cpu")
 assert int(s.t) == m.time_num == 10 and bool(torch.isfinite(s.disp).all())
+s2 = ht.run(m, verbose=False, write_output=False, devices=2, device="cpu")
+assert torch.equal(s2.disp, s.disp)
+from hakai_tpu_torch.parallel.dist import launch, rank_info
+info = launch(rank_info, 2, "cpu")
+assert info["world"] == 2 and "hakai_tpu_torch.parallel.dist" in info["modules"]
 from hakai_tpu_torch.pre.synthetic import impact_model
 m = ht.lower(impact_model(n=2, v0=8.0e4, d_time=4e-8, end_time=1.01e-6),
              cfg, device="cpu")
 s = ht.run(m, verbose=False, device="cpu")
 assert len(m.pairs) == 2 and int(s.t) == m.time_num == 25
 assert float(s.contact_force.abs().max()) > 0
-bad = sorted(k for k in sys.modules
+bad = sorted(k for k in list(sys.modules) + info["modules"]
              if k.split(".")[0] in {forbidden!r})
 print("FORBIDDEN_MODULES", bad)
 """
