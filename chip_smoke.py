@@ -80,7 +80,20 @@ without its last line):
    ``run(devices=2)``: first contact and first deletion, the alive count
    and the contact force against one device;
 18. nccl: one NCCL rank on the bench bar, bitwise equal to ``run_chunk``;
-   two NCCL ranks on one card refused.
+   two NCCL ranks on one card refused;
+19. halo (sixth slice), in [sharded]'s launch: the bench bar on two
+   node-sharded halo ranks (gloo, sharing the card) in the packed loop
+   and on the generic step, against one device at the f32 halo
+   tolerances, with the partition, us/step, the exchanges' share and rank
+   0's device busy; single halo steps around [run]'s first deletion and
+   [contact]'s first contact and first deletion;
+20. halo-run: [run]'s deck cut to 2,000 steps through ``run(halo=2)``:
+   the alive count, frame 0 byte-identical to [run]'s and frame 1 within
+   2e-5, its shard-major checkpoint reloaded to the returned state;
+21. dma (TPU kernel #11): the streaming kernel in its three layouts at
+   (72, 1,048,576) float32, bitwise its plain version, through the port's
+   bandwidth probe (slope-timed us/pass and GB/s, ``torch.add`` beside it,
+   the bound).
 
 The line before the last is nvidia-smi's name and power limit; the one
 before that the per-kernel JSON record; the last line is
@@ -193,8 +206,10 @@ GROUPED_R_TILE = 2048
 # NCCL where the machine has as many cards, else sharing the one card
 # under gloo; the bench bar in both loops, SHARD_STEPS steps after
 # SHARD_WARM dropped ones, then SHARD_TRACE traced ones (few steps keep the
-# script short: gloo's steps on one card take 10-17 ms)
-SHARD_RANKS, SHARD_STEPS, SHARD_WARM, SHARD_TRACE = 2, 200, 10, 10
+# script short: gloo's steps on one card take 10-17 ms; the generic loop
+# runs half as many to keep the script near its time)
+SHARD_RANKS, SHARD_WARM, SHARD_TRACE = 2, 10, 10
+SHARD_STEPS = {"packed f32": 200, "generic f32": 100}
 # [sharded-run]: [run]'s deck cut to SHARD_RUN_STEPS steps (its amplitude
 # ramp kept), frames at steps 0 and 2,000 and a checkpoint, resumed on one
 # device for
@@ -218,6 +233,21 @@ SHARD_CONTACT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 SHARD_LEAD = 2
 # [nccl]: one NCCL rank on the card, the bench bar
 NCCL_STEPS = 200
+# [halo]: node-sharded runs on HALO_RANKS gloo ranks sharing the card, in
+# [sharded]'s launch (SHARD_STEPS steps after SHARD_WARM, SHARD_TRACE
+# traced).  A halo Q adds the ghost rows after the owned sum, so the f32
+# bars part from one device at the f32 rate: held normwise to
+# tests/test_halo.py's packed f32 tolerances (disp 3e-5, stress 3e-4)
+HALO_RANKS = 2
+HALO_TOL = {"disp": 3e-5, "stress": 3e-4}
+# [halo-run]: [run]'s deck cut to SHARD_RUN_STEPS steps through
+# run(halo=HALO_RANKS); the alive count within HALO_ALIVE_REL of
+# SHARD_RUN_ALIVE, frame 1 within HALO_FRAME_REL (test_run_halo_packed_vtk)
+HALO_ALIVE_REL, HALO_FRAME_REL = 1e-3, 2e-5
+HALO_RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "smoke_halo_run")
+# [dma]: TPU kernel #11 at benchmarks/dma_microbench.py's defaults
+DMA_E, DMA_TE, DMA_N1, DMA_N2 = 1048576, 2048, 20, 120
 # H100 SXM peaks (NVIDIA data sheet, dense, no tensor cores): HBM
 # 3.35 TB/s; 67 TFLOP/s float32, 34 TFLOP/s float64.
 HBM_BPS = 3.35e12
@@ -574,10 +604,12 @@ def _wrappers() -> dict:
     from hakai_tpu_torch.ops.element_cuda import (element_core_packed,
                                                   element_update)
     from hakai_tpu_torch.ops.gather_cuda import gather_cols
+    from hakai_tpu_torch.ops.stream_cuda import stream_add1
     return {"element": element_core_packed, "update": element_update,
             "assemble": assemble_internal_force, "grouped": blocked_assemble,
             "gather": gather_cols,
-            "narrow": narrow_phase, "scatter": scatter_forces}
+            "narrow": narrow_phase, "scatter": scatter_forces,
+            "stream": stream_add1}
 
 
 def reset_counts():
@@ -1692,29 +1724,33 @@ def sharded_phase(bench, gen, cut, impact, smi_line):
     starts["contact_del"] = run_chunk(impact, starts["contact"],
                                       CONTACT_FIRST_DEL - CONTACT_FIRST)
     single = [1] * SHARD_LEAD
-    jobs = [dict(model=bench.to("cpu"), chunks=[SHARD_STEPS],
+    jobs = [dict(model=bench.to("cpu"), chunks=[SHARD_STEPS["packed f32"]],
                  warm=SHARD_WARM, trace=SHARD_TRACE),
-            dict(model=gen.to("cpu"), chunks=[SHARD_STEPS],
+            dict(model=gen.to("cpu"), chunks=[SHARD_STEPS["generic f32"]],
                  warm=SHARD_WARM, trace=SHARD_TRACE),
             dict(model=cut.to("cpu"), state=starts["cut"].to("cpu"),
                  chunks=single)]
     impact_cpu = impact.to("cpu")
     jobs += [dict(model=impact_cpu, state=starts[k].to("cpu"), chunks=single)
              for k in ("contact", "contact_del")]
+    # [halo]'s jobs, in the same launch (jobs 5-9)
+    jobs += [dict(j, halo=True) for j in jobs[:5]]
     t0 = time.perf_counter()
     res = launch(chunk_rank, SHARD_RANKS, "cuda", backend, jobs)
-    log(f"[sharded] {backend}, {setup}: one launch of {len(jobs)} jobs in "
-        f"{time.perf_counter() - t0:.2f} s (spawn, model transfer and every"
-        f" chunk)")
+    log(f"[sharded] {backend}, {setup}: one launch of {len(jobs)} jobs "
+        f"([halo]'s included) in {time.perf_counter() - t0:.2f} s (spawn, "
+        f"model transfer, partitions and every chunk)")
+    refs = {}
     for tag, m, r, kernel in (("packed f32", bench, res[0],
                                "element_core_packed"),
                               ("generic f32", gen, res[1],
                                "element_update")):
-        ref = run_chunk(m, init_state(m), SHARD_STEPS)
+        n = SHARD_STEPS[tag]
+        refs[tag] = ref = run_chunk(m, init_state(m), n)
         diff = state_diff(r["state"], ref)
         sec, coll = r["seconds"][0], r["collective_s"][0]
-        us = sec / SHARD_STEPS * 1e6
-        log(f"[sharded] bench bar {tag}, {SHARD_STEPS} steps: {us:.2f} "
+        us = sec / n * 1e6
+        log(f"[sharded] bench bar {tag}, {n} steps: {us:.2f} "
             f"us/step on the host clock, all-gathers {coll * 1e3:.2f} ms = "
             f"{coll / sec:.4f} of the chunk (CUDA events); rank 0 device "
             f"busy {r['busy_us']:.2f} us/step, {r['kernels']:.1f} kernels/"
@@ -1723,7 +1759,7 @@ def sharded_phase(bench, gen, cut, impact, smi_line):
             f"{_top(r)}; rank 0 launches {r['launches']}; fields differing "
             f"from one "
             f"device: {diff} [{smi_line}]")
-        want = {kernel: SHARD_STEPS, "assemble_internal_force": SHARD_STEPS}
+        want = {kernel: n, "assemble_internal_force": n}
         if any(r["launches"][k] != v for k, v in want.items()):
             raise AssertionError(f"[sharded] launches {r['launches']}")
         if diff:
@@ -1734,7 +1770,200 @@ def sharded_phase(bench, gen, cut, impact, smi_line):
             and int(starts["contact_del"].element_flag.sum())
             == impact.n_element):
         raise AssertionError("[sharded] a job starts past its event")
-    return res, starts
+    return res, starts, refs
+
+
+def halo_phase(res, refs, cut, impact, smi_line):
+    """[halo]: the halo jobs of [sharded]'s launch (``res``: the bench bar
+    packed and generic, then the single steps from [sharded]'s one-device
+    states): each bar against one device's state (``refs``) normwise at
+    HALO_TOL, with its partition, us/step, the exchanges' share and rank
+    0's trace; the first deletion and first contact and first deletion to
+    the step.  Returns rank 0's launches by the kernels JSON's keys."""
+    counts = {}
+
+    def count(key, n):
+        counts[key] = counts.get(key, 0) + n
+    for (tag, kernel, key), r in zip(
+            (("packed f32", "element_core_packed", "element[float32]"),
+             ("generic f32", "element_update", "update[float32+triax]")),
+            res[:2]):
+        p, ref, n = r["partition"], refs[tag], SHARD_STEPS[tag]
+        errs = {k: relerr(getattr(r["state"], k).to(ref.disp.device),
+                          getattr(ref, k)) for k in HALO_TOL}
+        sec, coll = r["seconds"][0], r["collective_s"][0]
+        us = sec / n * 1e6
+        log(f"[halo] bench bar {tag}, {HALO_RANKS} gloo ranks sharing the "
+            f"card: partition No={p['No']} H={p['H']} W={p['W']} El={p['El']}"
+            f" packed={p['packed']}, {p['exchange_bytes']} B on the "
+            f"exchanges a step and rank; {n} steps: {us:.2f} us/"
+            f"step on the host clock, exchanges {coll * 1e3:.2f} ms = "
+            f"{coll / sec:.4f} of the chunk (CUDA events); rank 0 device busy"
+            f" {r['busy_us']:.2f} us/step, {r['kernels']:.1f} kernels/step, "
+            f"idle share {1.0 - r['busy_us'] / us:.4f} of its step; rank 0 "
+            f"host ops of the most self time (us/step, traced) {_top(r)}; "
+            f"rank 0 launches {r['launches']}; normwise from one device: "
+            + " ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (tol {HALO_TOL}) [{smi_line}]")
+        want = {kernel: n, "assemble_internal_force": n}
+        if any(r["launches"][k] != v for k, v in want.items()):
+            raise AssertionError(f"[halo] launches {r['launches']}")
+        bad = {k: v for k, v in errs.items() if not v <= HALO_TOL[k]}
+        if bad or p["packed"] != (tag == "packed f32"):
+            raise AssertionError(f"[halo] {tag} parts from one device: {bad}")
+        count(key, r["launches"][kernel])
+        count("assemble[hk_assemble_f32]",
+              r["launches"]["assemble_internal_force"])
+    a, c, d = res[2]["alive"], res[3]["contact_max"], res[4]["alive"]
+    events = (a[-2] == cut.n_element > a[-1], c[-2] == 0 < c[-1],
+              d[-2] == impact.n_element > d[-1])
+    log(f"[halo] single halo steps from the one-device states: [run]'s deck "
+        f"alive {a} (first deletion at {SHARD_RUN_FIRST}: {events[0]}), "
+        f"[contact]'s contact force max {c} (first contact at "
+        f"{CONTACT_FIRST}: {events[1]}) and alive {d} (first deletion at "
+        f"{CONTACT_FIRST_DEL}: {events[2]}); partitions "
+        f"{[r['partition'] for r in res[2:4]]}")
+    if not all(events):
+        raise AssertionError("[halo] an event moved from its step")
+    for r in res[2:]:
+        L = r["launches"]
+        count("element[mixed+triax]", L["element_core_packed"])
+        count("assemble[hk_assemble_f32_f64]", L["assemble_internal_force"])
+        for k, name in (("gather", "gather_cols"), ("narrow", "narrow_phase"),
+                        ("scatter", "scatter_forces")):
+            count(k, L[name])
+    return counts
+
+
+def vtk_close(path_a, path_b, rel):
+    """Two frames (test_run_halo_packed_vtk's rule): the same text but for
+    their floats, and each float within ``rel`` relative and ``rel`` of the
+    frame's largest magnitude.  Returns (largest deviation over the frame's
+    scale, the share of byte-identical lines).  The floats are compared as
+    one array: a full-width frame has millions of them."""
+    import numpy as np
+    import re
+    num = re.compile(r"-?\d+\.\d+e[+-]\d+")
+    with open(path_a) as fa, open(path_b) as fb:
+        ta, tb = fa.read(), fb.read()
+    if num.sub("#", ta) != num.sub("#", tb):
+        raise AssertionError(f"{path_b}: text other than floats differs "
+                             f"from {path_a}")
+    xa, xb = (np.array(num.findall(t), float) for t in (ta, tb))
+    scale = float(np.abs(xa).max())
+    dev = np.abs(xa - xb)
+    bad = np.nonzero(dev > rel * np.abs(xb) + rel * scale)[0]
+    if len(bad):
+        raise AssertionError(f"{path_b}: float {bad[0]}: {xa[bad[0]]!r} vs "
+                             f"{xb[bad[0]]!r}")
+    la, lb = ta.splitlines(), tb.splitlines()
+    return (float(dev.max()) / scale,
+            sum(a == b for a, b in zip(la, lb)) / len(la))
+
+
+def halo_run(cut, smi_line):
+    """[halo-run]: run(halo=HALO_RANKS) of [run]'s deck cut to
+    SHARD_RUN_STEPS steps (metrics and the energy balance on, a shard-major
+    checkpoint at its one frame): the alive count near [run]'s, the frames'
+    CELLS equal to it, frame 0 byte-identical to [run]'s and frame 1 within
+    HALO_FRAME_REL, the checkpoint reloaded here to the returned state."""
+    from hakai_tpu_torch import run
+    from hakai_tpu_torch.parallel.halo import (gather_state,
+                                               is_halo_checkpoint,
+                                               load_halo_checkpoint,
+                                               partition)
+    hcut = cut_to(cut, SHARD_RUN_STEPS, out_dir=HALO_RUN_DIR,
+                  metrics_path=os.path.join(HALO_RUN_DIR, "metrics.jsonl"))
+    shutil.rmtree(HALO_RUN_DIR, ignore_errors=True)
+    os.makedirs(HALO_RUN_DIR)
+    timings = {}
+    t0 = time.perf_counter()
+    final = run(hcut, halo=HALO_RANKS, dist_backend="gloo", timings=timings)
+    wall = time.perf_counter() - t0
+    alive = int(final.element_flag.sum())
+    cells = [vtk_cells(os.path.join(HALO_RUN_DIR, f"file{i:03d}.vtk"))
+             for i in range(2)]
+    with open(os.path.join(HALO_RUN_DIR, "file000.vtk"), "rb") as fa, \
+            open(os.path.join(RUN_DIR, "file000.vtk"), "rb") as fb:
+        same0 = fa.read() == fb.read()
+    dev1, same1 = vtk_close(os.path.join(RUN_DIR, "file001.vtk"),
+                            os.path.join(HALO_RUN_DIR, "file001.vtk"),
+                            HALO_FRAME_REL)
+    ck = os.path.join(HALO_RUN_DIR, "ckpt_001.npz")
+    hm = partition(hcut, HALO_RANKS)
+    back = gather_state(hm, load_halo_checkpoint(ck, hm))
+    diff = state_diff(back, final)
+    with open(os.path.join(HALO_RUN_DIR, "metrics.jsonl")) as f:
+        recs = [json.loads(x) for x in f]
+    us = timings["step_s"] / timings["steps"] * 1e6
+    log(f"[halo-run] run(halo={HALO_RANKS}, dist_backend='gloo'), ranks "
+        f"sharing the card: [run]'s deck cut to {SHARD_RUN_STEPS} steps, "
+        f"partition No={hm.No} H={hm.H} El={hm.El} packed="
+        f"{hm.coord_e is not None}; step loop {timings['step_s']:.2f} s = "
+        f"{us:.2f} us/step, {timings['frames']} frames in "
+        f"{timings['frame_s']:.2f} s, run() wall {wall:.2f} s (spawn "
+        f"included); {alive} alive at step {SHARD_RUN_STEPS} ([run]: "
+        f"{SHARD_RUN_ALIVE}), frames' CELLS {cells}; frame 0 byte-identical "
+        f"to [run]'s: {same0}; frame 1 within {dev1:.3e} of its scale, "
+        f"{same1:.4f} of its lines byte-identical; energy_rel_error "
+        f"{recs[-1]['energy_rel_error']:.3e} (halo metrics); shard-major "
+        f"checkpoint {is_halo_checkpoint(ck)}, reloaded here, fields "
+        f"differing from the returned state: {diff} [{smi_line}]")
+    if (abs(alive - SHARD_RUN_ALIVE) > HALO_ALIVE_REL * SHARD_RUN_ALIVE
+            or cells != [cut.n_element, alive] or not same0 or diff
+            or len(recs) != 1):
+        raise AssertionError("[halo-run] differs")
+    return us
+
+
+def dma_phase(smi_line):
+    """[dma]: TPU kernel #11's replacement through the port's bandwidth
+    probe (the probe's passes are the launches counted), then each layout
+    bitwise against its plain version on random data and timed alone
+    (cold L2), with torch.add's time and the bound.  Returns (the strided
+    layout's record, the probe's launches)."""
+    import torch
+    from hakai_tpu_torch.ops.stream_cuda import (LAYOUTS, layout_shape,
+                                                 stream_add1,
+                                                 stream_add1_plain)
+    from hakai_tpu_torch.probes.dma import probe
+    reset_counts()
+    slopes = probe(DMA_E, DMA_TE, DMA_N1, DMA_N2, "cuda",
+                   out=lambda line: log(f"[dma] {line}"))
+    launches = read_counts()
+    want = len(LAYOUTS) * (2 * DMA_N1 + DMA_N2)
+    if launches["stream"] != want:
+        raise AssertionError(f"[dma] launches {launches} != {want}")
+    moved = 2 * 72 * DMA_E * 4
+    bound_ms, bound_by = bound(moved, 72 * DMA_E, "float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    recs = {}
+    for layout in LAYOUTS:
+        x = torch.randn(layout_shape(layout, DMA_E, DMA_TE), generator=gen,
+                        device="cuda") * 1e3
+        o = torch.empty_like(x)
+        k = stream_add1(x, layout, out=o, TE=DMA_TE)
+        p = stream_add1_plain(x)
+        torch.cuda.synchronize()
+        if not torch.equal(k, p):
+            raise AssertionError(f"[dma] {layout} differs from plain")
+        rec = {"max_abs_err": (k - p).abs().max().item(),
+               "ms": time_ms(lambda: stream_add1(x, layout, out=o,
+                                                 TE=DMA_TE)),
+               "plain_ms": time_ms(lambda: stream_add1_plain(x)),
+               "library_ms": time_ms(lambda: torch.add(x, 1.0, out=o)),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        recs[layout] = rec
+        del x, o, k, p
+        log(f"[dma] {layout}: bitwise its plain version; kernel "
+            f"{rec['ms']:.4f} ms = {moved / rec['ms'] / 1e6:.1f} GB/s (cold "
+            f"L2, events), probe slope {slopes[layout] * 1e6:.3f} us/pass = "
+            f"{moved / slopes[layout] / 1e9:.1f} GB/s; plain "
+            f"{rec['plain_ms']:.4f} ms, torch.add {rec['library_ms']:.4f} ms"
+            f" (slope {slopes['torch.add'] * 1e6:.3f} us/pass), bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {moved} B at 3.35 TB/s) "
+            f"[{smi_line}]")
+    return recs["strided"], launches["stream"]
 
 
 def sharded_run(cut, job, start, smi_line):
@@ -1950,6 +2179,8 @@ def main() -> int:
     }
     del bench64, models
     lap("[kernels] and [grouped-asm] kernels")
+    dma_rec, dma_launches = dma_phase(smi_line)
+    lap("[dma]")
 
     trajectory()
     lap("[trajectory]")
@@ -2020,14 +2251,19 @@ def main() -> int:
     lap("[generic-cpu]")
     cli_phase(smi_line)
     lap("[cli]")
-    shard, starts = sharded_phase(bench, gen, cut, impact_cut, smi_line)
+    shard, starts, refs = sharded_phase(bench, gen, cut, impact_cut,
+                                        smi_line)
     lap("[sharded]")
+    launches_h = halo_phase(shard[5:], refs, cut, impact_cut, smi_line)
+    lap("[halo]")
     sharded_run(cut, shard[2], starts["cut"], smi_line)
     lap("[sharded-run]")
     sharded_contact(impact_cut, shard[3:], starts, smi_line)
     lap("[sharded-contact]")
     nccl_phase(bench, smi_line)
     lap("[nccl]")
+    halo_run(cut, smi_line)
+    lap("[halo-run]")
 
     if any(k.split(".")[0] in ("jax", "jaxlib", "hakai_tpu")
            for k in sys.modules):
@@ -2036,12 +2272,13 @@ def main() -> int:
     src = "hakai_tpu/ops/element_pallas.py"
 
     def entry(name, source, replaces, count, r):
-        # launches: the variant's launches in the six main-path runs
+        # launches: the variant's launches in the six main-path runs and
+        # on [halo]'s rank 0
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(x.get(count, 0) for x in
                                 (launches1, launches2, launches3, launches4,
-                                 launches5, launches_g)),
+                                 launches5, launches_g, launches_h)),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
@@ -2095,6 +2332,10 @@ def main() -> int:
         entry("scatter_forces[float32->float64]", cu,
               f"{gp}:413 and :361 (scatter-as-gather, "
               "hakai_tpu/ops/contact.py:375)", "scatter", crec[2]),
+        dict(entry("stream_add1[float32]", "hakai_tpu_torch/csrc/stream.cu",
+                   "benchmarks/dma_microbench.py:35 (copy_kernel; "
+                   "pallas_call :42)", "stream", dma_rec),
+             launches=dma_launches),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

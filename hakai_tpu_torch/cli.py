@@ -7,11 +7,13 @@ unless ``--device cpu`` is given.
 The flags keep the JAX package's names, defaults and meaning, apart from
 three that drive XLA or the TPU's matrix unit and mean nothing on the card
 (``--compile-cache``, ``--mxu-precision``, ``--chunk-unroll``).
-``--devices n`` runs the element-sharded loop on n ranks over
-``torch.distributed``, with ``--dist-backend`` (the port's counterpart of
-JAX's choice of collectives backend) choosing NCCL or gloo.  ``--halo``
-and ``--multihost`` are kept and raise NotImplementedError until the halo
-decomposition and multi-host runs are ported.
+``--devices n`` runs the element-sharded loop and ``--halo n`` the
+node-sharded halo decomposition on n ranks over ``torch.distributed``,
+with ``--dist-backend`` (the port's counterpart of JAX's choice of
+collectives backend) choosing NCCL or gloo; ``--resume`` of a shard-major
+halo checkpoint needs the matching ``--halo``.  ``--profile`` traces the
+run's loop, on ranks rank 0's.  ``--multihost`` is kept and raises
+NotImplementedError until multi-host runs are ported.
 """
 from __future__ import annotations
 
@@ -86,12 +88,14 @@ def _parser() -> argparse.ArgumentParser:
                          "lets ranks share a card or run on the CPU)")
     ap.add_argument("--halo", type=int, default=None,
                     help="node-sharded halo-exchange decomposition over "
-                         "this many devices (not ported yet: raises)")
+                         "this many ranks, one process each (wins over "
+                         "--devices; shard-major checkpoints)")
     ap.add_argument("--multihost", default=None, metavar="SPEC",
                     help="multi-host run (not ported yet: raises)")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="capture a torch.profiler trace of the whole run "
-                         "into DIR/trace.json (Chrome trace format)")
+                    help="capture a torch.profiler trace of the run's loop "
+                         "(on --devices/--halo ranks, rank 0's) into "
+                         "DIR/trace.json (Chrome trace format)")
     ap.add_argument("--element-kernel", default="auto",
                     choices=["auto", "xla", "pallas", "pallas_mxu"],
                     help="the JAX package's element-math backends; on the "
@@ -104,9 +108,9 @@ def _parser() -> argparse.ArgumentParser:
                          "GPU); 'cpu' runs the kernels' plain versions")
     ap.add_argument("--dist-backend", choices=["nccl", "gloo"],
                     default=None,
-                    help="torch.distributed backend of --devices runs of "
-                         "two or more ranks (default: nccl on the GPU, gloo "
-                         "on the CPU)")
+                    help="torch.distributed backend of --devices and "
+                         "--halo runs of two or more ranks (default: nccl "
+                         "on the GPU, gloo on the CPU)")
     ap.add_argument("--timings", action="store_true",
                     help="print the host seconds of the parse, the "
                          "lowering, the step chunks and the frame output")
@@ -120,9 +124,8 @@ def main(argv=None):
         args.energy_check, args.energy_abort)
     if args.multihost:
         raise NotImplementedError(
-            "multi-host runs (--multihost) are not ported yet: they come "
-            "with the halo decomposition, the next slice (ROADMAP Queue 1 "
-            "item 11)")
+            "multi-host runs (--multihost) are not ported yet (ROADMAP "
+            "Queue 1 item 2)")
 
     elem_pad = args.elem_pad
     if args.element_kernel in ("pallas", "pallas_mxu"):
@@ -156,8 +159,8 @@ def main(argv=None):
     from .core.state import init_state
     from .io.inp import read_inp_file
     from .solver.explicit import run
+    from .parallel.halo import is_halo_checkpoint
     from .utils.checkpoint import load_checkpoint, save_checkpoint
-    from .utils.profiling import trace
 
     t0 = time.perf_counter()
     model_in = read_inp_file(args.inp)
@@ -187,24 +190,21 @@ def main(argv=None):
     state = init_state(model)
     resume_halo = None
     if args.resume:
-        import numpy as np
-        with np.load(args.resume) as data:
-            halo_file = "halo_format" in data
-        if halo_file:
+        if is_halo_checkpoint(args.resume):
             if not args.halo or args.halo < 2:
                 raise SystemExit(f"{args.resume} is a shard-major halo "
                                  "checkpoint; pass the matching --halo N")
-            resume_halo = args.resume     # run() raises: not ported yet
+            resume_halo = args.resume     # loaded inside run() post-partition
             print("resuming from halo checkpoint")
         else:
             state = load_checkpoint(args.resume, state)
             print(f"resumed at step {int(state.t)}")
     timings = {}
-    with trace(args.profile):
-        state = run(model, state, write_output=not args.no_output,
-                    devices=args.devices, halo=args.halo,
-                    resume_halo=resume_halo, device=args.device,
-                    timings=timings, dist_backend=args.dist_backend)
+    state = run(model, state, write_output=not args.no_output,
+                devices=args.devices, halo=args.halo,
+                resume_halo=resume_halo, device=args.device,
+                timings=timings, dist_backend=args.dist_backend,
+                profile=args.profile)
     if args.checkpoint_every:
         save_checkpoint(f"{args.out_dir}/final.ckpt.npz", state)
     if args.timings:

@@ -111,9 +111,13 @@ def launch(fn, world: int, device="cuda", backend: str | None = None,
         return torch.load(os.path.join(tmp, "result.pt"), weights_only=False)
 
 
-def rank_info(ctx: Rank) -> dict:
+def rank_info(ctx: Rank, jobs: list | None = None) -> dict:
     """A worker that reports what rank 0 sees: its placement and every
-    module its interpreter has loaded."""
+    module its interpreter has loaded, after running ``jobs`` (if any) as
+    :func:`~hakai_tpu_torch.parallel.sharding.chunk_rank` runs them."""
     import sys
+    if jobs:
+        from .sharding import chunk_rank
+        chunk_rank(ctx, jobs)
     return {"rank": ctx.rank, "world": ctx.world, "device": str(ctx.device),
             "backend": ctx.backend, "modules": sorted(sys.modules)}

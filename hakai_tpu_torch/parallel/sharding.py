@@ -109,6 +109,13 @@ class ShardComm:
             return self.flag
         return self.all_gather(flag.view(torch.uint8)).view(torch.bool)
 
+    def contact(self, model: LoweredModel, state: SimState):
+        """The contact force (3, N) of a rank's step, its narrow phase dealt
+        out over the ranks, on the whole life mask."""
+        from ..ops.contact import contact_forces
+        return contact_forces(model, state.replace(
+            element_flag=self.global_flag(state.element_flag)), self.group)
+
 
 def gather_state(comm: ShardComm, state: SimState) -> SimState:
     """The whole state from every rank's shard (a collective)."""
@@ -144,28 +151,33 @@ def _rank_setup(ctx: Rank, model: LoweredModel, state: SimState | None):
 
 
 def run_rank(ctx: Rank, model: LoweredModel, state: SimState | None,
-             verbose: bool, write_output: bool):
+             verbose: bool, write_output: bool, profile: str | None = None):
     """One rank of ``run(devices=n)``: the host loop on the rank's shard;
-    rank 0 returns (the whole final state on the CPU, its timings)."""
-    from ..solver.explicit import run_loop
+    with ``profile``, rank 0 traces its loop; rank 0 returns (the whole
+    final state on the CPU, its timings)."""
+    from ..solver.explicit import LoopView, run_loop
+    from ..utils.profiling import trace
     model, comm, lm, ls = _rank_setup(ctx, model, state)
     clock = {}
-    final = run_loop(model, ls,
-                     lambda s, n: sharded_run_chunk(comm, lm, s, n),
-                     lambda s: gather_state(comm, s), ctx.rank == 0,
-                     verbose, write_output, clock)
+    with trace(profile if ctx.rank == 0 else None):
+        final = run_loop(model, ls,
+                         lambda s, n: sharded_run_chunk(comm, lm, s, n),
+                         LoopView(model, lambda s: gather_state(comm, s),
+                                  ctx.rank == 0),
+                         verbose, write_output, clock)
     return (final.to("cpu"), clock) if ctx.rank == 0 else None
 
 
 def run_sharded(model: LoweredModel, state: SimState | None, devices: int,
                 device="cuda", backend: str | None = None,
-                verbose: bool = True, write_output: bool = True):
+                verbose: bool = True, write_output: bool = True,
+                profile: str | None = None):
     """``run()`` on ``devices`` element-sharded ranks; returns (the final
     state on the CPU, rank 0's timings)."""
     _shard(model.E, 0, devices)
     return launch(run_rank, devices, device, backend, model.to("cpu"),
                   None if state is None else state.to("cpu"), verbose,
-                  write_output)
+                  write_output, profile)
 
 
 def _launch_counts() -> dict:
@@ -186,63 +198,82 @@ def chunk_rank(ctx: Rank, jobs: list) -> list | None:
     initial state), ``chunks`` (step counts run one after the other),
     optionally ``warm`` (steps run first from the same state and dropped)
     and ``trace`` (steps run after the chunks under ``torch.profiler`` on
-    rank 0, dropped).  Rank 0 returns per job: the whole final state (CPU),
-    the alive count and host seconds after each chunk (each ends in a
-    device sync), the seconds of the all-gathers per chunk (CUDA events;
-    None on the CPU), the kernel launches of the chunks, and with
+    rank 0, dropped); with ``halo`` set the job runs node-sharded over the
+    launch's ranks (``parallel.halo.halo_job``) instead of element-sharded.
+    Rank 0 returns per job: the whole final state (CPU), the alive count,
+    the largest contact force and host seconds after each chunk (each ends
+    in a device sync), the seconds of the collectives per chunk (CUDA
+    events; None on the CPU), the kernel launches of the chunks, and with
     ``trace`` the device busy microseconds, kernels per step and the host
     ops of the most time (:func:`_traced`)."""
+    from .halo import halo_job
     out = []
     for job in jobs:
+        if job.get("halo"):
+            out.append(halo_job(ctx, job, _measured))
+            continue
         model, comm, lm, ls = _rank_setup(ctx, job["model"], job.get("state"))
-        if job.get("warm"):
-            sharded_run_chunk(comm, lm, ls, job["warm"])
-        cuda = ctx.device.type == "cuda"
-        before = _launch_counts()
-        rec = {"alive": [], "contact_max": [], "seconds": [],
-               "collective_s": []}
-        for n in job["chunks"]:
-            comm.events = []
-            if cuda:
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ls = sharded_run_chunk(comm, lm, ls, n)
-            int(ls.t)
-            rec["seconds"].append(time.perf_counter() - t0)
-            rec["collective_s"].append(
-                sum(a.elapsed_time(b) for a, b in comm.events) / 1e3
-                if cuda else None)
-            comm.events = None
-            g = gather_state(comm, ls)
-            rec["alive"].append(int(g.element_flag.sum()))
-            rec["contact_max"].append(float(g.contact_force.abs().max()))
-        rec["launches"] = {k: v - before[k]
-                           for k, v in _launch_counts().items()}
-        rec["state"] = g.to("cpu")
-        if job.get("trace"):
-            rec.update(_traced(ctx, comm, lm, ls, job["trace"]))
-        out.append(rec)
+        out.append(_measured(
+            ctx, comm, ls, job,
+            lambda s, n, comm=comm, lm=lm: sharded_run_chunk(comm, lm, s, n),
+            lambda s, comm=comm: gather_state(comm, s),
+            lambda s, g: float(g.contact_force.abs().max())))
     return out if ctx.rank == 0 else None
 
 
-def _traced(ctx: Rank, comm: ShardComm, lm: LoweredModel, ls: SimState,
-            n: int) -> dict:
-    """``n`` more steps, under torch.profiler on rank 0: device busy us
-    and kernels per step of rank 0's process (0 on the CPU), and its six
-    host ops of the most self CPU time, as (name, us per step)."""
+def _measured(ctx: Rank, comm, ls, job: dict, run, gather, contact_max,
+              after=None) -> dict:
+    """``job``'s warm-up, chunks and trace on a rank: ``run(state, n)``
+    steps, ``gather(state)`` is the whole state (a collective),
+    ``contact_max(state, whole)`` the largest contact force, and
+    ``after(state, whole)`` the state the next chunk starts from."""
+    if job.get("warm"):
+        run(ls, job["warm"])
+    cuda = ctx.device.type == "cuda"
+    before = _launch_counts()
+    rec = {"alive": [], "contact_max": [], "seconds": [], "collective_s": []}
+    for n in job["chunks"]:
+        comm.events = []
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ls = run(ls, n)
+        int(ls.t)
+        rec["seconds"].append(time.perf_counter() - t0)
+        rec["collective_s"].append(
+            sum(a.elapsed_time(b) for a, b in comm.events) / 1e3
+            if cuda else None)
+        comm.events = None
+        g = gather(ls)
+        rec["alive"].append(int(g.element_flag.sum()))
+        rec["contact_max"].append(contact_max(ls, g))
+        if after is not None:
+            ls = after(ls, g)
+    rec["launches"] = {k: v - before[k] for k, v in _launch_counts().items()}
+    rec["state"] = g.to("cpu")
+    if job.get("trace"):
+        rec.update(_traced(ctx, lambda: run(ls, job["trace"]), job["trace"]))
+    return rec
+
+
+def _traced(ctx: Rank, steps, n: int) -> dict:
+    """``steps()`` (``n`` more steps) under torch.profiler on rank 0:
+    device busy us and kernels per step of rank 0's process (0 on the
+    CPU), and its six host ops of the most self CPU time, as (name, us per
+    step)."""
     from torch.profiler import ProfilerActivity, profile
     cuda = ctx.device.type == "cuda"
 
-    def steps():
-        sharded_run_chunk(comm, lm, ls, n)
+    def go():
+        steps()
         if cuda:
             torch.cuda.synchronize()
     if ctx.rank != 0:
-        steps()
+        go()
         return {}
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts) as prof:
-        steps()
+        go()
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)

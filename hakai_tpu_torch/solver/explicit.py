@@ -37,7 +37,7 @@ from ..ops.element import triax_components
 from ..ops.element_cuda import element_update, packed_element_step
 from ..ops.erosion import erode
 from ..utils.checkpoint import save_checkpoint
-from ..utils.metrics import MetricsWriter, energy_guard
+from ..utils.metrics import MetricsWriter, energy_guard, step_metrics
 from .output import node_fields
 
 
@@ -72,14 +72,16 @@ def apply_bc(model: LoweredModel, disp_new, current_time):
 
 def _integrate(model: LoweredModel, state: SimState, comm=None):
     """Contact + central difference + BCs.  Returns (t, disp_new, velo,
-    cforce, dwork); cforce is the step's contact force (the state's, unchanged,
-    on decks without contact) and dwork the [dW_ext, dW_int] increment
+    cforce, dwork); cforce is the step's contact force (None on decks
+    without contact) and dwork the [dW_ext, dW_int] increment
     pair, or None unless ``config.energy_check``.  Time and a1 = M/dt^2 are
     formed in the model dtype, as the JAX step forms them.
 
-    ``comm`` (a :class:`~hakai_tpu_torch.parallel.sharding.ShardComm`) makes
-    this an element-sharded rank's step: contact reads the life mask of
-    every rank's elements and deals its narrow phase out over the ranks.
+    ``comm`` (a :class:`~hakai_tpu_torch.parallel.sharding.ShardComm` or
+    :class:`~hakai_tpu_torch.parallel.halo.HaloComm`) makes this a rank's
+    step: its ``contact`` reads the life mask of every rank's elements and
+    deals the narrow phase out over the ranks.  On a halo rank ``model``
+    and ``state`` hold the rank's own node rows.
 
     The contact activity masks are formed every step from the step's life
     mask: they are pure functions of it, so this gives the bits the JAX
@@ -90,12 +92,10 @@ def _integrate(model: LoweredModel, state: SimState, comm=None):
     current_time = t.to(model.dtype) * dt
     a1 = model.diag_M / dt**2
     a2 = model.diag_M * model.config.damping_C / (2.0 * dt)
-    cforce, external = state.contact_force, None
+    cforce = external = None
     if model.pairs:
         cforce = external = (contact_forces(model, state) if comm is None
-                             else contact_forces(model, state.replace(
-                                 element_flag=comm.global_flag(
-                                     state.element_flag)), comm.group))
+                             else comm.contact(model, state))
     force = -state.Q if external is None else external - state.Q
     numer = (force + a1 * (2.0 * state.disp - state.disp_pre)
              + a2 * state.disp_pre)
@@ -138,7 +138,8 @@ def _finish(model: LoweredModel, state: SimState, t, disp_new, velo, cforce,
     return state.replace(
         t=t, disp=disp_new, disp_pre=state.disp, velo=velo, Q=Q,
         stress=stress, strain=strain, eq_ps=res.eq_ps, yield_s=res.yield_s,
-        triax=triax, element_flag=flag, contact_force=cforce)
+        triax=triax, element_flag=flag,
+        contact_force=state.contact_force if cforce is None else cforce)
 
 
 def step(model: LoweredModel, state: SimState, comm=None) -> SimState:
@@ -181,7 +182,8 @@ def step_fast_packed(model: LoweredModel, state: SimState, P, comm=None):
     return state.replace(
         t=t, disp=disp_new, disp_pre=state.disp, velo=velo, Q=Q,
         triax=state.triax if triax is None else triax, element_flag=flag,
-        contact_force=cforce, work=work), P_new
+        contact_force=state.contact_force if cforce is None else cforce,
+        work=work), P_new
 
 
 def pack_gauss_state(state: SimState):
@@ -216,6 +218,13 @@ def run_chunk(model: LoweredModel, state: SimState, n_steps: int,
     P = pack_gauss_state(state)
     for _ in range(n_steps):
         state, P = step_fast_packed(model, state, P, comm)
+    return finish_packed(model, state, P)
+
+
+def finish_packed(model: LoweredModel, state, P):
+    """The packed loop's exit: dead elements' stress and strain zeroed
+    (deferred from the steps), on fracture-free decks the triaxiality
+    formed from the final stress, and the state unpacked."""
     P = torch.cat([torch.where(state.element_flag[None, :], P[:56], 0.0),
                    P[56:]])
     if not model.fracture_enabled:
@@ -258,7 +267,8 @@ def run(model: LoweredModel, state: SimState | None = None,
         devices: int | None = None, halo: int | None = None,
         resume_halo: str | None = None, device="cuda",
         timings: dict | None = None,
-        dist_backend: str | None = None) -> SimState:
+        dist_backend: str | None = None,
+        profile: str | None = None) -> SimState:
     """Whole simulation: ``time_num`` steps in chunks of
     ``time_num // output_num``, a VTK frame after each chunk (and frame 0
     before the first) plus ``collection.pvd``, a checkpoint every
@@ -271,41 +281,98 @@ def run(model: LoweredModel, state: SimState | None = None,
     the plain versions); the model and state are moved there.
     ``devices=n`` with n > 1 runs the element-sharded loop on ``n`` ranks
     over ``torch.distributed``
-    (:func:`hakai_tpu_torch.parallel.sharding.run_sharded`; backend
+    (:func:`hakai_tpu_torch.parallel.sharding.run_sharded`); ``halo=n``
+    with n > 1 runs the node-sharded halo decomposition on ``n`` ranks
+    instead, and wins over ``devices``, as in the JAX package
+    (:func:`hakai_tpu_torch.parallel.halo.run_halo`; its checkpoints are
+    shard-major, and ``resume_halo`` names one to resume from).  Backend
     ``dist_backend``, default NCCL on CUDA and gloo on the CPU; with one
-    device ``dist_backend`` is unused, as no collective runs): rank 0
-    writes the frames, checkpoints (the single-device format), metrics and
-    console lines, and its final state is returned, on ``device``.
-    ``halo`` and ``resume_halo`` (the JAX package's node-sharded path)
-    raise NotImplementedError.  With a ``timings`` dict, fills in the host
+    device it is unused, as no collective runs.  On ranks, rank 0 writes
+    the frames, checkpoints, metrics and console lines, and the whole final
+    state is returned, on ``device``.  With ``profile``, a torch.profiler
+    trace of the run's loop (on ranks, rank 0's) goes to
+    ``<profile>/trace.json``.  With a ``timings`` dict, fills in the host
     seconds spent in step chunks (each ends in a device sync) and in frame
     output.  Returns the final state."""
-    if (halo or 1) > 1 or resume_halo is not None:
-        raise NotImplementedError(
-            "the node-sharded halo decomposition (halo, resume_halo) is not "
-            "ported yet: it is the next slice (ROADMAP Queue 1 item 11)")
-    if (devices or 1) > 1:
+    from ..utils.profiling import trace
+    if (halo or 1) > 1:
+        from ..parallel.halo import run_halo
+        state, clock = run_halo(model, state, halo, device, dist_backend,
+                                verbose, write_output, resume_halo, profile)
+    elif resume_halo is not None:
+        raise ValueError("resume_halo resumes a halo run: pass halo > 1")
+    elif (devices or 1) > 1:
         from ..parallel.sharding import run_sharded
         state, clock = run_sharded(model, state, devices, device,
-                                   dist_backend, verbose, write_output)
-        if timings is not None:
-            timings.update(clock)
-        return state.to(device)
-    model = model.to(device)
-    state = init_state(model) if state is None else state.to(device)
-    return run_loop(model, state, lambda s, n: run_chunk(model, s, n),
-                    lambda s: s, True, verbose, write_output, timings)
+                                   dist_backend, verbose, write_output,
+                                   profile)
+    else:
+        with trace(profile):
+            model = model.to(device)
+            state = init_state(model) if state is None else state.to(device)
+            return run_loop(model, state, lambda s, n: run_chunk(model, s, n),
+                            LoopView(model, lambda s: s, True), verbose,
+                            write_output, timings)
+    if timings is not None:
+        timings.update(clock)
+    return state.to(device)
 
 
-def run_loop(model: LoweredModel, state: SimState, chunk, view, root: bool,
-             verbose: bool = True, write_output: bool = True,
+class LoopView:
+    """What :func:`run_loop` reads of a rank's state between chunks, from
+    ``view(state)``, the whole state (on element-sharded ranks a collective
+    that every rank calls at the same points).  Only the ``root`` rank
+    forms frames and metrics and writes checkpoints.  Halo ranks read
+    through ``parallel.halo.HaloView``, whose methods are collectives."""
+
+    def __init__(self, model: LoweredModel, view, root: bool):
+        self.model, self.view, self.root = model, view, root
+        self.sv = None
+
+    def update(self, state):
+        self.sv = self.view(state)
+
+    def alive(self) -> int:
+        return int(self.sv.element_flag.sum())
+
+    def finite(self) -> bool:
+        return bool(torch.isfinite(self.sv.disp).all())
+
+    def energy_rel(self) -> float:
+        return float(energy_guard(self.model, self.sv))
+
+    def metrics(self) -> dict | None:
+        return step_metrics(self.model, self.sv) if self.root else None
+
+    def frame_data(self):
+        """(disp, velo, element_flag, NodeData) of the whole mesh on the
+        root rank, else None."""
+        if not self.root:
+            return None
+        s = self.sv
+        return s.disp, s.velo, s.element_flag, node_fields(
+            self.model, s.stress, s.strain, s.eq_ps, s.triax)
+
+    def save(self, path: str):
+        if self.root:
+            save_checkpoint(path, self.sv)
+
+    def final(self):
+        return self.sv
+
+
+def run_loop(model: LoweredModel, state, chunk, hooks, verbose: bool = True,
+             write_output: bool = True,
              timings: dict | None = None) -> SimState:
     """The host loop of :func:`run` on one rank: ``chunk(state, n)``
-    advances the rank's state n steps; ``view(state)`` is the whole state
-    (on element-sharded ranks a collective every rank calls at the same
-    points); only the ``root`` rank writes files and console lines.
-    ``model`` is the whole model.  Returns the view of the final state."""
+    advances the rank's state n steps; ``hooks`` (a :class:`LoopView`, or
+    a halo rank's ``HaloView``) reads the alive count, the guards, metrics,
+    frames and checkpoints from it between chunks, every rank at the same
+    points; only ``hooks.root`` writes files and console lines.  ``model``
+    is the whole model.  Returns ``hooks.final()``, the whole final
+    state."""
     cfg = model.config
+    root = hooks.root
     verbose = verbose and root
     time_num = model.time_num
     d_out = max(time_num // cfg.output_num, 1)
@@ -313,26 +380,27 @@ def run_loop(model: LoweredModel, state: SimState, chunk, view, root: bool,
     metrics = MetricsWriter(cfg.metrics_path if root else None)
     clock = {"step_s": 0.0, "frame_s": 0.0, "frames": 0, "steps": 0}
 
-    def frame(index, s):
+    def frame(index):
+        t0 = _time.perf_counter()
+        data = hooks.frame_data()
         if not root:
             return
-        t0 = _time.perf_counter()
-        nd = node_fields(model, s.stress, s.strain, s.eq_ps, s.triax)
-        co, el, fl, di, ve, nd_o = _deck_order_frame(
-            model, s.disp, s.velo, s.element_flag, nd)
+        di_, ve_, fl_, nd = data
+        co, el, fl, di, ve, nd_o = _deck_order_frame(model, di_, ve_, fl_,
+                                                     nd)
         write_vtk(index, cfg.out_dir, co, el, fl, di, ve, nd_o,
                   model.n_node, model.n_element)
         clock["frame_s"] += _time.perf_counter() - t0
         clock["frames"] += 1
 
-    sv = view(state)
+    hooks.update(state)
     frame_times = []
     if write_output:
-        frame(0, sv)
+        frame(0)
         frame_times.append((0, float(int(state.t)) * model.dt))
 
     t0 = _time.time()
-    alive_prev = int(sv.element_flag.sum())
+    alive_prev = hooks.alive()
     done = int(state.t)
     i_out = done // d_out + 1
     while done < time_num:
@@ -343,12 +411,12 @@ def run_loop(model: LoweredModel, state: SimState, chunk, view, root: bool,
         clock["step_s"] += _time.perf_counter() - tc
         clock["steps"] += n
         done += n
-        sv = view(state)
-        alive = int(sv.element_flag.sum())
-        if cfg.check_nan and not bool(torch.isfinite(sv.disp).all()):
+        hooks.update(state)
+        alive = hooks.alive()
+        if cfg.check_nan and not hooks.finite():
             raise FloatingPointError(f"NaN/Inf in displacement at step {done}")
         if cfg.energy_check and cfg.energy_abort_rel > 0:
-            rel = float(energy_guard(model, sv))
+            rel = hooks.energy_rel()
             if rel > cfg.energy_abort_rel:
                 raise FloatingPointError(
                     f"energy balance diverged at step {done}: "
@@ -362,16 +430,16 @@ def run_loop(model: LoweredModel, state: SimState, chunk, view, root: bool,
             sys.stdout.write(f"\r{done * model.dt:.4e} / "
                              f"{model.end_time:.4e}     ")
             sys.stdout.flush()
-        if cfg.metrics_path is not None and root:
-            metrics.record(model, sv, done, _time.time() - t0)
+        if cfg.metrics_path is not None:
+            vals = hooks.metrics()
+            if root:
+                metrics.record_raw(vals, model, done, _time.time() - t0)
         if write_output and done % d_out == 0 and i_out <= n_frames:
-            frame(i_out, sv)
+            frame(i_out)
             frame_times.append((i_out, done * model.dt))
-            if (cfg.checkpoint_every and i_out % cfg.checkpoint_every == 0
-                    and root):
-                save_checkpoint(cfg.checkpoint_path
-                                or f"{cfg.out_dir}/ckpt_{i_out:03d}.npz",
-                                sv)
+            if cfg.checkpoint_every and i_out % cfg.checkpoint_every == 0:
+                hooks.save(cfg.checkpoint_path
+                           or f"{cfg.out_dir}/ckpt_{i_out:03d}.npz")
             i_out += 1
     metrics.close()
     if write_output and frame_times and root:
@@ -380,4 +448,4 @@ def run_loop(model: LoweredModel, state: SimState, chunk, view, root: bool,
         print(f"\nwall: {_time.time() - t0:.2f}s for {time_num} steps")
     if timings is not None:
         timings.update(clock)
-    return sv
+    return hooks.final()

@@ -92,6 +92,59 @@ def energy_guard(model: LoweredModel, state: SimState):
     return _energy_fields(ke, ke0, state.work, u_el, w_p)["energy_rel_error"]
 
 
+def halo_step_metrics(hm, s, group=None) -> dict:
+    """:func:`step_metrics` of halo state (``parallel/halo.py``) without
+    gathering it: every scalar reduces over the shards' arrays, and with a
+    process ``group`` over the ranks too (``s`` and ``hm`` then one rank's
+    row; sums and maxima each in one ``all_reduce``, taken in float64 and
+    cast back).  ``hm`` and ``s`` may also be shard-major (S, ...) on one
+    process.  The halo state carries no contact force: its max is 0.0, as
+    in the JAX package (``hakai_tpu/utils/metrics.py:halo_step_metrics``)."""
+    import torch.distributed as dist
+    whole = s.disp.dim() == 3
+    v = s.velo
+    d_disp = s.disp - s.disp_pre
+    sums = dict(kinetic_energy=0.5 * torch.sum(hm.diag_M
+                                               * (v * v).sum(dim=-2)),
+                alive_elements=s.element_flag.sum())
+    maxes = dict(d_max=torch.sqrt((d_disp * d_disp).sum(dim=-2)).max(),
+                 eq_plastic_strain_max=s.eq_ps.max(),
+                 stress_absmax=s.stress.abs().max(),
+                 disp_absmax=s.disp.abs().max())
+    check = hm.base.config.energy_check
+    if check:
+        stress = s.stress.movedim(1, 0) if whole else s.stress
+        work = s.work.sum(dim=0) if whole else s.work
+        sums.update(
+            ke0=0.5 * torch.sum(hm.diag_M * (hm.velo0 ** 2).sum(dim=-2)),
+            u_el=_elastic_energy(hm.G_e.unsqueeze(-2),
+                                 hm.lam_e.unsqueeze(-2), hm.vol_e, stress,
+                                 s.element_flag),
+            w_p=_plastic_dissipation(hm.vol_e, hm.yield0_e, s.yield_s,
+                                     s.eq_ps, s.element_flag),
+            w_ext=work[0], w_int=work[1])
+    if group is not None:
+        for vals, op in ((sums, dist.ReduceOp.SUM),
+                         (maxes, dist.ReduceOp.MAX)):
+            buf = torch.stack([x.to(torch.float64) for x in vals.values()])
+            dist.all_reduce(buf, op=op, group=group)
+            for (k, x), r in zip(list(vals.items()), buf):
+                vals[k] = r.to(x.dtype)
+    out = dict(kinetic_energy=sums["kinetic_energy"], d_max=maxes["d_max"],
+               contact_force_max=torch.zeros((), dtype=s.disp.dtype,
+                                             device=s.disp.device),
+               alive_elements=sums["alive_elements"],
+               eq_plastic_strain_max=maxes["eq_plastic_strain_max"],
+               stress_absmax=maxes["stress_absmax"],
+               disp_absmax=maxes["disp_absmax"])
+    if check:
+        out.update(_energy_fields(
+            sums["kinetic_energy"], sums["ke0"],
+            torch.stack([sums["w_ext"], sums["w_int"]]), sums["u_el"],
+            sums["w_p"]))
+    return out
+
+
 class MetricsWriter:
     """Append-only JSONL metrics stream."""
 
@@ -99,9 +152,11 @@ class MetricsWriter:
         self._f: IO | None = open(path, "a") if path else None
         self.history: list[dict] = []
 
-    def record(self, model: LoweredModel, state: SimState, step: int,
-               wall_s: float) -> dict:
-        rec = {k: float(v) for k, v in step_metrics(model, state).items()}
+    def record_raw(self, values: dict, model: LoweredModel, step: int,
+                   wall_s: float) -> dict:
+        """Record one chunk's scalars (:func:`step_metrics` or
+        :func:`halo_step_metrics`)."""
+        rec = {k: float(v) for k, v in values.items()}
         rec["step"] = step
         rec["time"] = step * model.dt
         rec["wall_s"] = wall_s

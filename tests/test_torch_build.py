@@ -11,7 +11,8 @@ def test_build_command_targets_hopper_and_every_source():
     the shared library."""
     compiles, link, objs = _build.build_commands("nvcc", Path("out.so"))
     cu = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert cu == ["assemble.cu", "contact.cu", "element.cu", "gather.cu"]
+    assert cu == ["assemble.cu", "contact.cu", "element.cu", "gather.cu",
+                  "stream.cu"]
     assert len(compiles) == len(cu) == len(objs)
     for cmd in compiles:
         assert cmd[0] == "nvcc" and "-c" in cmd

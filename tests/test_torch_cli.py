@@ -208,15 +208,26 @@ def test_pallas_f64_refused_by_both(tmp_path, capsys):
 
 
 def test_devices_not_ported(tmp_path):
-    """``--halo 2`` and ``--multihost`` raise NotImplementedError naming
-    the ROADMAP item: the halo decomposition and multi-host runs are the
-    next slice (``--devices`` runs: test_devices_frames_match)."""
+    """``--multihost`` raises NotImplementedError naming its ROADMAP item
+    (multi-host runs are not ported; ``--devices`` and ``--halo`` run:
+    test_devices_frames_match, test_halo_frames_match), and ``--resume``
+    of a shard-major halo checkpoint without ``--halo`` stops, as the JAX
+    CLI does."""
+    from hakai_tpu_torch.parallel import halo as thalo
     deck = tmp_path / "deck.inp"
     deck.write_text(DECKS["ductile"]())
-    for flags in (["--halo", "2"], ["--multihost", "auto"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            tcli.main([str(deck), "--device", "cpu", "--no-output",
-                       "--out-dir", str(tmp_path)] + flags)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        tcli.main([str(deck), "--device", "cpu", "--no-output",
+                   "--out-dir", str(tmp_path), "--multihost", "auto"])
+    m = lower(read_inp_file(str(deck)), SolverConfig(node_pad=16,
+                                                     renumber="always"),
+              device="cpu")
+    hm = thalo.partition(m, 2)
+    ckpt = str(tmp_path / "halo.npz")
+    thalo.save_halo_checkpoint(ckpt, hm, thalo.init_halo_state(hm))
+    with pytest.raises(SystemExit, match="pass the matching --halo N"):
+        tcli.main([str(deck), "--device", "cpu", "--no-output",
+                   "--out-dir", str(tmp_path), "--resume", ckpt])
 
 
 def test_devices_frames_match(tmp_path):
@@ -255,3 +266,76 @@ def test_profile_writes_chrome_trace(tmp_path, capsys):
     assert "time_num:10" in out and re.search(r"^timings: parse ", out, re.M)
     events = json.loads((tmp_path / "prof" / "trace.json").read_text())
     assert len(events["traceEvents"]) > 10
+
+
+def _trace_names(path):
+    import json
+    events = json.loads(path.read_text())["traceEvents"]
+    return {e.get("name", "") for e in events}
+
+
+def _rank_trace_ok(names):
+    """A rank's step ops (the element kernel's plain einsums, the
+    assembly's masked sums) and its collective (gloo's all-gather, or the
+    c10d record op) in one trace."""
+    coll = [n for n in names if "all_gather" in n.lower()
+            or "allgather" in n.lower() or n == "record_param_comms"]
+    return "aten::einsum" in names and "aten::sum" in names and coll
+
+
+def test_devices_profile_traces_rank0(tmp_path):
+    """``--devices 2 --profile DIR``: rank 0 traces its own loop, so the
+    trace holds its step ops and its all-gathers (the parent, which only
+    spawns and waits, traces nothing)."""
+    deck = tmp_path / "deck.inp"
+    deck.write_text(DECKS["ductile"]())
+    with redirect_stdout(StringIO()):
+        tcli.main([str(deck), "--device", "cpu", "--no-output", "--devices",
+                   "2", "--profile", str(tmp_path / "prof")])
+    assert _rank_trace_ok(_trace_names(tmp_path / "prof" / "trace.json"))
+
+
+def test_halo_frames_match(tmp_path, capfd):
+    """``--halo 2 --device cpu --dist-backend gloo --profile DIR`` on the
+    256-element ductile deck: the frames of the single-device run within
+    1e-6 of each field's largest magnitude (a halo Q sums the ghost rows in
+    another order; both runs f64), the same deletion lines, the final
+    shard-major checkpoints resumable with ``--halo 2``, and rank 0's
+    trace with its step ops and its collective.  The console is read at
+    the file descriptor: rank 0, a spawned process, prints the deletion
+    lines."""
+    deck = tmp_path / "deck.inp"
+    deck.write_text(DECKS["ductile"]())
+    outs, dirs = {}, {}
+    for name, extra in (("one", []), ("halo", [
+            "--halo", "2", "--dist-backend", "gloo", "--checkpoint-every",
+            "2", "--profile", str(tmp_path / "prof")])):
+        dirs[name] = tmp_path / name
+        tcli.main([str(deck), "--device", "cpu", "--out-dir",
+                   str(dirs[name]), "--precision", "f64", "--output-num",
+                   "4"] + extra)
+        outs[name] = console(capfd.readouterr().out)
+    assert outs["one"] == outs["halo"]
+    assert any(x.startswith("Element deleted:") for x in outs["halo"])
+    names = sorted(p.name for p in dirs["one"].glob("*.vtk"))
+    assert len(names) == 5
+    assert names == sorted(p.name for p in dirs["halo"].glob("*.vtk"))
+    for name in names:
+        ref = _sections((dirs["one"] / name).read_text())
+        got = _sections((dirs["halo"] / name).read_text())
+        assert [h for h, _ in got] == [h for h, _ in ref], name
+        for (head, a), (_, b) in zip(ref, got):
+            if head.startswith(("CELLS", "CELL_TYPES")):
+                assert a == b, (name, head)
+            elif a:
+                fa = np.array([x.split() for x in a], np.float64)
+                fb = np.array([x.split() for x in b], np.float64)
+                scale = max(np.abs(fa).max(), 1e-300)
+                assert np.abs(fa - fb).max() <= 1e-6 * scale, (name, head)
+    assert _rank_trace_ok(_trace_names(tmp_path / "prof" / "trace.json"))
+    final = tcli.main([str(deck), "--device", "cpu", "--no-output",
+                       "--out-dir", str(tmp_path / "resumed"), "--halo", "2",
+                       "--precision", "f64", "--resume",
+                       str(dirs["halo"] / "ckpt_002.npz")])
+    assert "resuming from halo checkpoint" in capfd.readouterr().out
+    assert int(final.t) == 800

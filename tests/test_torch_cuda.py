@@ -393,3 +393,48 @@ def test_mixed_fracture_run_chunk_card_matches_cpu(cuda, loop):
         err = _rel(getattr(g, name).cpu().double(),
                    getattr(c, name).double())
         assert err <= 10 * env, (name, err, env)
+
+
+@pytest.mark.parametrize("layout", ["strided", "tilemajor", "flat"])
+def test_stream_kernel_matches_plain(cuda, layout):
+    """TPU kernel #11's replacement, each layout bit for bit its plain
+    version (x + 1.0 in float32), one launch counted."""
+    from hakai_tpu_torch.ops.stream_cuda import (layout_shape, stream_add1,
+                                                 stream_add1_plain)
+    shape = layout_shape(layout, 8192, 2048)
+    x = torch.as_tensor(np.random.default_rng(11).normal(
+        scale=1e3, size=shape), dtype=torch.float32, device=cuda)
+    before = stream_add1.launches
+    got = stream_add1(x, layout, TE=2048)
+    torch.cuda.synchronize()
+    assert torch.equal(got, stream_add1_plain(x))
+    assert stream_add1.launches == before + 1
+
+
+@pytest.mark.parametrize("E,TE", [(5003, 2048), (4096, 1000), (6, 4)])
+def test_stream_kernel_ragged_strided(cuda, E, TE):
+    """The strided layout's ragged last tile and rows that are no multiple
+    of 4 floats (the scalar path) are written exactly, nothing past them."""
+    from hakai_tpu_torch.ops.stream_cuda import stream_add1
+    x = torch.arange(72 * E, dtype=torch.float32, device=cuda).view(72, E)
+    out = torch.full_like(x, -7.0)
+    stream_add1(x, "strided", out=out, TE=TE)
+    torch.cuda.synchronize()
+    assert torch.equal(out, x + 1.0)
+
+
+def test_stream_kernel_refuses_wrong_inputs(cuda):
+    """The wrapper raises on what the kernel does not take: another dtype,
+    a misaligned or non-contiguous array, an output of another shape."""
+    from hakai_tpu_torch.ops.stream_cuda import stream_add1
+    with pytest.raises(TypeError, match="float32"):
+        stream_add1(torch.zeros(72, 64, dtype=torch.float64, device=cuda),
+                    "strided", TE=32)
+    flat = torch.zeros(72 * 64 + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        stream_add1(flat[1:].view(72, 64), "strided", TE=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        stream_add1(torch.zeros(64, 72, device=cuda).t(), "strided", TE=32)
+    with pytest.raises(ValueError, match="shape"):
+        stream_add1(torch.zeros(72, 64, device=cuda), "strided",
+                    out=torch.zeros(72, 65, device=cuda), TE=32)

@@ -115,31 +115,37 @@ def test_mixed_ductile_lowering_matches_jax(shape):
 
 
 @pytest.mark.parametrize("case", ["halo", "fracture", "mixed"])
-def test_unported_features_raise(case):
-    """What the port does not run yet raises NotImplementedError naming its
-    ROADMAP item: the node-sharded halo decomposition of run() on a
-    contact deck, its checkpoint resume on a fracture deck, and the halo
-    path alongside element-sharded devices on a mixed deck (element-sharded
-    runs themselves run since they were ported: tests/test_torch_sharding.
-    py)."""
+def test_unported_features_raise(case, tmp_path, monkeypatch):
+    """The node-sharded halo decomposition refuses what the JAX package
+    refuses, before any rank starts: a padded node count that the shard
+    count does not divide (a contact deck), and a shard-major checkpoint of
+    another partition geometry (a fracture deck).  ``run(devices=2,
+    halo=2)`` takes the halo path, as in the JAX package (a mixed deck)."""
+    from hakai_tpu_torch.parallel import halo as thalo
     if case == "halo":
         m = lower(impact_model(n=2), SolverConfig(), device="cpu")
-
-        def go():
-            run(m, halo=2, device="cpu", write_output=False)
+        assert m.N % 7
+        with pytest.raises(ValueError, match="not divisible by 7"):
+            run(m, halo=7, device="cpu", write_output=False)
     elif case == "fracture":
         m = lower(bar_model(ductile=True), SolverConfig(), device="cpu")
-
-        def go():
-            run(m, resume_halo="ckpt.npz", device="cpu", write_output=False)
+        hm = thalo.partition(m, 2)
+        path = str(tmp_path / "ckpt.npz")
+        thalo.save_halo_checkpoint(path, hm, thalo.init_halo_state(hm))
+        with pytest.raises(ValueError, match="does not match the current "
+                                             "partition"):
+            run(m, halo=4, resume_halo=path, device="cpu",
+                write_output=False)
     else:
         m = lower(bar_model(d_time=5e-8),
                   SolverConfig(dtype="mixed", element_kernel="xla"),
                   device="cpu")
         run_chunk(m, init_state(m), 1)
+        calls = []
 
-        def go():
-            run(m, devices=2, halo=2, device="cpu", write_output=False)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 11"):
-        go()
+        def run_halo(*args):
+            calls.append(args)
+            return init_state(m), {}
+        monkeypatch.setattr(thalo, "run_halo", run_halo)
+        run(m, devices=2, halo=2, device="cpu", write_output=False)
+        assert len(calls) == 1 and calls[0][2] == 2

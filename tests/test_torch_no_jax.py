@@ -2,7 +2,8 @@
 interpreter imports every module of hakai_tpu_torch (``parallel``
 included), builds the ductile bar and the impact contact deck from the
 port's own pre.synthetic and runs run() on each on the CPU, the bar also
-on two element-sharded ranks; ``python -m hakai_tpu_torch deck.inp
+on two element-sharded ranks and on two halo ranks, the bandwidth probe
+at a small size; ``python -m hakai_tpu_torch deck.inp
 --device cpu`` runs a written deck; no module of jax or hakai_tpu is ever
 loaded, in the interpreter or in a spawned rank.
 And no source file of the port, nor chip_smoke.py or the deck writer
@@ -33,9 +34,14 @@ s = ht.run(m, verbose=False, device="cpu")
 assert int(s.t) == m.time_num == 10 and bool(torch.isfinite(s.disp).all())
 s2 = ht.run(m, verbose=False, write_output=False, devices=2, device="cpu")
 assert torch.equal(s2.disp, s.disp)
+s3 = ht.run(m, verbose=False, write_output=False, halo=2, device="cpu")
+assert int(s3.t) == 10
+assert (s3.disp - s.disp).abs().max() <= 1e-6 * s.disp.abs().max()
 from hakai_tpu_torch.parallel.dist import launch, rank_info
-info = launch(rank_info, 2, "cpu")
-assert info["world"] == 2 and "hakai_tpu_torch.parallel.dist" in info["modules"]
+info = launch(rank_info, 2, "cpu", None, [dict(halo=True, model=m, chunks=[3])])
+assert info["world"] == 2 and "hakai_tpu_torch.parallel.halo" in info["modules"]
+from hakai_tpu_torch.probes.dma import probe
+probe(E=256, TE=128, n1=1, n2=2, device="cpu", out=lambda *a: None)
 from hakai_tpu_torch.pre.synthetic import impact_model
 m = ht.lower(impact_model(n=2, v0=8.0e4, d_time=4e-8, end_time=1.01e-6),
              cfg, device="cpu")
