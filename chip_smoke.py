@@ -93,7 +93,21 @@ without its last line):
 21. dma (TPU kernel #11): the streaming kernel in its three layouts at
    (72, 1,048,576) float32, bitwise its plain version, through the port's
    bandwidth probe (slope-timed us/pass and GB/s, ``torch.add`` beside it,
-   the bound).
+   the bound);
+22. interleave (TPU kernel #12): the interleave kernel in its four modes
+   at the TPU probe's 512 tiles x 60 builds from a (64, 8, 128) window,
+   through the port's interleave probe (slope-timed us/pass and ns/build,
+   each chain bitwise its plain version's), then each mode bitwise its
+   plain version on a random window and timed alone beside the bound;
+23. multihost (seventh slice): [cli]'s written deck through two CLI
+   processes on loopback (``--multihost 127.0.0.1:P,2,K --halo 2``, one
+   gloo rank each, sharing the card), each writing to a directory of its
+   own: process 1 writes only its checkpoint shard files; process 0's
+   frame 0 is byte-identical to [cli]'s and frames 1-2 within
+   HALO_FRAME_REL, CELLS equal the alive counts, the manifest and both
+   processes' files carry rows [0] and [1]; then two new processes resume
+   from the first checkpoint, and their frame 2 is byte-identical to the
+   first run's.
 
 The line before the last is nvidia-smi's name and power limit; the one
 before that the per-kernel JSON record; the last line is
@@ -248,6 +262,12 @@ HALO_RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "build", "smoke_halo_run")
 # [dma]: TPU kernel #11 at benchmarks/dma_microbench.py's defaults
 DMA_E, DMA_TE, DMA_N1, DMA_N2 = 1048576, 2048, 20, 120
+# [interleave]: TPU kernel #12 at benchmarks/interleave_microbench.py's
+# defaults (N_TILES, BUILDS; its window is 64 slabs) and chains
+IL_TILES, IL_BUILDS, IL_N1, IL_N2 = 512, 60, 20, 120
+# [multihost]: [cli]'s deck through two CLI processes of one rank each
+MH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      "smoke_multihost")
 # H100 SXM peaks (NVIDIA data sheet, dense, no tensor cores): HBM
 # 3.35 TB/s; 67 TFLOP/s float32, 34 TFLOP/s float64.
 HBM_BPS = 3.35e12
@@ -604,12 +624,13 @@ def _wrappers() -> dict:
     from hakai_tpu_torch.ops.element_cuda import (element_core_packed,
                                                   element_update)
     from hakai_tpu_torch.ops.gather_cuda import gather_cols
+    from hakai_tpu_torch.ops.interleave_cuda import interleave
     from hakai_tpu_torch.ops.stream_cuda import stream_add1
     return {"element": element_core_packed, "update": element_update,
             "assemble": assemble_internal_force, "grouped": blocked_assemble,
             "gather": gather_cols,
             "narrow": narrow_phase, "scatter": scatter_forces,
-            "stream": stream_add1}
+            "stream": stream_add1, "interleave": interleave}
 
 
 def reset_counts():
@@ -1966,6 +1987,152 @@ def dma_phase(smi_line):
     return recs["strided"], launches["stream"]
 
 
+def interleave_phase(smi_line):
+    """[interleave]: TPU kernel #12's replacement through the port's
+    interleave probe (the probe's passes are the launches counted), then
+    each mode bitwise against its plain version on a random window and
+    timed alone (cold L2) beside the bound.  Returns {mode: record}."""
+    import torch
+    from hakai_tpu_torch.ops.interleave_cuda import (MODES, interleave,
+                                                     interleave_plain)
+    from hakai_tpu_torch.probes.interleave import W, bound_s, probe
+    reset_counts()
+    slopes = probe(IL_TILES, IL_BUILDS, IL_N1, IL_N2, "cuda",
+                   out=lambda line: log(f"[interleave] {line}"))
+    counts = read_counts()
+    # per mode: a warm chain of n2, the timed n1 and n2, the checked n2
+    want = 3 * IL_N2 + IL_N1
+    launches = {m: counts.get(f"interleave[{m}]", 0) for m in MODES}
+    if any(v != want for v in launches.values()):
+        raise AssertionError(f"[interleave] launches {launches} != {want}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    recs = {}
+    for mode in MODES:
+        src = torch.randn((W, 8, 128), generator=gen, device="cuda") * 100.0
+        out = torch.empty((IL_TILES * 8, 128), device="cuda")
+        k = interleave(src, mode, IL_TILES, IL_BUILDS, out=out)
+        p = interleave_plain(src, mode, IL_TILES, IL_BUILDS)
+        torch.cuda.synchronize()
+        if not torch.equal(k, p):
+            raise AssertionError(f"[interleave] {mode} differs from plain")
+        b_s, by = bound_s(mode, IL_TILES, IL_BUILDS)
+        rec = {"max_abs_err": (k - p).abs().max().item(),
+               "ms": time_ms(lambda: interleave(src, mode, IL_TILES,
+                                                IL_BUILDS, out=out)),
+               "plain_ms": time_ms(lambda: interleave_plain(
+                   src, mode, IL_TILES, IL_BUILDS)),
+               "library_ms": None, "bound_ms": b_s * 1e3, "bound_by": by,
+               "launches": launches[mode]}
+        recs[mode] = rec
+        log(f"[interleave] {mode}: bitwise its plain version; kernel "
+            f"{rec['ms']:.4f} ms (cold L2, events), probe slope "
+            f"{slopes[mode] * 1e6:.3f} us/pass = "
+            f"{slopes[mode] / (IL_TILES * IL_BUILDS) * 1e9:.4f} ns/build; "
+            f"plain {rec['plain_ms']:.4f} ms; bound {rec['bound_ms']:.5f} ms"
+            f" ({by}); no single PyTorch call computes a build [{smi_line}]")
+    return recs
+
+
+def _cli_pair(tag, deck, extra):
+    """The CLI on ``deck`` as the two processes of a multi-host run
+    (``--multihost 127.0.0.1:P,2,K``, ``--halo 2`` over gloo), each with
+    its own output directory MH_DIR/<tag>K and metrics file, plus
+    ``extra(K)``; returns the processes' standard outputs."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "hakai_tpu_torch", deck, "--precision",
+         "mixed", "--halo", "2", "--dist-backend", "gloo", "--multihost",
+         f"127.0.0.1:{port},2,{k}", "--output-num", str(CLI_FRAMES),
+         "--out-dir", os.path.join(MH_DIR, f"{tag}{k}"), "--metrics",
+         os.path.join(MH_DIR, f"{tag}{k}.jsonl"), "--timings"] + extra(k),
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=900))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for k, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"[multihost] {tag} process {k} exited "
+                                 f"{p.returncode}:\n{err[-3000:]}")
+    return [o for o, _ in outs]
+
+
+def multihost_phase(smi_line):
+    """[multihost]: run A, [cli]'s deck in two CLI processes with a
+    checkpoint at each frame; run B, two new processes resumed from run A's
+    first checkpoint.  Returns run A's us/step."""
+    import numpy as np
+    shutil.rmtree(MH_DIR, ignore_errors=True)
+    os.makedirs(MH_DIR)
+    deck = os.path.join(CLI_DIR, "bar.inp")
+    t0 = time.perf_counter()
+    outs = _cli_pair("a", deck, lambda k: ["--checkpoint-every", "1"])
+    wall_a = time.perf_counter() - t0
+    a0, a1 = (os.path.join(MH_DIR, f"a{k}") for k in (0, 1))
+    left = sorted(os.listdir(a1)) if os.path.isdir(a1) else []
+    if left != ["ckpt_001.npz.p1.npz", "ckpt_002.npz.p1.npz"] or \
+            os.path.exists(os.path.join(MH_DIR, "a1.jsonl")):
+        raise AssertionError(f"[multihost] process 1 wrote {left}")
+    if any(f"time_num:{CLI_STEPS}" not in o for o in outs):
+        raise AssertionError("[multihost] a process lacks the deck's lines")
+    names = [f"file{i:03d}.vtk" for i in range(CLI_FRAMES + 1)]
+    with open(os.path.join(a0, names[0]), "rb") as fa, \
+            open(os.path.join(CLI_DIR, "bar", names[0]), "rb") as fb:
+        same0 = fa.read() == fb.read()
+    devs = [vtk_close(os.path.join(CLI_DIR, "bar", n), os.path.join(a0, n),
+                      HALO_FRAME_REL) for n in names[1:]]
+    with open(os.path.join(MH_DIR, "a0.jsonl")) as f:
+        alive = [int(json.loads(x)["alive_elements"]) for x in f]
+    final = np.load(os.path.join(a0, "final.ckpt.npz"))
+    cells = [vtk_cells(os.path.join(a0, n)) for n in names]
+    rows = []
+    for i in (1, 2):
+        name = f"ckpt_{i:03d}.npz"
+        with np.load(os.path.join(a0, name)) as man:
+            rows.append([int(x) for x in man["halo_manifest"]])
+        for k, d in ((0, a0), (1, a1)):
+            with np.load(os.path.join(d, f"{name}.p{k}.npz")) as f:
+                rows.append([int(x) for x in f["halo_rows"]])
+    timing = next(x for x in outs[0].splitlines()
+                  if x.startswith("timings:"))
+    steps_s = float(timing.split("steps ")[1].split(" s")[0])
+    us = steps_s / CLI_STEPS * 1e6
+    shutil.copy(os.path.join(a0, "ckpt_001.npz"), a1)   # the other host's
+    t0 = time.perf_counter()
+    _cli_pair("b", deck, lambda k: ["--resume", os.path.join(
+        MH_DIR, f"a{k}", "ckpt_001.npz")])
+    wall_b = time.perf_counter() - t0
+    with open(os.path.join(MH_DIR, "b0", names[-1]), "rb") as fa, \
+            open(os.path.join(a0, names[-1]), "rb") as fb:
+        same_b = fa.read() == fb.read()
+    log(f"[multihost] [cli]'s deck ({CLI_STEPS} steps, mixed) as 2 CLI "
+        f"processes x 1 gloo rank (--halo 2 --multihost 127.0.0.1:P,2,K), "
+        f"both ranks on cuda:0 of one card: {timing} (process 0); "
+        f"{us:.2f} us/step; run A {wall_a:.2f} s in all; process 1 wrote "
+        f"only {left}; frame 0 byte-identical to [cli]'s: {same0}; frames "
+        f"1-{CLI_FRAMES} within {max(d for d, _ in devs):.3e} of their "
+        f"scale ({[round(s, 4) for _, s in devs]} of their lines "
+        f"byte-identical); CELLS {cells}, alive {alive}, final "
+        f"{int(final['element_flag'].sum())}; manifest and rows per "
+        f"checkpoint {rows}; run B (resumed from ckpt_001 in two new "
+        f"processes, {wall_b:.2f} s): frame {CLI_FRAMES} byte-identical to "
+        f"run A's: {same_b} [{smi_line}]")
+    if (not same0 or not same_b or cells[1:] != alive
+            or cells[-1] != int(final["element_flag"].sum())
+            or rows != [[2], [0], [1]] * 2):
+        raise AssertionError("[multihost] differs")
+    return us
+
+
 def sharded_run(cut, job, start, smi_line):
     """run(devices=SHARD_RANKS) of [run]'s deck cut to SHARD_RUN_STEPS
     steps: its frames byte-identical to [run]'s at steps 0 and 2,000, its
@@ -2181,6 +2348,8 @@ def main() -> int:
     lap("[kernels] and [grouped-asm] kernels")
     dma_rec, dma_launches = dma_phase(smi_line)
     lap("[dma]")
+    il_recs = interleave_phase(smi_line)
+    lap("[interleave]")
 
     trajectory()
     lap("[trajectory]")
@@ -2264,6 +2433,8 @@ def main() -> int:
     lap("[nccl]")
     halo_run(cut, smi_line)
     lap("[halo-run]")
+    multihost_phase(smi_line)
+    lap("[multihost]")
 
     if any(k.split(".")[0] in ("jax", "jaxlib", "hakai_tpu")
            for k in sys.modules):
@@ -2336,7 +2507,10 @@ def main() -> int:
                    "benchmarks/dma_microbench.py:35 (copy_kernel; "
                    "pallas_call :42)", "stream", dma_rec),
              launches=dma_launches),
-    ]
+    ] + [dict(entry(f"interleave[{mode}]", "hakai_tpu_torch/csrc/interleave.cu",
+                    "benchmarks/interleave_microbench.py:33 (kernel; "
+                    "pallas_call :62)", "interleave", r),
+              launches=r["launches"]) for mode, r in il_recs.items()]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

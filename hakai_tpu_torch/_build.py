@@ -76,6 +76,8 @@ _SIGNATURES = {
     "hk_blocked_assemble_f32_f64": (_P, _I, _P, _P, _I, _I, _I, _P, _P),
     # x, o, rows, E, TE, layout, stream
     "hk_stream_add1_f32": (_P, _P, _I, _I, _I, _I, _P),
+    # src, W, builds, n_tiles, mode, off (8 ints, host), out, stream
+    "hk_interleave_f32": (_P, _I, _I, _I, _I, _P, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -12,13 +12,65 @@ node-sharded halo decomposition on n ranks over ``torch.distributed``,
 with ``--dist-backend`` (the port's counterpart of JAX's choice of
 collectives backend) choosing NCCL or gloo; ``--resume`` of a shard-major
 halo checkpoint needs the matching ``--halo``.  ``--profile`` traces the
-run's loop, on ranks rank 0's.  ``--multihost`` is kept and raises
-NotImplementedError until multi-host runs are ported.
+run's loop, on ranks rank 0's.
+
+``--multihost ADDR:PORT,NPROC,PID`` (or ``auto`` in a SLURM job) makes
+this process one of NPROC that run the same command: ``--devices n`` and
+``--halo n`` then count ranks over every process, n / NPROC in each
+(``parallel.dist.initialize``).  Every process prints the deck's lines
+and returns the final state; process 0 alone writes frames, metrics,
+``collection.pvd`` and ``final.ckpt.npz``, while a halo run's checkpoints
+are one file a process plus process 0's manifest.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
+
+# what --multihost auto reads, as jax.distributed.initialize() reads a
+# SLURM job (jax/_src/clusters/slurm_cluster.py: SlurmCluster)
+SLURM_VARS = ("SLURM_JOB_ID", "SLURM_STEP_NODELIST", "SLURM_NTASKS",
+              "SLURM_PROCID", "SLURM_LOCALID")
+
+
+def slurm_spec(env=None) -> tuple[str, int, int]:
+    """(coordinator address, process count, process id) of a SLURM job
+    step: the first node of ``SLURM_STEP_NODELIST`` at a port in
+    [61440, 65535] from the job id, ``SLURM_NTASKS`` and
+    ``SLURM_PROCID``.  Stops, naming the variables, outside such a job."""
+    env = os.environ if env is None else env
+    missing = [v for v in SLURM_VARS if v not in env]
+    if missing:
+        raise SystemExit(
+            "--multihost auto reads a SLURM job step's environment ("
+            f"{', '.join(SLURM_VARS)}); not set: {', '.join(missing)}.  "
+            "Outside SLURM pass --multihost ADDR:PORT,NPROC,PID")
+    port = int(env["SLURM_JOB_ID"]) % 2**12 + (65535 - 2**12 + 1)
+    # 'node001', 'node001,host2', 'node[001-015],host2', 'node[001,007]'
+    nodes = env["SLURM_STEP_NODELIST"]
+    cut = next((i for i, ch in enumerate(nodes) if ch in ",["), len(nodes))
+    if cut == len(nodes) or nodes[cut] == ",":
+        host = nodes[:cut]
+    else:
+        rest = nodes[cut + 1:]
+        end = next((i for i, ch in enumerate(rest) if ch in ",-"), None)
+        host = nodes[:cut] + rest[:end]
+    return (f"{host}:{port}", int(env["SLURM_NTASKS"]),
+            int(env["SLURM_PROCID"]))
+
+
+def multihost_spec(spec: str) -> tuple[str, int, int]:
+    """``ADDR:PORT,NPROC,PID`` (split as the JAX CLI splits it) or
+    ``auto`` -> (coordinator address, process count, process id)."""
+    if spec == "auto":
+        return slurm_spec()
+    try:
+        addr, nproc, pid = spec.rsplit(",", 2)
+        return addr, int(nproc), int(pid)
+    except ValueError:
+        raise SystemExit(f"--multihost {spec!r}: expected "
+                         "ADDR:PORT,NPROC,PID or auto") from None
 
 
 def _resolve_energy_flags(energy_check: bool, energy_abort: float | None):
@@ -91,7 +143,11 @@ def _parser() -> argparse.ArgumentParser:
                          "this many ranks, one process each (wins over "
                          "--devices; shard-major checkpoints)")
     ap.add_argument("--multihost", default=None, metavar="SPEC",
-                    help="multi-host run (not ported yet: raises)")
+                    help="run as one of several processes (on one host or "
+                         "several): ADDR:PORT,NPROC,PID, process 0 hosting "
+                         "the rendezvous at ADDR:PORT, or auto in a SLURM "
+                         "job; --devices/--halo n then spread n ranks over "
+                         "the processes")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="capture a torch.profiler trace of the run's loop "
                          "(on --devices/--halo ranks, rank 0's) into "
@@ -123,9 +179,15 @@ def main(argv=None):
     args.energy_check, args.energy_abort = _resolve_energy_flags(
         args.energy_check, args.energy_abort)
     if args.multihost:
-        raise NotImplementedError(
-            "multi-host runs (--multihost) are not ported yet (ROADMAP "
-            "Queue 1 item 2)")
+        # before anything else, as the JAX CLI initializes first
+        addr, nproc, pid = multihost_spec(args.multihost)
+        flag, n = (("--halo", args.halo) if (args.halo or 1) > 1
+                   else ("--devices", args.devices))
+        if (n or 1) > 1 and n % nproc:
+            raise SystemExit(f"{flag} {n} does not divide over the {nproc} "
+                             "processes of --multihost")
+        from .parallel.dist import initialize
+        initialize(addr, nproc, pid)
 
     elem_pad = args.elem_pad
     if args.element_kernel in ("pallas", "pallas_mxu"):
@@ -159,6 +221,7 @@ def main(argv=None):
     from .core.state import init_state
     from .io.inp import read_inp_file
     from .solver.explicit import run
+    from .parallel.dist import process_index
     from .parallel.halo import is_halo_checkpoint
     from .utils.checkpoint import load_checkpoint, save_checkpoint
 
@@ -205,7 +268,7 @@ def main(argv=None):
                 resume_halo=resume_halo, device=args.device,
                 timings=timings, dist_backend=args.dist_backend,
                 profile=args.profile)
-    if args.checkpoint_every:
+    if args.checkpoint_every and process_index() == 0:
         save_checkpoint(f"{args.out_dir}/final.ckpt.npz", state)
     if args.timings:
         print(f"timings: parse {t_parse:.3f} s, lower {t_lower:.3f} s, "

@@ -31,10 +31,18 @@ them), or one rank's row (:meth:`HaloModel.shard`).
 A halo Q is not kernel B's single-device sum: the ghost rows' parts add
 after the owned part.  Halo runs agree with one device to roundoff, as the
 JAX package's do (tests/test_halo.py's tolerances), not bit for bit.
+
+A run of several processes (``parallel.dist.initialize``) partitions the
+deck in every process, checks at the launch that all built the same
+partition, and gives each process's ranks the rows of that process; its
+checkpoints are one file a process plus a manifest, each process writing
+and reading only its own rows (the JAX package's multi-process format).
+Its steps are the one-process run's, bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -47,7 +55,8 @@ from ..ops.contact import contact_forces_pv
 from ..ops.element_cuda import element_update, packed_element_step
 from ..ops.erosion import erode
 from ..solver.output import NodeData
-from .dist import Rank, launch
+from .dist import (Rank, check_same, launch, local_ranks, process_count,
+                   process_index)
 from .sharding import ShardComm
 
 # the partition's tile (the JAX package's gather-plan tile, _PLAN_TILE)
@@ -147,7 +156,9 @@ class HaloState:
         return HaloState(**{f.name: getattr(self, f.name).to(device)
                             for f in dataclasses.fields(self)})
 
-    def shard(self, d: int) -> "HaloState":
+    def shard(self, d) -> "HaloState":
+        """Row ``d`` of every shard-major field (a slice of rows for a
+        slice ``d``); ``t`` whole."""
         return HaloState(t=self.t, **{f.name: getattr(self, f.name)[d]
                                       for f in dataclasses.fields(self)
                                       if f.name != "t"})
@@ -433,6 +444,7 @@ class HaloComm(ShardComm):
         self.whole = hm                          # shard-major, on the host
         self.hm = hm.shard(ctx.rank).to(ctx.device)
         super().__init__(self.hm.base, ctx)
+        self.ctx = ctx
         self.rank = ctx.rank
         h = self.hm
         self.own = dataclasses.replace(
@@ -514,12 +526,18 @@ class HaloComm(ShardComm):
         self.cforce = cf[:, self.rank * No:(self.rank + 1) * No]
         return self.cforce
 
-    def stack(self, s: HaloState) -> HaloState:
-        """Every rank's row of ``s``, shard-major (a collective)."""
+    def stack(self, s: HaloState, local: bool = False) -> HaloState:
+        """Every rank's row of ``s``, shard-major (a collective); with
+        ``local``, the rows of this process's ranks only (a collective of
+        its ranks), so that no host holds another process's rows."""
+        group, n = ((self.ctx.local_group, local_ranks(self.world))
+                    if local and process_count() > 1
+                    else (self.group, self.world))
+
         def lead(x):
-            g = self.all_gather(x)
-            return g.view(x.shape[:-1] + (self.world, x.shape[-1])) \
-                .movedim(-2, 0)
+            parts = [torch.empty_like(x) for _ in range(n)]
+            torch.distributed.all_gather(parts, x.contiguous(), group=group)
+            return torch.stack(parts)
         return HaloState(
             t=s.t, element_flag=lead(s.element_flag.view(torch.uint8))
             .view(torch.bool),
@@ -532,10 +550,11 @@ class HaloComm(ShardComm):
         return x
 
     def initial(self, hs: HaloState | None) -> HaloState:
-        """The rank's row of ``hs`` on its device, or its initial state."""
+        """The rank's row of ``hs`` (this process's rows of a shard-major
+        state) on its device, or its initial state."""
         if hs is None:
             return init_halo_state(self.hm)
-        return hs.shard(self.rank).to(self.hm.diag_M.device)
+        return hs.shard(self.ctx.local_rank).to(self.hm.diag_M.device)
 
 
 def _halo_step(comm: HaloComm, s: HaloState) -> HaloState:
@@ -644,18 +663,47 @@ def make_halo_frame(comm: HaloComm):
 
 
 # ---------------------------------------------------------------------------
-# shard-major checkpoints: one .npz of (S, ...) leaves plus halo_format
-# [S, No, El], the JAX package's single-process file format, so files pass
-# between the packages.  The per-process manifest files of multi-host runs
-# are not ported (ROADMAP Queue 1 item 2).
+# shard-major checkpoints, in the JAX package's formats, so files pass
+# between the packages.  One process: one .npz of (S, ...) leaves plus
+# halo_format [S, No, El].  Several processes: each process's local rank 0
+# writes {path}.p{K}.npz of its own rows (halo_rows, halo_procs [K, P]
+# beside them) and process 0 the manifest at path (halo_format,
+# halo_manifest [P]), so no host ever holds the global element state.
 # ---------------------------------------------------------------------------
 
-def save_halo_checkpoint(path: str, hm: HaloModel, s: HaloState) -> str:
-    """Write shard-major ``s`` (on any device) to ``path``."""
+def process_rows(n_shards: int) -> list[int]:
+    """The shard rows of this process's ranks (JAX's ``_local_shard_rows``
+    over ``make_mesh``'s process-major device order)."""
+    local = local_ranks(n_shards)
+    return list(range(process_index() * local, (process_index() + 1) * local))
+
+
+def proc_shard_path(path: str, pid: int) -> str:
+    return f"{path}.p{pid}.npz"
+
+
+def save_halo_checkpoint(path: str, hm: HaloModel, s: HaloState,
+                         rows: list[int] | None = None,
+                         procs: tuple[int, int] | None = None) -> str:
+    """Write shard-major ``s`` (on any device) to ``path``; with ``rows``
+    (the global rows ``s`` holds) and ``procs`` (this process's index, the
+    process count), this process's file ``{path}.p{K}.npz`` instead, and
+    from process 0 the manifest at ``path``."""
+    fmt = np.array([hm.n_shards, hm.No, hm.El], np.int64)
     leaves = {f.name: getattr(s, f.name).detach().cpu().numpy()
               for f in dataclasses.fields(s)}
-    leaves["halo_format"] = np.array([hm.n_shards, hm.No, hm.El], np.int64)
-    np.savez_compressed(path, **leaves)
+    leaves["halo_format"] = fmt
+    if rows is None:
+        np.savez_compressed(path, **leaves)
+        return path
+    pid, nproc = procs
+    leaves["halo_rows"] = np.asarray(rows, np.int64)
+    leaves["halo_procs"] = np.array([pid, nproc], np.int64)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(proc_shard_path(path, pid), **leaves)
+    if pid == 0:
+        np.savez(path, halo_format=fmt,
+                 halo_manifest=np.array([nproc], np.int64))
     return path
 
 
@@ -664,36 +712,63 @@ def is_halo_checkpoint(path: str) -> bool:
         return "halo_format" in data
 
 
-def load_halo_checkpoint(path: str, hm: HaloModel) -> HaloState:
-    """The shard-major state in ``path``, on the CPU; its partition
-    geometry (shards, owned rows, element slots) must be ``hm``'s."""
-    data = np.load(path)
-    if "halo_manifest" in data:
-        raise ValueError(
-            f"{path} is the manifest of a multi-process halo checkpoint: "
-            "multi-host runs are not ported yet (ROADMAP Queue 1 item 2)")
+def _check_format(data, hm: HaloModel, hint: str) -> None:
     S, No, El = (int(x) for x in data["halo_format"])
     if (S, No, El) != (hm.n_shards, hm.No, hm.El):
         raise ValueError(
             f"halo checkpoint partition (S={S}, No={No}, El={El}) does not "
             f"match the current partition (S={hm.n_shards}, No={hm.No}, "
-            f"El={hm.El}); re-partition with the same device count and "
-            "padding, or resume through a single-chip checkpoint")
+            f"El={hm.El}){hint}")
+
+
+def _leaves(data, hm: HaloModel, n_rows: int) -> HaloState:
+    """The HaloState of ``n_rows`` shard rows in ``data``, in the
+    partition's dtypes, on the CPU."""
     like = init_halo_state(hm.to("cpu") if hm.diag_M.device.type != "cpu"
                            else hm)
     kw = {}
     for f in dataclasses.fields(like):
         ref = getattr(like, f.name)
+        shape = tuple(ref.shape) if f.name == "t" else \
+            (n_rows,) + tuple(ref.shape[1:])
         if f.name == "work" and f.name not in data:
-            kw[f.name] = torch.zeros_like(ref)
+            kw[f.name] = torch.zeros(shape, dtype=ref.dtype)
             continue
         arr = data[f.name]
-        if arr.shape != tuple(ref.shape):
+        if arr.shape != shape:
             raise ValueError(f"halo checkpoint field {f.name} has shape "
-                             f"{arr.shape}, partition expects "
-                             f"{tuple(ref.shape)}")
+                             f"{arr.shape}, partition expects {shape}")
         kw[f.name] = torch.as_tensor(arr).to(ref.dtype)
     return HaloState(**kw)
+
+
+def load_halo_checkpoint(path: str, hm: HaloModel) -> HaloState:
+    """The shard-major state in ``path``, on the CPU; its partition
+    geometry (shards, owned rows, element slots) must be ``hm``'s.  A
+    manifest (several processes) must name this run's process count: this
+    process then reads only its own file and gets its own rows, which must
+    be the rows it saved."""
+    data = np.load(path)
+    if "halo_manifest" in data:
+        nproc = int(data["halo_manifest"][0])
+        if nproc != process_count():
+            raise ValueError(
+                f"halo checkpoint was written by {nproc} processes; this "
+                f"run has {process_count()} — resume on the same process "
+                "layout")
+        data = np.load(proc_shard_path(path, process_index()))
+        _check_format(data, hm, "")
+        saved, now = [int(r) for r in data["halo_rows"]], \
+            process_rows(hm.n_shards)
+        if saved != now:
+            raise ValueError(
+                f"process {process_index()} owned shard rows {saved} at "
+                f"save time but owns {now} now — resume on the same "
+                "mesh/process layout")
+        return _leaves(data, hm, len(now))
+    _check_format(data, hm, "; re-partition with the same device count and "
+                  "padding, or resume through a single-chip checkpoint")
+    return _leaves(data, hm, hm.n_shards)
 
 
 class HaloView:
@@ -730,9 +805,16 @@ class HaloView:
         return out if self.root else None
 
     def save(self, path: str):
-        whole = self.comm.stack(self.s)
-        if self.root:
-            save_halo_checkpoint(path, self.comm.whole, whole)
+        """One file from the root rank; with several processes, one file a
+        process from its local rank 0, of its own ranks' rows."""
+        ctx, nproc = self.comm.ctx, process_count()
+        rows = self.comm.stack(self.s, local=True)
+        if nproc == 1 and self.root:
+            save_halo_checkpoint(path, self.comm.whole, rows)
+        elif nproc > 1 and ctx.local_rank == 0:
+            save_halo_checkpoint(path, self.comm.whole, rows,
+                                 process_rows(self.comm.world),
+                                 (ctx.process, nproc))
 
     def final(self) -> SimState:
         return gather_state(self.comm.whole, self.s, self.comm)
@@ -740,12 +822,14 @@ class HaloView:
 
 def halo_rank(ctx: Rank, hm: HaloModel, hs: HaloState | None,
               verbose: bool, write_output: bool, profile: str | None = None):
-    """One rank of ``run(halo=n)``: the host loop on the rank's shard, its
-    checkpoints shard-major; rank 0 writes and, with ``profile``, traces
-    its loop; rank 0 returns (the whole final state on the CPU, its
-    timings)."""
+    """One rank of ``run(halo=n)``: the host loop on the rank's shard from
+    ``hs`` (this process's rows) or the initial state, its checkpoints
+    shard-major; rank 0 writes frames, metrics and console lines and, with
+    ``profile``, traces its loop; each process's local rank 0 returns (the
+    whole final state on the CPU, its timings)."""
     from ..solver.explicit import run_loop
     from ..utils.profiling import trace
+    check_same(ctx, "partition", hm)
     comm = HaloComm(hm, ctx)
     s = comm.initial(hs)
     clock = {}
@@ -754,23 +838,28 @@ def halo_rank(ctx: Rank, hm: HaloModel, hs: HaloState | None,
                          lambda x, n: halo_run_chunk(comm, x, n),
                          HaloView(comm, ctx.rank == 0), verbose,
                          write_output, clock)
-    return (final.to("cpu"), clock) if ctx.rank == 0 else None
+    return (final.to("cpu"), clock) if ctx.local_rank == 0 else None
 
 
 def run_halo(model: LoweredModel, state: SimState | None, halo: int,
              device="cuda", backend: str | None = None, verbose: bool = True,
              write_output: bool = True, resume_halo: str | None = None,
              profile: str | None = None):
-    """``run()`` on ``halo`` node-sharded ranks: partitioned once, here;
+    """``run()`` on ``halo`` node-sharded ranks, spread over the run's
+    processes (``parallel.dist``): partitioned here, in every process;
     resumed from a shard-major checkpoint (``resume_halo``) or from a whole
-    state with t > 0.  Returns (the final state on the CPU, rank 0's
+    state with t > 0, each process handing its ranks only its own rows.
+    Returns (the final state on the CPU, this process's local rank 0's
     timings)."""
     hm = partition(model.to("cpu"), halo)
+    rows = process_rows(halo)
     hs = None
     if resume_halo is not None:
         hs = load_halo_checkpoint(resume_halo, hm)
     elif state is not None and int(state.t) > 0:
         hs = partition_state(hm, state)
+    if hs is not None and hs.disp.shape[0] == halo:
+        hs = hs.shard(slice(rows[0], rows[-1] + 1))
     return launch(halo_rank, halo, device, backend, hm, hs, verbose,
                   write_output, profile)
 

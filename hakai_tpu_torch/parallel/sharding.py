@@ -33,7 +33,7 @@ import torch.distributed as dist
 from ..core.lowering import LoweredModel
 from ..core.state import SimState, init_state
 from ..ops.assemble_cuda import assemble_internal_force
-from .dist import Rank, launch
+from .dist import Rank, check_same, launch
 
 # element-axis (last-dim sharded) fields of LoweredModel; vol_e too, which
 # JAX keeps whole, so that the local view is one consistent model
@@ -153,10 +153,12 @@ def _rank_setup(ctx: Rank, model: LoweredModel, state: SimState | None):
 def run_rank(ctx: Rank, model: LoweredModel, state: SimState | None,
              verbose: bool, write_output: bool, profile: str | None = None):
     """One rank of ``run(devices=n)``: the host loop on the rank's shard;
-    with ``profile``, rank 0 traces its loop; rank 0 returns (the whole
-    final state on the CPU, its timings)."""
+    rank 0 writes and, with ``profile``, traces its loop; each process's
+    local rank 0 returns (the whole final state on the CPU, its
+    timings)."""
     from ..solver.explicit import LoopView, run_loop
     from ..utils.profiling import trace
+    check_same(ctx, "model", model)
     model, comm, lm, ls = _rank_setup(ctx, model, state)
     clock = {}
     with trace(profile if ctx.rank == 0 else None):
@@ -165,15 +167,16 @@ def run_rank(ctx: Rank, model: LoweredModel, state: SimState | None,
                          LoopView(model, lambda s: gather_state(comm, s),
                                   ctx.rank == 0),
                          verbose, write_output, clock)
-    return (final.to("cpu"), clock) if ctx.rank == 0 else None
+    return (final.to("cpu"), clock) if ctx.local_rank == 0 else None
 
 
 def run_sharded(model: LoweredModel, state: SimState | None, devices: int,
                 device="cuda", backend: str | None = None,
                 verbose: bool = True, write_output: bool = True,
                 profile: str | None = None):
-    """``run()`` on ``devices`` element-sharded ranks; returns (the final
-    state on the CPU, rank 0's timings)."""
+    """``run()`` on ``devices`` element-sharded ranks, spread over the
+    run's processes (``parallel.dist``); returns (the final state on the
+    CPU, this process's local rank 0's timings)."""
     _shard(model.E, 0, devices)
     return launch(run_rank, devices, device, backend, model.to("cpu"),
                   None if state is None else state.to("cpu"), verbose,

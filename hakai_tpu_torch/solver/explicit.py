@@ -288,8 +288,13 @@ def run(model: LoweredModel, state: SimState | None = None,
     shard-major, and ``resume_halo`` names one to resume from).  Backend
     ``dist_backend``, default NCCL on CUDA and gloo on the CPU; with one
     device it is unused, as no collective runs.  On ranks, rank 0 writes
-    the frames, checkpoints, metrics and console lines, and the whole final
-    state is returned, on ``device``.  With ``profile``, a torch.profiler
+    the frames, metrics and console lines, and checkpoints (a halo run
+    with several processes writes one file a process), and the whole final
+    state is returned, on ``device``.  After
+    :func:`hakai_tpu_torch.parallel.dist.initialize` every process of the
+    run calls ``run()`` alike: the ranks spread over the processes, every
+    process gets the final state, and only process 0 writes (as the JAX
+    package's ``proc0`` gate).  With ``profile``, a torch.profiler
     trace of the run's loop (on ranks, rank 0's) goes to
     ``<profile>/trace.json``.  With a ``timings`` dict, fills in the host
     seconds spent in step chunks (each ends in a device sync) and in frame
@@ -307,12 +312,14 @@ def run(model: LoweredModel, state: SimState | None = None,
                                    dist_backend, verbose, write_output,
                                    profile)
     else:
+        from ..parallel.dist import process_index
         with trace(profile):
             model = model.to(device)
             state = init_state(model) if state is None else state.to(device)
             return run_loop(model, state, lambda s, n: run_chunk(model, s, n),
-                            LoopView(model, lambda s: s, True), verbose,
-                            write_output, timings)
+                            LoopView(model, lambda s: s,
+                                     process_index() == 0),
+                            verbose, write_output, timings)
     if timings is not None:
         timings.update(clock)
     return state.to(device)

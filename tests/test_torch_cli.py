@@ -208,17 +208,38 @@ def test_pallas_f64_refused_by_both(tmp_path, capsys):
 
 
 def test_devices_not_ported(tmp_path):
-    """``--multihost`` raises NotImplementedError naming its ROADMAP item
-    (multi-host runs are not ported; ``--devices`` and ``--halo`` run:
-    test_devices_frames_match, test_halo_frames_match), and ``--resume``
-    of a shard-major halo checkpoint without ``--halo`` stops, as the JAX
-    CLI does."""
+    """``--multihost`` runs (multi-host runs are ported: more in
+    tests/test_torch_multihost.py): as process 0 of a one-process run, in
+    a fresh interpreter, the CLI hosts the rendezvous, runs the deck and
+    writes the frames and final checkpoint of the plain run; a malformed
+    spec stops; and ``--resume`` of a shard-major halo checkpoint without
+    ``--halo`` stops, as the JAX CLI does."""
+    import socket
+    import subprocess
     from hakai_tpu_torch.parallel import halo as thalo
     deck = tmp_path / "deck.inp"
     deck.write_text(DECKS["ductile"]())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    outs = {}
+    for name, extra in (("plain", []), ("multihost", [
+            "--multihost", f"127.0.0.1:{port},1,0"])):
+        r = subprocess.run(
+            [sys.executable, "-m", "hakai_tpu_torch", str(deck), "--device",
+             "cpu", "--output-num", "2", "--checkpoint-every", "2",
+             "--out-dir", str(tmp_path / name)] + extra,
+            cwd=root, capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0, r.stderr[-3000:]
+        outs[name] = console(r.stdout)
+    assert outs["plain"] == outs["multihost"]
+    for f in ("file002.vtk", "final.ckpt.npz"):
+        assert (tmp_path / "plain" / f).read_bytes() == \
+            (tmp_path / "multihost" / f).read_bytes(), f
+    with pytest.raises(SystemExit, match="ADDR:PORT,NPROC,PID"):
         tcli.main([str(deck), "--device", "cpu", "--no-output",
-                   "--out-dir", str(tmp_path), "--multihost", "auto"])
+                   "--out-dir", str(tmp_path), "--multihost", "127.0.0.1"])
     m = lower(read_inp_file(str(deck)), SolverConfig(node_pad=16,
                                                      renumber="always"),
               device="cpu")

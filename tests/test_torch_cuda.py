@@ -438,3 +438,48 @@ def test_stream_kernel_refuses_wrong_inputs(cuda):
     with pytest.raises(ValueError, match="shape"):
         stream_add1(torch.zeros(72, 64, device=cuda), "strided",
                     out=torch.zeros(72, 65, device=cuda), TE=32)
+
+
+@pytest.mark.parametrize("mode", ["copy", "stackrows", "selrows",
+                                  "gatherrow"])
+@pytest.mark.parametrize("tiles,builds", [(512, 60), (133, 70), (3, 5)])
+def test_interleave_kernel_matches_plain(cuda, mode, tiles, builds):
+    """TPU kernel #12's replacement, each mode bit for bit its plain
+    version on a random window: the probe's 512 tiles x 60 builds (copy's
+    and gatherrow's last slabs read past shared memory), more tiles than a
+    persistent block takes with builds past the window, and a few builds;
+    other row offsets; one launch counted."""
+    from hakai_tpu_torch.ops.interleave_cuda import (interleave,
+                                                     interleave_plain)
+    src = torch.as_tensor(np.random.default_rng(12).normal(
+        scale=100.0, size=(64, 8, 128)), dtype=torch.float32, device=cuda)
+    for off in ((0, 1, 2, 3, 0, 1, 2, 3), (5, 0, 7, 1, 2, 9, 3, 0)):
+        before = interleave.launches_by[mode]
+        out = torch.full((tiles * 8, 128), float("nan"), device=cuda)
+        got = interleave(src, mode, tiles, builds, off, out=out)
+        torch.cuda.synchronize()
+        assert torch.equal(got, interleave_plain(src, mode, tiles, builds,
+                                                 off))
+        assert interleave.launches_by[mode] == before + 1
+
+
+def test_interleave_kernel_refuses_wrong_inputs(cuda):
+    """The wrapper raises on what the kernel does not take: another dtype,
+    a misaligned or non-contiguous window, an output of another shape,
+    stackrows' slabs past shared memory."""
+    from hakai_tpu_torch.ops.interleave_cuda import interleave
+    with pytest.raises(TypeError, match="float32"):
+        interleave(torch.zeros(64, 8, 128, dtype=torch.float64,
+                               device=cuda), "copy", 2, 4)
+    flat = torch.zeros(64 * 8 * 128 + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        interleave(flat[1:].view(64, 8, 128), "copy", 2, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        interleave(torch.zeros(128, 8, 64, device=cuda).transpose(0, 2),
+                   "copy", 2, 4)
+    with pytest.raises(ValueError, match="shape"):
+        interleave(torch.zeros(64, 8, 128, device=cuda), "copy", 2, 4,
+                   out=torch.zeros(8, 128, device=cuda))
+    with pytest.raises(ValueError, match="shared memory"):
+        interleave(torch.zeros(64, 8, 128, device=cuda), "selrows", 2, 60,
+                   (41, 0, 0, 0, 0, 0, 0, 0))

@@ -2,10 +2,12 @@
 interpreter imports every module of hakai_tpu_torch (``parallel``
 included), builds the ductile bar and the impact contact deck from the
 port's own pre.synthetic and runs run() on each on the CPU, the bar also
-on two element-sharded ranks and on two halo ranks, the bandwidth probe
+on two element-sharded ranks and on two halo ranks, the bandwidth and interleave probes
 at a small size; ``python -m hakai_tpu_torch deck.inp
---device cpu`` runs a written deck; no module of jax or hakai_tpu is ever
-loaded, in the interpreter or in a spawned rank.
+--device cpu`` runs a written deck; two interpreters run the bar as the
+two processes of a multi-host run (``parallel.dist.initialize``); no
+module of jax or hakai_tpu is ever loaded, in the interpreters or in a
+spawned rank.
 And no source file of the port, nor chip_smoke.py or the deck writer
 scripts/inp_deck.py, has an import of either."""
 import ast
@@ -42,6 +44,8 @@ info = launch(rank_info, 2, "cpu", None, [dict(halo=True, model=m, chunks=[3])])
 assert info["world"] == 2 and "hakai_tpu_torch.parallel.halo" in info["modules"]
 from hakai_tpu_torch.probes.dma import probe
 probe(E=256, TE=128, n1=1, n2=2, device="cpu", out=lambda *a: None)
+from hakai_tpu_torch.probes import interleave
+interleave.probe(2, 4, 1, 2, device="cpu", out=lambda *a: None)
 from hakai_tpu_torch.pre.synthetic import impact_model
 m = ht.lower(impact_model(n=2, v0=8.0e4, d_time=4e-8, end_time=1.01e-6),
              cfg, device="cpu")
@@ -61,6 +65,60 @@ def test_port_never_imports_jax():
         capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert r.returncode == 0, r.stderr
     assert "FORBIDDEN_MODULES []" in r.stdout, r.stdout
+
+
+MULTIHOST = """
+import sys
+sys.path.insert(0, {root!r})
+
+def main():
+    import torch
+    import hakai_tpu_torch as ht
+    from hakai_tpu_torch.parallel import dist
+    from hakai_tpu_torch.pre.synthetic import bar_model
+    dist.initialize("127.0.0.1:" + sys.argv[2], 2, int(sys.argv[1]))
+    m = ht.lower(bar_model(4, 4, 16, d_time=5e-8, end_time=5e-7,
+                           ductile=True),
+                 ht.SolverConfig(dtype="mixed", node_pad=16), device="cpu")
+    s = ht.run(m, verbose=False, write_output=False, halo=2, device="cpu")
+    s2 = ht.run(m, verbose=False, write_output=False, devices=2,
+                device="cpu")
+    assert int(s.t) == int(s2.t) == 10
+    info = dist.launch(dist.rank_info, 2, "cpu", None)
+    assert info["rank"] == int(sys.argv[1]) and info["world"] == 2
+    bad = sorted(k for k in list(sys.modules) + info["modules"]
+                 if k.split(".")[0] in {forbidden!r})
+    print("FORBIDDEN_MODULES", bad)
+
+if __name__ == "__main__":
+    main()
+"""
+
+
+def test_multihost_never_imports_jax(tmp_path):
+    """Two fresh interpreters as the two processes of a multi-host run: a
+    halo run and an element-sharded run of one rank a process, and each
+    process's rank reports its modules; none of jax or the JAX package."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    script = tmp_path / "child.py"
+    script.write_text(MULTIHOST.format(root=str(ROOT), forbidden=FORBIDDEN))
+    procs = [subprocess.Popen([sys.executable, str(script), str(pid),
+                               str(port)], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for pid in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        assert "FORBIDDEN_MODULES []" in out, out
 
 
 def test_cli_never_imports_jax(tmp_path):
