@@ -40,8 +40,12 @@ without its last line):
 9. contact-kernels: the gather, narrow-phase and scatter kernels against
    their plain versions on that deck's state 25 steps after the first
    contact, in float32 (times and bounds) and float64, the narrow phase
-   in a step's launch configuration with every node's and triangle's
-   accept count; the narrow phase's time when built with FMA contraction;
+   (cell-binned: a spatial hash of each side, probed in the 27 cells
+   around each item) with every node's and triangle's accept count, timed
+   in both types beside PR 7's block-loop kernel, and its CUDA launches a
+   step counted by the profiler; its time as each of 2 ranks calls it
+   under [sharded-contact]'s deal, the ranks' forces summed bitwise one
+   device's; its time when built with FMA contraction;
 10. contact-cpu: a small impact with erosion, cube off the slab's grid
    lines, one step at a time on the card and on the CPU (below 2,048
    elements: the generic step): the first contact steps and the deletion
@@ -178,25 +182,32 @@ CONTACT_KERNEL_AFTER = 25         # [contact-kernels] state: steps after
 #                                   the first contact
 # [contact-kernels]: kernel vs plain version, normwise.  The narrow phase
 # sums up to TB*n_blocks per-pair forces in another order (kernel:
-# sequential, then the splits in order; plain: PyTorch's reductions): the
-# element kernel's bounds.  Its accept decisions are bitwise equal by
-# construction (no FMA, same association); a decision that differs must
-# lie within MARGIN of a threshold.  The scatter sums <= ~40 terms in
+# sequential within a block, the blocks in order; plain: PyTorch's
+# reductions): the element kernel's bounds.  Its accept decisions are
+# bitwise equal by construction (no FMA, same association); a decision
+# that differs must lie within MARGIN of a threshold.  The scatter sums <= ~40 terms in
 # another association than nothing: the assembly's bounds.
 CONTACT_TOL = {("narrow", "float32"): 1e-5, ("narrow", "float64"): 1e-12,
                ("scatter", "mixed"): 1e-6, ("scatter", "float64"): 1e-14}
 MARGIN = 1e-5
 # narrow-phase operations the function needs, counted from csrc/contact.cu.
 # A (triangle, node) pair whose cells are more than one apart needs none:
-# the kernel's cell-box culls skip it exactly.  Each in-range item needs
-# its cell (3 subtractions, 3 divisions, 3 ceilings), each in-range
-# triangle its geometry (centroid, radius, normal, area, penalty, adjugate
-# over the determinant: ~140), each surviving block pair its box cells and
-# their comparison (~60); each pair within one cell the cell test and the
+# the spatial hash never visits it.  Each in-range item needs its cell (3
+# subtractions, 3 divisions, 3 ceilings), each in-range triangle its
+# geometry (centroid, radius, normal, area, penalty, adjugate over the
+# determinant: ~140); each pair within one cell the cell test and the
 # circumradius cull (19); past that the solve and the accept window (24);
-# an accepted pair the force and its sums (48)
-NARROW_OPS = {"item": 9, "geometry": 140, "block": 60, "cell": 19,
-              "dist": 24, "accept": 48}
+# an accepted pair the force and its sums (48).  Bytes it needs: the
+# range masks and block-pair mask, each read once; of each in-range
+# triangle its three corners and q0's velocity (12 values; on a self pair
+# its element's 8 node ids), of each in-range node its position, velocity
+# and mass (7 values) and its id; and every force column of the pair, 3
+# values each, written once
+NARROW_OPS = {"item": 9, "geometry": 140, "cell": 19, "dist": 24,
+              "accept": 48}
+# PR 7's block-loop narrow kernel at [contact-kernels]'s state, float32
+# (PERF.md, PR 7 call 3), printed beside the cell-binned kernel's time
+NARROW_PR7_MS = 2.4551
 # [contact-cpu]: the tie-free impact, card vs CPU, one step at a time
 CONTACT_CPU_N, CONTACT_CPU_STEPS = 4, 300
 # [generic]: the mixed ductile bar through run() on the generic step, the
@@ -700,7 +711,8 @@ def main_path(model, smi_line, tag="[main]",
 
 
 def trace(model, state, smi_line, tag, n=40):
-    """Device time per step by kernel, from torch.profiler (CUPTI)."""
+    """Device time per step by kernel, from torch.profiler (CUPTI):
+    (busy us a step, untraced us a step, {kernel: launches a step})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -718,17 +730,20 @@ def trace(model, state, smi_line, tag, n=40):
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in dev) / n
-    by_name = {}
+    by_name, count = {}, {}
     ours = ("element_kernel", "assemble_kernel", "gather_cols_kernel",
-            "narrow_nodes", "narrow_tris", "scatter_kernel")
+            "narrow_bin", "narrow_scan", "narrow_sort", "narrow_probe",
+            "scatter_kernel")
     for e in dev:
         key = next((k for k in ours if k in e.name), "PyTorch ops")
         by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / n
+        count[key] = count.get(key, 0) + 1 / n
     log(f"[trace] {tag}: {n} steps: {len(dev) / n:.1f} device kernels/step, "
         f"device busy {busy:.2f} us/step: "
-        + ", ".join(f"{k} {v:.2f} us" for k, v in sorted(by_name.items()))
+        + ", ".join(f"{k} {v:.2f} us ({count[k]:.1f} a step)"
+                    for k, v in sorted(by_name.items()))
         + f"; the same {n} steps untraced {wall_us:.2f} us/step [{smi_line}]")
-    return busy, wall_us
+    return busy, wall_us, count
 
 
 def fracture_margin(model, state):
@@ -891,6 +906,7 @@ def contact_model(smi_line):
     slab, all-exterior contact with ductile erosion, mixed precision."""
     import torch
     from hakai_tpu_torch import SolverConfig, lower
+    from hakai_tpu_torch.ops.contact_cuda import narrow_buckets
     from hakai_tpu_torch.pre.synthetic import impact_model
     shutil.rmtree(CONTACT_DIR, ignore_errors=True)
     os.makedirs(CONTACT_DIR)
@@ -915,7 +931,8 @@ def contact_model(smi_line):
             f" {p.j_instance}: 2F={p.tri_nodes.shape[1]} Ci="
             f"{p.cand_nodes.shape[0]} Cj={p.jnode_nodes.shape[0]} TB={p.tb} "
             f"nb={p.nb} block grid {p.tri_chunks}x{p.n_chunks}, narrow-phase"
-            f" splits (node launch, triangle launch) {narrow_splits_of(p)}; "
+            f" hash buckets B="
+            f"{narrow_buckets(p.tri_nodes.shape[1], p.cand_nodes.shape[0])}; "
             f"kinematics "
             f"columns R={m.ckin_idx.shape[0]}, force table "
             f"{m.fs_col.shape[0]} entries over {m.fs_width} columns")
@@ -1087,9 +1104,8 @@ def _margins(pair, kin, ksl, bp, consts, tri, node):
 
 
 def check_narrow(model, kin, acts, kind):
-    """Kernel N against its plain version per pair, on the card's state, in
-    the launch configuration of a step (each side over its narrow_splits
-    splits): forces, and every node's and every triangle's count of
+    """Kernel N against its plain version per pair, on the card's state, as
+    a step calls it: forces, and every node's and every triangle's count of
     accepted pairs.  A count can differ only where a decision lies on a
     threshold: the pairs of a node and a triangle whose counts both differ
     must include one within MARGIN of a threshold for each of them."""
@@ -1157,8 +1173,7 @@ def check_narrow(model, kin, acts, kind):
             stages[k] += v
         acc = (int(per_node.sum()), int(per_tri.sum()))
         log(f"[contact-kernels] narrow {kind} pair {i}: {n_blocks} block pairs"
-            f", launched as a step does (splits {narrow_splits_of(p)}); "
-            f"accepts kernel {acc[0]} (node side) {acc[1]} (triangle side), "
+            f"; accepts kernel {acc[0]} (node side) {acc[1]} (triangle side), "
             f"plain {info['accept']}; counts differ at {len(d_node)} nodes "
             f"and {len(d_tri)} triangles (each with a pair within {MARGIN:g}"
             f" of a threshold); force_i {errs[0]:.3e} force_t {errs[1]:.3e} "
@@ -1172,13 +1187,6 @@ def check_narrow(model, kin, acts, kind):
         raise AssertionError("no contact pair accepted: contact not active")
     return args, force, stages, {"max_abs_err": max_abs, "rel": worst,
                                  "differ": n_diff}
-
-
-def narrow_splits_of(p):
-    """(node launch, triangle launch) splits of a pair's narrow phase."""
-    from hakai_tpu_torch.ops.contact_cuda import narrow_splits
-    return (narrow_splits(p.n_chunks, p.nb, p.tri_chunks),
-            narrow_splits(p.tri_chunks, p.tb, p.n_chunks))
 
 
 def fmad_cost(args, kin, force):
@@ -1213,6 +1221,35 @@ def fmad_cost(args, kin, force):
               for p, _, _, _, (oi, ot) in args
               for a, n in ((oi, p.Cp), (ot, p.Tp)))
     return ms, ms_after, err, built_s
+
+
+def rank_shares(args, kin, force, world=2):
+    """Kernel N as each of ``world`` ranks calls it on the main path's
+    sharded contact (``deal_block_pairs``): each rank's calls timed, and
+    the ranks' force buffers summed checked bitwise equal to ``force``, one
+    device's.  Returns each rank's ms."""
+    import torch
+    from hakai_tpu_torch.ops.contact import deal_block_pairs
+    from hakai_tpu_torch.ops.contact_cuda import narrow_phase
+    total, ms = torch.zeros_like(force), []
+    for r in range(world):
+        shares = [deal_block_pairs(bp.pair_ok, r, world)
+                  for _, _, bp, _, _ in args]
+        out = torch.empty_like(force)
+
+        def calls(out=out, shares=shares):
+            for (p, ksl, bp, c, o), sides in zip(args, shares):
+                narrow_phase(p, kin, ksl, bp, c, out, o, sides=sides)
+        calls()
+        total += out
+        ms.append(time_ms(calls, reps=10))
+    torch.cuda.synchronize()
+    for p, _, _, _, (oi, ot) in args:
+        for a, n in ((oi, p.Cp), (ot, p.Tp)):
+            if not torch.equal(total[:, a:a + n], force[:, a:a + n]):
+                raise AssertionError("narrow phase: the ranks' shares do not "
+                                     "sum to one device's forces")
+    return ms
 
 
 def check_scatter(model, force, out_dtype, kind):
@@ -1254,10 +1291,11 @@ def check_scatter(model, force, out_dtype, kind):
     return rec
 
 
-def contact_kernels(model, state, smi_line):
+def contact_kernels(model, state, smi_line, n_launch):
     """Kernels G, N and S against their plain versions on the deck's own
     state with contact active, in the main path's types (f32 math, f64
-    store) and in float64; times and bounds for the main path's."""
+    store) and in float64; times and bounds, N's in both types beside its
+    ``n_launch`` CUDA launches a step (from the deck's trace)."""
     import torch
     from hakai_tpu_torch.ops.contact import contact_activity
     from hakai_tpu_torch.ops.contact_cuda import (narrow_phase,
@@ -1274,36 +1312,50 @@ def contact_kernels(model, state, smi_line):
         rec_s = check_scatter(model, force, out_dtype,
                               "mixed" if dt == torch.float32 else kind)
         recs[kind] = (rec_g, rec_n, rec_s)
-        if kind == "float64":
-            break
-        # N's time: every pair's node and triangle kernels, as in a step
+
+        def step_calls(out=force):
+            for p, ksl, bp, c, o in args:
+                narrow_phase(p, kin, ksl, bp, c, out, o)
+        # N's time: every pair's call, as in a step
         rec_n["ms"], rec_n["plain_ms"] = _time_pair(
-            lambda: [narrow_phase(p, kin, ksl, bp, c, force, o)
-                     for p, ksl, bp, c, o in args],
-            lambda: [narrow_phase_plain(p, kin, ksl, bp, c)
-                     for p, ksl, bp, c, _ in args], reps=10, plain_reps=1,
-            plain_repeats=1)      # one call of 3-5 s: one batch
+            step_calls, lambda: [narrow_phase_plain(p, kin, ksl, bp, c)
+                                 for p, ksl, bp, c, _ in args], reps=10,
+            plain_reps=1, plain_repeats=1)   # one call of 3-5 s: one batch
         st = stages
         flop = (NARROW_OPS["item"] * (st["tri_in"] + st["node_in"])
                 + NARROW_OPS["geometry"] * st["tri_in"]
-                + NARROW_OPS["block"] * st["blocks"]
                 + NARROW_OPS["cell"] * st["cell"]
                 + NARROW_OPS["dist"] * st["dist"]
                 + NARROW_OPS["accept"] * st["accept"])
-        moved = sum(nbytes(bp.tri_in, bp.node_in, bp.pair_ok, p.cand_mass,
-                           p.cand_nodes) + 4 * (12 * p.tri_nodes.shape[1]
-                                                + 6 * p.cand_nodes.shape[0]
-                                                + 3 * (p.Cp + p.Tp))
+        item = kin.element_size()
+        moved = sum(nbytes(bp.tri_in, bp.node_in, bp.pair_ok)
+                    + int(bp.tri_in.sum()) * (12 * item
+                                              + 32 * bool(p.is_self))
+                    + int(bp.node_in.sum()) * (7 * item + 4)
+                    + item * 3 * (p.Cp + p.Tp)
                     for p, _, bp, _, _ in args)
         rec_n["bound_ms"], rec_n["bound_by"] = bound(moved, flop, kind)
         rec_n["library_ms"] = None
         log(f"[contact-kernels] narrow {kind}: {st['blocks']} block pairs, "
             f"{st['tested']:.4e} pairs in them, {st['cell']} within one cell"
             f", {st['dist']} past the radius cull, {st['accept']} accepted; "
-            f"kernel {rec_n['ms']:.4f} ms, plain {rec_n['plain_ms']:.4f} ms, "
-            f"bound {rec_n['bound_ms']:.4f} ms ({rec_n['bound_by']}: "
-            f"{flop / 1e9:.4f} GFLOP needed, {moved / 1e6:.1f} MB) "
-            f"[{smi_line}]")
+            f"kernel {rec_n['ms']:.4f} ms (PR 7's block-loop kernel, float32:"
+            f" {NARROW_PR7_MS} ms), plain {rec_n['plain_ms']:.4f} ms, bound "
+            f"{rec_n['bound_ms']:.4f} ms ({rec_n['bound_by']}: "
+            f"{flop / 1e9:.4f} GFLOP needed, {moved / 1e6:.1f} MB); "
+            f"{n_launch:.1f} CUDA launches a step (the trace's narrow_bin, "
+            f"narrow_scan, narrow_sort, narrow_probe) for {len(args)} "
+            f"wrapper calls [{smi_line}]")
+        if kind == "float64":
+            break
+        ms_ranks = rank_shares(args, kin, force)
+        log(f"[contact-kernels] narrow {kind} dealt over {len(ms_ranks)} "
+            f"ranks as [sharded-contact] deals it (deal_block_pairs; a rank "
+            f"lists only its own blocks' items): "
+            + ", ".join(f"rank {r} {t:.4f} ms" for r, t in
+                        enumerate(ms_ranks))
+            + f" against {rec_n['ms']:.4f} ms on one device; the ranks' "
+            f"forces summed: bitwise one device's [{smi_line}]")
         ms_fma, ms_after, err_fma, built_s = fmad_cost(args, kin, force)
         log(f"[contact-kernels] narrow {kind} built with FMA contraction "
             f"(nvcc's default; built in {built_s:.2f} s): {ms_fma:.4f} ms "
@@ -1947,12 +1999,12 @@ def dma_phase(smi_line):
     from hakai_tpu_torch.ops.stream_cuda import (LAYOUTS, layout_shape,
                                                  stream_add1,
                                                  stream_add1_plain)
-    from hakai_tpu_torch.probes.dma import probe
+    from hakai_tpu_torch.probes.dma import REPEATS, probe
     reset_counts()
     slopes = probe(DMA_E, DMA_TE, DMA_N1, DMA_N2, "cuda",
                    out=lambda line: log(f"[dma] {line}"))
     launches = read_counts()
-    want = len(LAYOUTS) * (2 * DMA_N1 + DMA_N2)
+    want = len(LAYOUTS) * (DMA_N1 + REPEATS * (DMA_N1 + DMA_N2))
     if launches["stream"] != want:
         raise AssertionError(f"[dma] launches {launches} != {want}")
     moved = 2 * 72 * DMA_E * 4
@@ -1979,7 +2031,8 @@ def dma_phase(smi_line):
         log(f"[dma] {layout}: bitwise its plain version; kernel "
             f"{rec['ms']:.4f} ms = {moved / rec['ms'] / 1e6:.1f} GB/s (cold "
             f"L2, events), probe slope {slopes[layout] * 1e6:.3f} us/pass = "
-            f"{moved / slopes[layout] / 1e9:.1f} GB/s; plain "
+            f"{moved / slopes[layout] / 1e9:.1f} GB/s, "
+            f"{slopes[layout] / slopes['torch.add']:.4f} of torch.add's; plain "
             f"{rec['plain_ms']:.4f} ms, torch.add {rec['library_ms']:.4f} ms"
             f" (slope {slopes['torch.add'] * 1e6:.3f} us/pass), bound "
             f"{bound_ms:.4f} ms ({bound_by}: {moved} B at 3.35 TB/s) "
@@ -2377,11 +2430,13 @@ def main() -> int:
 
     impact = contact_model(smi_line)
     launches3, final3, contact_us, s_kern = contact_path(impact, smi_line)
-    busy3, wall3 = trace(impact, s_kern, smi_line, "contact impact", n=20)
+    busy3, wall3, per3 = trace(impact, s_kern, smi_line, "contact impact",
+                               n=20)
     log(f"[trace] contact impact: device idle share {1.0 - busy3 / wall3:.4f}"
         f" of the same steps untraced ({busy3:.2f} of {wall3:.2f} us; run()"
         f" averaged {contact_us:.2f} us/step over its 5,000 steps)")
-    crec = contact_kernels(impact, s_kern, smi_line)
+    crec = contact_kernels(impact, s_kern, smi_line, sum(
+        v for k, v in per3.items() if k.startswith("narrow_")))
     impact_cut = cut_to(impact, SHARD_CONTACT_STEPS, output_num=1,
                         checkpoint_every=0, out_dir=SHARD_CONTACT_DIR,
                         metrics_path=None)
@@ -2463,8 +2518,9 @@ def main() -> int:
     # packed element, float32 unpacked element without triax, float64
     # assembly and float64 contact instantiations are checked (and the
     # first three timed) in [kernels] and [contact-kernels] and reported on
-    # their lines.  A narrow_phase launch is its node and its triangle
-    # kernel for one pair.
+    # their lines.  A narrow_phase launch is one wrapper call for one pair,
+    # which launches its four kernels (narrow_bin, narrow_scan,
+    # narrow_sort, narrow_probe).
     kernels = [
         entry("element_core_packed[float32]", el, f"{src}:210",
               "element[float32]", rec["f32"]),

@@ -37,11 +37,11 @@ SOURCE_FLAGS = {"contact.cu": ("-fmad=false",)}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # narrow phase: kin, R, t0, t1, t2, cs, F2, Ci, TB, nb, tri_chunks,
-# n_chunks, tri_in, node_in, pair_ok, overlap, tmin, tmax, nmin, nmax, lo,
-# mass, ids, enodes, young, kc, Cr, myu, d_lim, ddiv (element type),
-# force, ld, off, count, part, splits, side, stream
-_NARROW = ((_P,) + (_I,) * 11 + (_P,) * 12,
-           (_P, _I, _I, _P, _P, _I, _I, _P))
+# n_chunks, tri_in, node_in, ok_nodes, ok_tris, list_nodes, list_tris,
+# overlap, lo, mass, ids, enodes, young, kc, Cr, myu, d_lim, ddiv (element
+# type), force, ld, off_i, off_t, count, iws, fws, B, stream
+_NARROW = ((_P,) + (_I,) * 11 + (_P,) * 11,
+           (_P, _I, _I, _I, _P, _P, _P, _I, _P))
 # C entry points: (name, argument types); each returns a cudaError_t
 _SIGNATURES = {
     "hk_narrow_f32": _NARROW[0] + (ctypes.c_float,) * 6 + _NARROW[1],

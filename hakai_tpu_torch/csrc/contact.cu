@@ -3,9 +3,9 @@
 //
 // N is the port's design for hakai_tpu/ops/contact.py:_pair_force's block
 // loop (blk_pair, contact.py:252-374), which is XLA on the TPU, not Pallas.
-// It evaluates, for every (triangle block, node block) pair that the broad
-// phase kept (pair_ok), the +-1 grid-cell test, the self-pair own-element
-// exclusion, the circumradius cull, the closed-form solve of
+// It evaluates, for the (triangle, node) pairs of the block pairs that the
+// broad phase kept (pair_ok), the +-1 grid-cell test, the self-pair
+// own-element exclusion, the circumradius cull, the closed-form solve of
 // [v1 v2 -n] x = p - q0 with its accept window 0 <= x1, 0 <= x2,
 // x1 + x2 <= 1, 0 < d <= d_lim, and the penalty + Coulomb friction +
 // damping force (HAKAI_j.jl:2487-2618).  The reference's own CUDA kernel
@@ -16,41 +16,65 @@
 // _make_diag_kernel and _make_merged_kernel): each node sums its own rows of
 // a fixed-order table.
 //
-// Determinism: no float atomics.  N runs twice over the same block pairs,
-// once with a node per thread (its force, summed over the surviving
-// triangle blocks in increasing order, each block's triangles in order)
-// and once with a triangle per thread (its reaction / 3, summed over the
-// surviving node blocks in order, each block's nodes in order): the order
-// of hakai_tpu's loop, which adds a whole block's sum per block pair.  Both
-// call the same device function on the same inputs, so they agree on every
-// accept decision and every per-pair force.  The source is compiled
-// without FMA contraction (-fmad=false, set in _build.py) and writes every
-// operation in the association order of the plain PyTorch version
-// (ops/contact.py), so kernel and plain version take bitwise equal accept
-// decisions on equal inputs.
+// What bounds N on an H100: the JAX blocking asks for (surviving block
+// pairs) x TB x nb tests, 3.6e9 at the contact deck's kernel state, of
+// which only the pairs within one grid cell of each other (5.3e6) can pass
+// the cell test; reading each in-range item once and writing each force
+// column once (21 MB in float32) takes ~0.006 ms at 3.35 TB/s.  So N
+// visits only the pairs within one cell: the reference's own uniform grid
+// (HAKAI_j.jl:2331-2363), as a spatial hash on the device.  Per pair and
+// call, four launches on one stream and no read back to the host:
+//   1. narrow_bin, a thread per force column: zeros for a slot out of range
+//      (most of a fracture deck's face inventory); for an in-range item its
+//      cell (cell_of), a triangle's geometry (centroid, circumradius,
+//      normal, penalty stiffness, the solve's adjugate rows) into the
+//      workspace once, a node's position, mass and velocity beside it, its
+//      slot in its bucket (atomicAdd on the bucket's count) of its side's
+//      hash (triangles by q0's cell, nodes by their position's cell; B
+//      buckets each, B a power of two set by the shapes), and its place in
+//      a list of the in-range items (under a rank's share, only those of
+//      the blocks it sums: list_nodes, list_tris);
+//   2. narrow_scan, a block per 1,024 buckets: the buckets' starts (an
+//      exclusive sum of the counts, each block's offset the sum of the
+//      earlier blocks' counts, which narrow_bin also keeps);
+//   3. narrow_sort, a thread per item: the item, its cell and what the
+//      radius cull reads of it (centroid and circumradius, or position and
+//      mass) at its bucket's start plus its slot: a counting sort, so a
+//      bucket's items lie side by side;
+//   4. narrow_probe, a persistent grid of warps over the list of in-range
+//      items: a node's lanes stride through the triangle hash's buckets of
+//      the 27 cells around its own, a triangle's through the node hash's,
+//      and take only the items whose cell is the probed cell, so hash
+//      collisions drop out and a bucket that two probed cells share is not
+//      visited twice.  (A warp an item: a cell holds hundreds of surface
+//      items when ddiv is ten element sizes, too many for one thread.)  A
+//      candidate must lie in a block pair (k / TB, n / nb) of the side's
+//      mask (pair_ok, or a rank's share under deal_block_pairs): on one
+//      device a pair within one cell always does, the block boxes being
+//      padded by 2 ddiv, but the test keeps the result free of that
+//      argument and dealt ranks exact.  Then today's tests in today's
+//      order: the own-element exclusion, the radius cull, the solve and
+//      the accept window.
 //
-// What bounds N on an H100: operations, and in practice their latency: the
-// JAX blocking asks for (surviving block pairs) x TB x nb tests, most of
-// which fail the integer cell test.  Each CTA of NT threads stages NT
-// triangles' geometry (node launch) or NT nodes (triangle launch) in
-// shared memory, where the other side reads them by broadcast.  Before
-// staging a tile, a CTA drops the items whose cell lies more than one cell
-// outside the box of its own items' cells: they would fail the cell test
-// against all of them, so the cull is exact, and the tile is compacted in
-// order, so every sum keeps its order.  A CTA whose pair's overlap flag is
-// false, or whose block pair was culled, skips the work at once without
-// any read back to the host.
-//
-// A launch of either side has a CTA per (own block, tile of NT items),
-// too few to fill the card when the own side has few blocks (the slab's
-// nodes against the cube's triangles: 10 node blocks x 32 tiles).  So the
-// other side's blocks are dealt out over gridDim.z splits, z taking blocks
-// z, z + S, z + 2S, ...: each split sums its blocks in increasing order
-// into its own rows of a (S, 3, len) buffer, and sum_splits adds the S
-// rows in split order.  S depends on the shapes alone, so the order of
-// every sum is fixed and two runs are bitwise equal.  On request each
-// side also writes, per item and split, its count of accepted pairs (the
-// check against the plain version reads them; a step passes none).
+// Determinism: no float atomics (the counts are integers, and a bucket's
+// order changes no sum).  An item sums its accepted pairs in increasing
+// order of the other side's index: each lane keeps the kList smallest it
+// accepted and has not summed, sorted in registers; the warp merges the
+// lanes' lists by repeated warp minima and sums them, as far as the
+// smallest kList-th entry of a lane that held more, and sweeps the 27
+// cells again from there while any lane held more, so no pair is dropped
+// however many there are.  Within a block of the other side (TB triangles
+// or nb nodes) the sum runs sequentially into blk, and blk adds to the
+// item's sum block by block in increasing order (the triangle side adds
+// blk / 3): the association of hakai_tpu's loop, which adds a whole
+// block's sum per block pair.  Both sides call the same device functions
+// on the same workspace, so they agree on every accept decision and every
+// per-pair force.  The source is compiled without FMA contraction
+// (-fmad=false, set in _build.py) and writes every operation in the
+// association order of the plain PyTorch version (ops/contact.py), so
+// kernel and plain version take bitwise equal accept decisions on equal
+// inputs.  Every force column of the pair is written each call, zeros
+// included; on request each item also writes its count of accepted pairs.
 //
 // S is bound by device-memory bytes: its table (4 bytes a column index)
 // and the gathered force columns.
@@ -61,22 +85,25 @@
 
 namespace {
 
-constexpr int NT = 64;     // threads per CTA = shared-memory tile length
+constexpr int kThreads = 128;   // threads per CTA of the narrow-phase kernels
+constexpr int kScan = 1024;     // threads (and buckets) of a narrow_scan block
+constexpr int kList = 2;        // accepted pairs a lane sorts a sweep
+constexpr int kGeo = 28;        // workspace values per triangle
+constexpr int kNode = 8;        // workspace values per node
+constexpr unsigned kWarp = 0xffffffffu;
 
+// one triangle, as the tests read it; its workspace row holds, in fours,
+// ctr|rmax, q0|kpen, vj|-, nrm|-, im[0]|-, im[1]|-, im[2]|-
 template <typename T>
-struct Geo {               // one triangle, as the node test reads it
-  T ctr[3], q0[3], vj[3], nrm[3], im[3][3], rmax, kpen;
-  int cell[3];
-  int en[8];               // own element's nodes (self pairs)
-  int in;
+struct Geo {
+  T ctr[3], rmax, q0[3], kpen, vj[3], nrm[3], im[3][3];
 };
 
+// one candidate node; its workspace row holds p|m, v|-
 template <typename T>
-struct Node {              // one candidate node
-  T p[3], v[3], m;
-  int cell[3];
+struct Node {
+  T p[3], m, v[3];
   int id;
-  int in;
 };
 
 template <typename T>
@@ -86,21 +113,37 @@ struct Args {
   int F2, Ci, TB, nb, tri_chunks, n_chunks;
   const uint8_t* tri_in;   // (F2,)
   const uint8_t* node_in;  // (Ci,)
-  const uint8_t* pair_ok;  // (tri_chunks, n_chunks)
+  // (tri_chunks, n_chunks) block pairs summed by the node side and by the
+  // triangle side
+  const uint8_t *ok_nodes, *ok_tris;
+  // (n_chunks,) node blocks and (tri_chunks,) triangle blocks with a set
+  // block pair in that side's mask, or null (all): an item of another
+  // block is hashed but not listed, so its column is written zero
+  const uint8_t *list_nodes, *list_tris;
   const uint8_t* overlap;  // ()
-  // (3, tri_chunks) and (3, n_chunks) block boxes of the broad phase:
-  // q0 over the in-range triangles, positions over the in-range nodes
-  const T *tmin, *tmax, *nmin, *nmax;
   const T* lo;             // (3,) grid origin (all_min)
   const T* mass;           // (Ci,)
   const int32_t* ids;      // (Ci,) candidate node ids
   const int32_t* enodes;   // (8, F2) or null
   T young, kc, Cr, myu, d_lim, ddiv;
-  T* force;                // row stride ld, columns off ...
-  int64_t ld, off;
-  int32_t* count;          // (splits, len) accepted pairs per item, or null
-  T* part;                 // (splits, 3, len) partial sums, or null
-  int splits;              // gridDim.z
+  T* force;                // row stride ld; node slot n at column off_i + n,
+  int64_t ld, off_i, off_t;    // triangle k at off_t + k
+  int32_t* count;          // (Cp + Tp,) accepted pairs per item, or null
+  // the workspace: buckets [0, B) hash the triangles, [B, 2B) the nodes;
+  // fill, tile_fill and n_work[0] are zero between calls
+  int32_t* fill;           // (2B,) items a bucket
+  int32_t* start;          // (2B + 1,) a bucket's first sorted item
+  int32_t* tile_fill;      // (tiles,) items in each kScan buckets
+  int32_t* n_work;         // (2,) items listed: counter, its final count
+  int32_t* work;           // (F2 + Ci,) the in-range items' columns
+  int tiles;               // 2B / kScan, 1 at least
+  int4* link;              // (F2 + Ci,) slot in the bucket (-1: out of
+                           // range), the cell
+  int4* sorted;            // (F2 + Ci,) item, cell, by bucket
+  T* cull;                 // (F2 + Ci, 4) ctr|rmax or p|m, by bucket
+  T* tgeo;                 // (F2, kGeo)
+  T* ngeo;                 // (Ci, kNode)
+  uint32_t mask;           // B - 1
 };
 
 template <typename T>
@@ -114,27 +157,51 @@ __device__ __forceinline__ int cell_of(T x, T lo, T ddiv) {
   return (int)ceil((x - lo) / ddiv);
 }
 
-// per-triangle geometry (contact.py:266-303)
-template <typename T, bool SELF>
-__device__ void load_geo(const Args<T>& a, int64_t k, Geo<T>& g) {
-  T q0[3], q1[3], q2[3], c[3], v1[3], v2[3];
+__device__ __forceinline__ uint32_t bucket(int x, int y, int z,
+                                           uint32_t mask) {
+  return (((uint32_t)x * 73856093u) ^ ((uint32_t)y * 19349663u)
+          ^ ((uint32_t)z * 83492791u)) & mask;
+}
+
+// four workspace values (a row's fours are 16-byte aligned for float,
+// 32-byte for double)
+__device__ __forceinline__ void ld4(const float* p, float v[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+__device__ __forceinline__ void ld4(const double* p, double v[4]) {
+  const double2 x = reinterpret_cast<const double2*>(p)[0];
+  const double2 y = reinterpret_cast<const double2*>(p)[1];
+  v[0] = x.x; v[1] = x.y; v[2] = y.x; v[3] = y.y;
+}
+__device__ __forceinline__ void st4(float* p, float a, float b, float c,
+                                    float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void st4(double* p, double a, double b, double c,
+                                    double d) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(a, b);
+  reinterpret_cast<double2*>(p)[1] = make_double2(c, d);
+}
+
+// per-triangle geometry (contact.py:266-303) into triangle k's row
+template <typename T>
+__device__ void tri_geometry(const Args<T>& a, int64_t k) {
+  T q0[3], q1[3], q2[3], c[3], v1[3], v2[3], vj[3], nrm[3], im[3][3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     q0[i] = a.kin[i * a.R + a.t0 + k];
     q1[i] = a.kin[i * a.R + a.t1 + k];
     q2[i] = a.kin[i * a.R + a.t2 + k];
-    g.vj[i] = a.kin[(3 + i) * a.R + a.t0 + k];
-    g.q0[i] = q0[i];
+    vj[i] = a.kin[(3 + i) * a.R + a.t0 + k];
     c[i] = ((q0[i] + q1[i]) + q2[i]) / T(3);
-    g.ctr[i] = c[i];
     v1[i] = q1[i] - q0[i];
     v2[i] = q2[i] - q0[i];
-    g.cell[i] = cell_of(q0[i], a.lo[i], a.ddiv);
   }
   const T r0 = sq3(q0[0] - c[0], q0[1] - c[1], q0[2] - c[2]);
   const T r1 = sq3(q1[0] - c[0], q1[1] - c[1], q1[2] - c[2]);
   const T r2 = sq3(q2[0] - c[0], q2[1] - c[1], q2[2] - c[2]);
-  g.rmax = sqrt(mx(mx(r0, r1), r2));
+  const T rmax = sqrt(mx(mx(r0, r1), r2));
   const T L1 = sqrt(sq3(v1[0], v1[1], v1[2]));
   const T L2 = sqrt(sq3(v2[0], v2[1], v2[2]));
   const T Lm = mx(L1, L2);
@@ -145,15 +212,15 @@ __device__ void load_geo(const Args<T>& a, int64_t k, Geo<T>& g) {
   const T mag = sqrt(sq3(cr[0], cr[1], cr[2]));
   const T den = mag == T(0) ? T(1) : mag;
 #pragma unroll
-  for (int i = 0; i < 3; ++i) g.nrm[i] = cr[i] / den;
+  for (int i = 0; i < 3; ++i) nrm[i] = cr[i] / den;
   const T d12 = (v1[0] * v2[0] + v1[1] * v2[1]) + v1[2] * v2[2];
   const T S = T(0.5) * sqrt(mx((L1 * L1) * (L2 * L2) - d12 * d12, T(0)));
-  g.kpen = ((a.young * S) / safe_L) * a.kc;
+  const T kpen = ((a.young * S) / safe_L) * a.kc;
   // adjugate rows of A = [v1 v2 -n] over det(A) (my3SolveAb,
   // HAKAI_j.jl:3342-3372); A[k][i] is column k's component i
   const T A[3][3] = {{v1[0], v1[1], v1[2]},
                      {v2[0], v2[1], v2[2]},
-                     {-g.nrm[0], -g.nrm[1], -g.nrm[2]}};
+                     {-nrm[0], -nrm[1], -nrm[2]}};
   const T det = (((((A[0][0] * A[1][1]) * A[2][2]
                     + (A[1][0] * A[2][1]) * A[0][2])
                    + (A[2][0] * A[0][1]) * A[1][2])
@@ -164,46 +231,89 @@ __device__ void load_geo(const Args<T>& a, int64_t k, Geo<T>& g) {
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
     const int c1 = (r + 1) % 3, c2 = (r + 2) % 3;
-    g.im[r][0] = (A[c1][1] * A[c2][2] - A[c2][1] * A[c1][2]) / sd;
-    g.im[r][1] = (A[c2][0] * A[c1][2] - A[c1][0] * A[c2][2]) / sd;
-    g.im[r][2] = (A[c1][0] * A[c2][1] - A[c2][0] * A[c1][1]) / sd;
+    im[r][0] = (A[c1][1] * A[c2][2] - A[c2][1] * A[c1][2]) / sd;
+    im[r][1] = (A[c2][0] * A[c1][2] - A[c1][0] * A[c2][2]) / sd;
+    im[r][2] = (A[c1][0] * A[c2][1] - A[c2][0] * A[c1][1]) / sd;
   }
-  if (SELF) {
+  T* g = a.tgeo + k * kGeo;
+  st4(g, c[0], c[1], c[2], rmax);
+  st4(g + 4, q0[0], q0[1], q0[2], kpen);
+  st4(g + 8, vj[0], vj[1], vj[2], T(0));
+  st4(g + 12, nrm[0], nrm[1], nrm[2], T(0));
 #pragma unroll
-    for (int i = 0; i < 8; ++i) g.en[i] = a.enodes[i * (int64_t)a.F2 + k];
-  }
-  g.in = 1;
+  for (int r = 0; r < 3; ++r)
+    st4(g + 16 + 4 * r, im[r][0], im[r][1], im[r][2], T(0));
+}
+
+// what the radius cull reads of a triangle (its row, or its sorted cull
+// values), then the rest of its row
+template <typename T>
+__device__ __forceinline__ void load_cull(const T* p, Geo<T>& g) {
+  T v[4];
+  ld4(p, v);
+  g.ctr[0] = v[0]; g.ctr[1] = v[1]; g.ctr[2] = v[2]; g.rmax = v[3];
 }
 
 template <typename T>
-__device__ void load_node(const Args<T>& a, int64_t n, Node<T>& nd) {
+__device__ __forceinline__ void load_rest(const Args<T>& a, int64_t k,
+                                          Geo<T>& g) {
+  const T* row = a.tgeo + k * kGeo;
+  T v[4];
+  ld4(row + 4, v);
+  g.q0[0] = v[0]; g.q0[1] = v[1]; g.q0[2] = v[2]; g.kpen = v[3];
+  ld4(row + 8, v);
+  g.vj[0] = v[0]; g.vj[1] = v[1]; g.vj[2] = v[2];
+  ld4(row + 12, v);
+  g.nrm[0] = v[0]; g.nrm[1] = v[1]; g.nrm[2] = v[2];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    nd.p[i] = a.kin[i * a.R + a.cs + n];
-    nd.v[i] = a.kin[(3 + i) * a.R + a.cs + n];
-    nd.cell[i] = cell_of(nd.p[i], a.lo[i], a.ddiv);
+  for (int r = 0; r < 3; ++r) {
+    ld4(row + 16 + 4 * r, v);
+    g.im[r][0] = v[0]; g.im[r][1] = v[1]; g.im[r][2] = v[2];
   }
-  nd.m = a.mass[n];
-  nd.id = a.ids[n];
-  nd.in = 1;
 }
 
-// one (triangle, node) test and force (contact.py:312-340)
-template <typename T, bool SELF>
-__device__ __forceinline__ bool pair_force(const Args<T>& a, const Geo<T>& g,
-                                           const Node<T>& n, T f[3]) {
-  if (!(g.in && n.in)) return false;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    if (abs(g.cell[i] - n.cell[i]) > 1) return false;
+// a node's position and mass (its row, or its sorted cull values), then
+// its velocity and id
+template <typename T>
+__device__ __forceinline__ void load_pos(const T* p, Node<T>& nd) {
+  T v[4];
+  ld4(p, v);
+  nd.p[0] = v[0]; nd.p[1] = v[1]; nd.p[2] = v[2]; nd.m = v[3];
+}
+
+template <typename T>
+__device__ __forceinline__ void load_vel(const Args<T>& a, int64_t n,
+                                         Node<T>& nd) {
+  T v[4];
+  ld4(a.ngeo + n * kNode + 4, v);
+  nd.v[0] = v[0]; nd.v[1] = v[1]; nd.v[2] = v[2];
+  nd.id = a.ids[n];
+}
+
+template <bool SELF>
+__device__ __forceinline__ bool own_element(const int32_t* enodes, int F2,
+                                            int64_t k, int id) {
   if (SELF) {
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      if (g.en[i] == n.id) return false;
+      if (enodes[i * (int64_t)F2 + k] == id) return true;
   }
+  return false;
+}
+
+template <typename T>
+__device__ __forceinline__ bool within_radius(const Geo<T>& g,
+                                              const Node<T>& n) {
   const T dpc = sqrt(sq3(n.p[0] - g.ctr[0], n.p[1] - g.ctr[1],
                          n.p[2] - g.ctr[2]));
-  if (!(dpc < g.rmax)) return false;
+  return dpc < g.rmax;
+}
+
+// the solve, its accept window and the force of a (triangle, node) pair
+// that passed the cell, own-element and radius tests (contact.py:312-340)
+template <typename T>
+__device__ __forceinline__ bool pair_force(const Args<T>& a, const Geo<T>& g,
+                                           const Node<T>& n, T f[3]) {
   const T b[3] = {n.p[0] - g.q0[0], n.p[1] - g.q0[1], n.p[2] - g.q0[2]};
   const T x1 = (g.im[0][0] * b[0] + g.im[0][1] * b[1]) + g.im[0][2] * b[2];
   const T x2 = (g.im[1][0] * b[0] + g.im[1][1] * b[1]) + g.im[1][2] * b[2];
@@ -227,246 +337,364 @@ __device__ __forceinline__ bool pair_force(const Args<T>& a, const Geo<T>& g,
   return true;
 }
 
-__device__ __forceinline__ bool near(const int cell[3], const int lo[3],
-                                     const int hi[3]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    if ((long long)cell[i] < (long long)lo[i] - 1
-        || (long long)cell[i] > (long long)hi[i] + 1)
-      return false;
-  return true;
-}
-
-// Whether block b's cell box, from its coordinate box, comes within one
-// cell of the CTA's cell box [lo, hi].  cell_of is monotone in x (IEEE
-// subtraction, division by ddiv > 0 and ceil all are), so the cells of
-// the box's corners bound the cells of every item in the block: a block
-// that fails this fails every cell test against the CTA's items.
-template <typename T>
-__device__ __forceinline__ bool block_meets(const Args<T>& a, const T* bmin,
-                                            const T* bmax, int nblk, int b,
-                                            const int lo[3],
-                                            const int hi[3]) {
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    const int blo = cell_of(bmin[r * (int64_t)nblk + b], a.lo[r], a.ddiv);
-    const int bhi = cell_of(bmax[r * (int64_t)nblk + b], a.lo[r], a.ddiv);
-    if ((long long)bhi < (long long)lo[r] - 1
-        || (long long)blo > (long long)hi[r] + 1)
-      return false;
-  }
-  return true;
-}
-
-// The CTA's box of the grid cells of its active items (lo > hi: none).
-// An item of the other side whose cell lies more than one cell outside it
-// fails the +-1 cell test against every item of the CTA, so it is skipped
-// with the same result as testing it: the cull is exact.
-__device__ __forceinline__ void cta_box(bool active, const int cell[3],
-                                        int* s_lo, int* s_hi, int lo[3],
-                                        int hi[3]) {
-  if (threadIdx.x < 3) {
-    s_lo[threadIdx.x] = INT_MAX;
-    s_hi[threadIdx.x] = INT_MIN;
-  }
-  __syncthreads();
-  if (active) {
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      atomicMin(&s_lo[i], cell[i]);
-      atomicMax(&s_hi[i], cell[i]);
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    lo[i] = s_lo[i];
-    hi[i] = s_hi[i];
-  }
-}
-
-// This thread's slot among the CTA's threads with ``keep`` set, in thread
-// order (so a compacted tile keeps the items' order); the count in *total.
-__device__ __forceinline__ int compact_slot(bool keep, int* s_warp,
-                                            int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned m = __ballot_sync(0xffffffffu, keep);
-  if (lane == 0) s_warp[warp] = __popc(m);
-  __syncthreads();
-  int off = 0, tot = 0;
-#pragma unroll
-  for (int w = 0; w < NT / 32; ++w) {
-    off += w < warp ? s_warp[w] : 0;
-    tot += s_warp[w];
-  }
-  *total = tot;
-  return off + __popc(m & ((1u << lane) - 1u));
-}
-
-// this CTA's sums for column i of a side of len columns: into the force
-// buffer, or into split blockIdx.z's rows of the partial buffer; and the
-// item's count of accepted pairs in this split, when asked for
-template <typename T>
-__device__ __forceinline__ void store(const Args<T>& a, int64_t i,
-                                      int64_t len, const T acc[3],
-                                      int hits) {
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    if (a.splits == 1) a.force[r * a.ld + a.off + i] = acc[r];
-    else a.part[((int64_t)blockIdx.z * 3 + r) * len + i] = acc[r];
-  }
-  if (a.count != nullptr) a.count[(int64_t)blockIdx.z * len + i] = hits;
-}
-
-// a node per thread: force_i of node block blockIdx.x
-template <typename T, bool SELF>
-__global__ void __launch_bounds__(NT) narrow_nodes(Args<T> a) {
-  __shared__ Geo<T> tile[NT];
-  __shared__ int s_lo[3], s_hi[3], s_warp[NT / 32];
-  const int c = blockIdx.x;
-  const int j = blockIdx.y * NT + threadIdx.x;
-  const int64_t n = (int64_t)c * a.nb + j;
-  T acc[3] = {T(0), T(0), T(0)};
-  int hits = 0;
-  if (*a.overlap) {
-    Node<T> nd;
-    nd.in = 0;
-    if (j < a.nb && n < a.Ci && a.node_in[n]) load_node(a, n, nd);
-    int lo[3], hi[3];
-    cta_box(nd.in, nd.cell, s_lo, s_hi, lo, hi);
-    for (int t = blockIdx.z; lo[0] <= hi[0] && t < a.tri_chunks;
-         t += gridDim.z) {
-      if (!a.pair_ok[(int64_t)t * a.n_chunks + c]
-          || !block_meets(a, a.tmin, a.tmax, a.tri_chunks, t, lo, hi))
-        continue;
-      T blk[3] = {T(0), T(0), T(0)};
-      for (int s = 0; s < a.TB; s += NT) {
-        const int i = s + threadIdx.x;
-        const int64_t k = (int64_t)t * a.TB + i;
-        __syncthreads();
-        bool keep = false;
-        if (i < a.TB && k < a.F2 && a.tri_in[k]) {
-          int cell[3];
-#pragma unroll
-          for (int r = 0; r < 3; ++r)
-            cell[r] = cell_of(a.kin[r * a.R + a.t0 + k], a.lo[r], a.ddiv);
-          keep = near(cell, lo, hi);
-        }
-        int m;
-        const int slot = compact_slot(keep, s_warp, &m);
-        if (keep) load_geo<T, SELF>(a, k, tile[slot]);
-        __syncthreads();
-        if (!nd.in) continue;
-        for (int q = 0; q < m; ++q) {
-          T f[3];
-          if (pair_force<T, SELF>(a, tile[q], nd, f)) {
-#pragma unroll
-            for (int r = 0; r < 3; ++r) blk[r] += f[r];
-            ++hits;
-          }
+// f(item, sorted position), spread over the warp's lanes, once for every
+// item of side `side`'s hash whose cell lies within one cell of c in each
+// direction: the buckets of the 27 cells around c, each filtered by the
+// exact cell
+template <typename T, typename F>
+__device__ __forceinline__ void for_near(const Args<T>& a, int side,
+                                         const int c[3], int lane, F f) {
+  const int32_t* start = a.start + side * (a.mask + 1);
+#pragma unroll 1
+  for (int dz = -1; dz <= 1; ++dz)
+#pragma unroll 1
+    for (int dy = -1; dy <= 1; ++dy)
+#pragma unroll 1
+      for (int dx = -1; dx <= 1; ++dx) {
+        const int x = c[0] + dx, y = c[1] + dy, z = c[2] + dz;
+        const uint32_t b = bucket(x, y, z, a.mask);
+        const int end = start[b + 1];
+        for (int j = start[b] + lane; j < end; j += 32) {
+          const int4 r = a.sorted[j];
+          if (r.y == x && r.z == y && r.w == z) f(r.x, j);
         }
       }
-#pragma unroll
-      for (int r = 0; r < 3; ++r) acc[r] += blk[r];
-    }
-  }
-  if (j < a.nb) store(a, n, (int64_t)a.n_chunks * a.nb, acc, hits);
 }
 
-// a triangle per thread: force_t (the reaction / 3) of triangle block
-// blockIdx.x
+// the kList smallest indices added, ascending (INT_MAX: an empty slot),
+// and how many were added; constant indices keep it in registers
+struct Smallest {
+  int v[kList];
+  int added = 0;
+
+  __device__ __forceinline__ Smallest() {
+#pragma unroll
+    for (int s = 0; s < kList; ++s) v[s] = INT_MAX;
+  }
+  __device__ __forceinline__ void add(int k) {
+    ++added;
+#pragma unroll
+    for (int s = kList - 1; s >= 0; --s) {
+      const int below = s > 0 ? v[s - 1] : INT_MIN;
+      if (v[s] > k) v[s] = below > k ? below : k;
+    }
+  }
+  __device__ __forceinline__ void pop() {
+#pragma unroll
+    for (int s = 0; s + 1 < kList; ++s) v[s] = v[s + 1];
+    v[kList - 1] = INT_MAX;
+  }
+  // the largest index below which this lane's list is complete
+  __device__ __forceinline__ int complete_to() const {
+    return added > kList ? v[kList - 1] : INT_MAX;
+  }
+};
+
+// the accepted pairs of one item, whose lanes each hold a Smallest of a
+// sweep, in increasing index order up to the lanes' common complete_to:
+// sum(k) on every lane for each (the warp's lanes agree on every value).
+// Returns how far the sweep's pairs are summed (INT_MAX: all of them).
+template <typename Sum>
+__device__ __forceinline__ int merge(Smallest& s, Sum sum) {
+  const int lim = __reduce_min_sync(kWarp, s.complete_to());
+  for (;;) {
+    const int k = __reduce_min_sync(kWarp, s.v[0]);
+    if (k == INT_MAX || k > lim) break;
+    if (s.v[0] == k) s.pop();
+    sum(k);
+  }
+  return lim;
+}
+
+// force_i of in-range node n (its accepted triangles in increasing order,
+// summed per triangle block into blk, the blocks added in order) into acc,
+// on every lane of the node's warp; returns the count
 template <typename T, bool SELF>
-__global__ void __launch_bounds__(NT) narrow_tris(Args<T> a) {
-  __shared__ Node<T> tile[NT];
-  __shared__ int s_lo[3], s_hi[3], s_warp[NT / 32];
-  const int t = blockIdx.x;
-  const int j = blockIdx.y * NT + threadIdx.x;
-  const int64_t k = (int64_t)t * a.TB + j;
-  T acc[3] = {T(0), T(0), T(0)};
-  int hits = 0;
-  if (*a.overlap) {
-    Geo<T> g;
-    g.in = 0;
-    if (j < a.TB && k < a.F2 && a.tri_in[k]) load_geo<T, SELF>(a, k, g);
-    int lo[3], hi[3];
-    cta_box(g.in, g.cell, s_lo, s_hi, lo, hi);
-    for (int c = blockIdx.z; lo[0] <= hi[0] && c < a.n_chunks;
-         c += gridDim.z) {
-      if (!a.pair_ok[(int64_t)t * a.n_chunks + c]
-          || !block_meets(a, a.nmin, a.nmax, a.n_chunks, c, lo, hi))
-        continue;
-      T blk[3] = {T(0), T(0), T(0)};
-      for (int s = 0; s < a.nb; s += NT) {
-        const int i = s + threadIdx.x;
-        const int64_t n = (int64_t)c * a.nb + i;
-        __syncthreads();
-        bool keep = false;
-        if (i < a.nb && n < a.Ci && a.node_in[n]) {
-          int cell[3];
+__device__ int node_sums(const Args<T>& a, int64_t n, int lane, T acc[3]) {
+  Node<T> nd;
+  load_pos(a.ngeo + n * kNode, nd);
+  load_vel(a, n, nd);
+  const int4 own = a.link[a.F2 + n];
+  const int c[3] = {own.y, own.z, own.w};
+  const uint8_t* ok = a.ok_nodes + n / a.nb;   // column of (t, n / nb)
+  T blk[3] = {T(0), T(0), T(0)};
+  int last = -1, cur = -1, hits = 0;
+  for (;;) {
+    Smallest s;
+    for_near(a, 0, c, lane, [&](int k, int j) {
+      if (k <= last || !ok[(int64_t)(k / a.TB) * a.n_chunks]
+          || own_element<SELF>(a.enodes, a.F2, k, nd.id))
+        return;
+      Geo<T> g;
+      load_cull(a.cull + 4 * (int64_t)j, g);
+      if (!within_radius(g, nd)) return;
+      load_rest(a, k, g);
+      T f[3];
+      if (pair_force(a, g, nd, f)) s.add(k);
+    });
+    last = merge(s, [&](int k) {
+      Geo<T> g;
+      load_cull(a.tgeo + (int64_t)k * kGeo, g);
+      load_rest(a, k, g);
+      T f[3];
+      pair_force(a, g, nd, f);
+      if (k / a.TB != cur) {
 #pragma unroll
-          for (int r = 0; r < 3; ++r)
-            cell[r] = cell_of(a.kin[r * a.R + a.cs + n], a.lo[r], a.ddiv);
-          keep = near(cell, lo, hi);
+        for (int r = 0; r < 3; ++r) {
+          acc[r] += blk[r];
+          blk[r] = T(0);
         }
-        int m;
-        const int slot = compact_slot(keep, s_warp, &m);
-        if (keep) load_node(a, n, tile[slot]);
-        __syncthreads();
-        if (!g.in) continue;
-        for (int q = 0; q < m; ++q) {
-          T f[3];
-          if (pair_force<T, SELF>(a, g, tile[q], f)) {
-#pragma unroll
-            for (int r = 0; r < 3; ++r) blk[r] += f[r];
-            ++hits;
-          }
-        }
+        cur = k / a.TB;
       }
 #pragma unroll
-      for (int r = 0; r < 3; ++r) acc[r] += blk[r] / T(3);
-    }
+      for (int r = 0; r < 3; ++r) blk[r] += f[r];
+      ++hits;
+    });
+    if (last == INT_MAX) break;
   }
-  if (j < a.TB) store(a, k, (int64_t)a.tri_chunks * a.TB, acc, hits);
-}
-
-// sum of the S splits' rows in split order, into the force columns
-template <typename T>
-__global__ void __launch_bounds__(256)
-sum_splits(const T* __restrict__ part, int splits, int64_t len,
-           T* __restrict__ force, int64_t ld, int64_t off) {
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= len) return;
 #pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    T s = part[r * len + n];
-    for (int z = 1; z < splits; ++z) s += part[((int64_t)z * 3 + r) * len + n];
-    force[r * ld + off + n] = s;
-  }
+  for (int r = 0; r < 3; ++r) acc[r] += blk[r];
+  return hits;
 }
 
+// force_t of in-range triangle k (its accepted nodes in increasing order,
+// summed per node block into blk, blk / 3 added block by block) into acc,
+// on every lane of the triangle's warp; returns the count
+template <typename T, bool SELF>
+__device__ int tri_sums(const Args<T>& a, int64_t k, int lane, T acc[3]) {
+  Geo<T> g;
+  load_cull(a.tgeo + k * kGeo, g);
+  load_rest(a, k, g);
+  int en[8];
+  if (SELF) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) en[i] = a.enodes[i * (int64_t)a.F2 + k];
+  }
+  const int4 own = a.link[k];
+  const int c[3] = {own.y, own.z, own.w};
+  const uint8_t* ok = a.ok_tris + (int64_t)(k / a.TB) * a.n_chunks;
+  T blk[3] = {T(0), T(0), T(0)};
+  int last = -1, cur = -1, hits = 0;
+  for (;;) {
+    Smallest s;
+    for_near(a, 1, c, lane, [&](int n, int j) {
+      if (n <= last || !ok[n / a.nb]) return;
+      if (SELF) {
+        const int id = a.ids[n];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (en[i] == id) return;
+      }
+      Node<T> nd;
+      load_pos(a.cull + 4 * (int64_t)j, nd);
+      if (!within_radius(g, nd)) return;
+      load_vel(a, n, nd);
+      T f[3];
+      if (pair_force(a, g, nd, f)) s.add(n);
+    });
+    last = merge(s, [&](int n) {
+      Node<T> nd;
+      load_pos(a.ngeo + (int64_t)n * kNode, nd);
+      load_vel(a, n, nd);
+      T f[3];
+      pair_force(a, g, nd, f);
+      if (n / a.nb != cur) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          acc[r] += blk[r] / T(3);
+          blk[r] = T(0);
+        }
+        cur = n / a.nb;
+      }
+#pragma unroll
+      for (int r = 0; r < 3; ++r) blk[r] += f[r];
+      ++hits;
+    });
+    if (last == INT_MAX) break;
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r) acc[r] += blk[r] / T(3);
+  return hits;
+}
+
+// a thread per force column (node slots, then triangle slots): zeros for
+// one out of range; an in-range item's cell, workspace row and slot in its
+// bucket (slot -1: out of range), and its place in the work list if its
+// block is listed (else zeros)
 template <typename T>
-int narrow(const Args<T>& a, int side, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool self = a.enodes != nullptr;
-  if (a.splits < 1 || (a.splits > 1 && a.part == nullptr))
-    return (int)cudaErrorInvalidValue;
-  int64_t len;
-  if (side == 0) {
-    if (a.n_chunks <= 0) return 0;
-    const dim3 grid(a.n_chunks, (a.nb + NT - 1) / NT, a.splits);
-    if (self) narrow_nodes<T, true><<<grid, NT, 0, st>>>(a);
-    else narrow_nodes<T, false><<<grid, NT, 0, st>>>(a);
-    len = (int64_t)a.n_chunks * a.nb;
+__global__ void __launch_bounds__(kThreads) narrow_bin(Args<T> a) {
+  const int64_t Cp = (int64_t)a.n_chunks * a.nb;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Cp + (int64_t)a.tri_chunks * a.TB) return;
+  const bool tri = i >= Cp;
+  const int64_t j = tri ? i - Cp : i;          // the index on its side
+  const bool item = j < (tri ? a.F2 : a.Ci);
+  const int64_t li = tri ? j : a.F2 + j;       // its link
+  if (!item || !*a.overlap || !(tri ? a.tri_in[j] : a.node_in[j])) {
+    if (item) a.link[li].x = -1;
+    const int64_t col = tri ? a.off_t + j : a.off_i + j;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) a.force[r * a.ld + col] = T(0);
+    if (a.count != nullptr) a.count[i] = 0;
+    return;
+  }
+  const int64_t col = tri ? a.t0 + j : a.cs + j;   // q0, or the node
+  int c[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    c[r] = cell_of(a.kin[r * a.R + col], a.lo[r], a.ddiv);
+  if (tri) {
+    tri_geometry(a, j);
   } else {
-    if (a.tri_chunks <= 0) return 0;
-    const dim3 grid(a.tri_chunks, (a.TB + NT - 1) / NT, a.splits);
-    if (self) narrow_tris<T, true><<<grid, NT, 0, st>>>(a);
-    else narrow_tris<T, false><<<grid, NT, 0, st>>>(a);
-    len = (int64_t)a.tri_chunks * a.TB;
+    T* w = a.ngeo + j * kNode;
+    st4(w, a.kin[col], a.kin[a.R + col], a.kin[2 * a.R + col], a.mass[j]);
+    st4(w + 4, a.kin[3 * a.R + col], a.kin[4 * a.R + col],
+        a.kin[5 * a.R + col], T(0));
   }
-  if (a.splits > 1)
-    sum_splits<T><<<(unsigned)((len + 255) / 256), 256, 0, st>>>(
-        a.part, a.splits, len, a.force, a.ld, a.off);
+  const uint32_t b = (tri ? 0 : a.mask + 1) + bucket(c[0], c[1], c[2],
+                                                      a.mask);
+  atomicAdd(a.tile_fill + b / kScan, 1);
+  a.link[li] = make_int4(atomicAdd(a.fill + b, 1), c[0], c[1], c[2]);
+  const uint8_t* listed = tri ? a.list_tris : a.list_nodes;
+  if (listed == nullptr || listed[tri ? j / a.TB : j / a.nb]) {
+    a.work[atomicAdd(a.n_work, 1)] = (int)i;
+  } else {
+    const int64_t out = tri ? a.off_t + j : a.off_i + j;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) a.force[r * a.ld + out] = T(0);
+    if (a.count != nullptr) a.count[i] = 0;
+  }
+}
+
+// a block per kScan buckets: start = the exclusive sum of fill (n = 2B
+// entries, and the total at start[n]); fill left zero; the work list's
+// count moved to n_work[1] and its counter zeroed
+__global__ void __launch_bounds__(kScan)
+narrow_scan(int32_t* __restrict__ fill, int32_t* __restrict__ start,
+            const int32_t* __restrict__ tile_fill, int32_t* n_work, int n) {
+  __shared__ int part[kScan / 32];
+  __shared__ int offset;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int o = 0;                                   // the earlier blocks' items
+  for (int q = threadIdx.x; q < (int)blockIdx.x; q += kScan)
+    o += tile_fill[q];
+  o = __reduce_add_sync(kWarp, o);
+  if (lane == 0) part[warp] = o;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = __reduce_add_sync(kWarp, lane < kScan / 32 ? part[lane]
+                                                             : 0);
+    if (lane == 0) offset = w;
+  }
+  __syncthreads();
+  const int b = blockIdx.x * kScan + threadIdx.x;
+  const int x = b < n ? fill[b] : 0;
+  int y = x;                                   // inclusive, in the warp
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int z = __shfl_up_sync(kWarp, y, d);
+    if (lane >= d) y += z;
+  }
+  if (lane == 31) part[warp] = y;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kScan / 32 ? part[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int z = __shfl_up_sync(kWarp, w, d);
+      if (lane >= d) w += z;
+    }
+    if (lane < kScan / 32) part[lane] = w;
+  }
+  __syncthreads();
+  const int incl = offset + y + (warp > 0 ? part[warp - 1] : 0);
+  if (b < n) {
+    start[b] = incl - x;
+    fill[b] = 0;
+  }
+  if (b == n - 1) start[n] = incl;
+  if (b == 0) {
+    n_work[1] = n_work[0];
+    n_work[0] = 0;
+  }
+}
+
+// a thread per in-range item: the item, its cell and its cull values at
+// its bucket's start plus its slot
+template <typename T>
+__global__ void __launch_bounds__(kThreads) narrow_sort(Args<T> a) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)a.F2 + a.Ci) return;
+  const int4 l = a.link[i];
+  if (l.x < 0) return;
+  const bool tri = i < a.F2;
+  const int64_t j = tri ? i : i - a.F2;
+  const int pos = a.start[(tri ? 0 : a.mask + 1)
+                          + bucket(l.y, l.z, l.w, a.mask)] + l.x;
+  a.sorted[pos] = make_int4((int)j, l.y, l.z, l.w);
+  T v[4];
+  ld4(tri ? a.tgeo + j * kGeo : a.ngeo + j * kNode, v);
+  st4(a.cull + 4 * (int64_t)pos, v[0], v[1], v[2], v[3]);
+}
+
+// a persistent grid of warps over the work list: each listed item's sums
+// into its force column; tile_fill zeroed for the next call
+template <typename T, bool SELF>
+__global__ void __launch_bounds__(kThreads) narrow_probe(Args<T> a) {
+  for (int q = blockIdx.x * blockDim.x + threadIdx.x; q < a.tiles;
+       q += gridDim.x * blockDim.x)
+    a.tile_fill[q] = 0;
+  const int64_t Cp = (int64_t)a.n_chunks * a.nb;
+  const int lane = threadIdx.x & 31, listed = a.n_work[1];
+  for (int w = blockIdx.x * (kThreads / 32) + threadIdx.x / 32; w < listed;
+       w += gridDim.x * (kThreads / 32)) {
+    const int64_t i = a.work[w];
+    T acc[3] = {T(0), T(0), T(0)};
+    int hits;
+    int64_t col;
+    if (i < Cp) {
+      hits = node_sums<T, SELF>(a, i, lane, acc);
+      col = a.off_i + i;
+    } else {
+      hits = tri_sums<T, SELF>(a, i - Cp, lane, acc);
+      col = a.off_t + i - Cp;
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int r = 0; r < 3; ++r) a.force[r * a.ld + col] = acc[r];
+      if (a.count != nullptr) a.count[i] = hits;
+    }
+  }
+}
+
+template <typename T>
+int narrow(const Args<T>& a, int B, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (B < 64 || (B & (B - 1)) != 0) return (int)cudaErrorInvalidValue;
+  const int64_t cols = (int64_t)a.n_chunks * a.nb
+                       + (int64_t)a.tri_chunks * a.TB;
+  const int64_t items = (int64_t)a.F2 + a.Ci;
+  if (cols <= 0) return 0;
+  int dev, sms;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  narrow_bin<T><<<(unsigned)((cols + kThreads - 1) / kThreads), kThreads, 0,
+                  st>>>(a);
+  narrow_scan<<<a.tiles, kScan, 0, st>>>(a.fill, a.start, a.tile_fill,
+                                         a.n_work, 2 * B);
+  if (items > 0) {
+    const unsigned blocks = (unsigned)((items + kThreads - 1) / kThreads);
+    narrow_sort<T><<<blocks, kThreads, 0, st>>>(a);
+    // a warp an item, at most 16 blocks an SM
+    const int64_t need = (items + kThreads / 32 - 1) / (kThreads / 32);
+    const unsigned grid = (unsigned)(need < 16 * sms ? need : 16 * sms);
+    if (a.enodes != nullptr)
+      narrow_probe<T, true><<<grid, kThreads, 0, st>>>(a);
+    else
+      narrow_probe<T, false><<<grid, kThreads, 0, st>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -511,67 +739,93 @@ template <typename T>
 int narrow_entry(const T* kin, int R, int t0, int t1, int t2, int cs, int F2,
                  int Ci, int TB, int nb, int tri_chunks, int n_chunks,
                  const uint8_t* tri_in, const uint8_t* node_in,
-                 const uint8_t* pair_ok, const uint8_t* overlap,
-                 const T* tmin, const T* tmax, const T* nmin, const T* nmax,
-                 const T* lo, const T* mass, const int32_t* ids,
-                 const int32_t* enodes, T young, T kc, T Cr, T myu, T d_lim,
-                 T ddiv, T* force, int ld, int off, int32_t* count, T* part,
-                 int splits, int side, void* stream) {
+                 const uint8_t* ok_nodes, const uint8_t* ok_tris,
+                 const uint8_t* list_nodes, const uint8_t* list_tris,
+                 const uint8_t* overlap, const T* lo, const T* mass,
+                 const int32_t* ids, const int32_t* enodes, T young, T kc,
+                 T Cr, T myu, T d_lim, T ddiv, T* force, int ld, int off_i,
+                 int off_t, int32_t* count, int32_t* iws, T* fws, int B,
+                 void* stream) {
   Args<T> a;
   a.kin = kin; a.R = R; a.t0 = t0; a.t1 = t1; a.t2 = t2; a.cs = cs;
   a.F2 = F2; a.Ci = Ci; a.TB = TB; a.nb = nb;
   a.tri_chunks = tri_chunks; a.n_chunks = n_chunks;
-  a.tri_in = tri_in; a.node_in = node_in; a.pair_ok = pair_ok;
-  a.overlap = overlap; a.tmin = tmin; a.tmax = tmax; a.nmin = nmin;
-  a.nmax = nmax; a.lo = lo; a.mass = mass; a.ids = ids;
-  a.enodes = enodes; a.young = young; a.kc = kc; a.Cr = Cr; a.myu = myu;
-  a.d_lim = d_lim; a.ddiv = ddiv; a.force = force; a.ld = ld; a.off = off;
-  a.count = count; a.part = part; a.splits = splits;
-  return narrow<T>(a, side, stream);
+  a.tri_in = tri_in; a.node_in = node_in; a.ok_nodes = ok_nodes;
+  a.ok_tris = ok_tris; a.list_nodes = list_nodes; a.list_tris = list_tris;
+  a.overlap = overlap; a.lo = lo; a.mass = mass;
+  a.ids = ids; a.enodes = enodes; a.young = young; a.kc = kc; a.Cr = Cr;
+  a.myu = myu; a.d_lim = d_lim; a.ddiv = ddiv; a.force = force; a.ld = ld;
+  a.off_i = off_i; a.off_t = off_t; a.count = count;
+  // the workspace: iws = fill (2B) | start (2B + 4) | tile_fill (tiles,
+  // in fours) | n_work (4) | work (F2 + Ci, in fours) | link, sorted
+  // (4 (F2 + Ci) each); fws = triangle rows (kGeo F2) | node rows
+  // (kNode Ci) | sorted cull values (4 (F2 + Ci))
+  const int64_t items = (int64_t)F2 + Ci;
+  a.tiles = (2 * B + kScan - 1) / kScan;
+  a.fill = iws;
+  a.start = iws + 2 * (int64_t)B;
+  a.tile_fill = a.start + 2 * (int64_t)B + 4;
+  a.n_work = a.tile_fill + (a.tiles + 3) / 4 * 4;
+  a.work = a.n_work + 4;
+  a.link = reinterpret_cast<int4*>(a.work + (items + 3) / 4 * 4);
+  a.sorted = a.link + items;
+  a.tgeo = fws;
+  a.ngeo = fws + (int64_t)kGeo * F2;
+  a.cull = a.ngeo + (int64_t)kNode * Ci;
+  a.mask = (uint32_t)B - 1u;
+  return narrow<T>(a, B, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// side 0: force_i (a node per thread); side 1: force_t (a triangle per
-// thread).  part is (splits, 3, len), or null when splits is 1; count is
-// (splits, len) int32, or null: each item's accepted pairs per split.
+// One pair's narrow phase: force_i into columns off_i.. (Cp of them) and
+// force_t into off_t.. (Tp) of force (3 rows, stride ld).  ok_nodes and
+// ok_tris are the (tri_chunks, n_chunks) block pairs each side sums;
+// list_nodes (n_chunks,) and list_tris (tri_chunks,) flag the blocks of
+// each side with a set pair in its mask, or are null (every block: an item
+// of a block without one finds no candidate, so listing it only costs
+// time).  count is (Cp + Tp,) int32 or null.  B is a power of two, 64 at
+// least; iws is int32 of 4B + 4 + r4(tiles) + 4 + r4(F2 + Ci) + 8 (F2 +
+// Ci), with tiles = max(1, 2B / 1024) and r4 rounding up to a multiple of
+// 4, zero when allocated (each call leaves its counters zero); fws is
+// (32 F2 + 12 Ci,) of the element type; both 32-byte aligned.
 int hk_narrow_f32(const float* kin, int R, int t0, int t1, int t2, int cs,
                   int F2, int Ci, int TB, int nb, int tri_chunks,
                   int n_chunks, const uint8_t* tri_in, const uint8_t* node_in,
-                  const uint8_t* pair_ok, const uint8_t* overlap,
-                  const float* tmin, const float* tmax, const float* nmin,
-                  const float* nmax, const float* lo, const float* mass,
+                  const uint8_t* ok_nodes, const uint8_t* ok_tris,
+                  const uint8_t* list_nodes, const uint8_t* list_tris,
+                  const uint8_t* overlap, const float* lo, const float* mass,
                   const int32_t* ids, const int32_t* enodes, float young,
-                  float kc, float Cr,
-                  float myu, float d_lim, float ddiv, float* force, int ld,
-                  int off, int32_t* count, float* part, int splits, int side,
-                  void* stream) {
+                  float kc, float Cr, float myu, float d_lim, float ddiv,
+                  float* force, int ld, int off_i, int off_t, int32_t* count,
+                  int32_t* iws, float* fws, int B, void* stream) {
   return narrow_entry<float>(kin, R, t0, t1, t2, cs, F2, Ci, TB, nb,
-                             tri_chunks, n_chunks, tri_in, node_in, pair_ok,
-                             overlap, tmin, tmax, nmin, nmax, lo, mass, ids,
-                             enodes, young, kc, Cr, myu, d_lim, ddiv, force,
-                             ld, off, count, part, splits, side, stream);
+                             tri_chunks, n_chunks, tri_in, node_in, ok_nodes,
+                             ok_tris, list_nodes, list_tris, overlap, lo,
+                             mass, ids, enodes, young, kc, Cr, myu, d_lim,
+                             ddiv, force, ld, off_i, off_t, count, iws, fws,
+                             B, stream);
 }
 
 int hk_narrow_f64(const double* kin, int R, int t0, int t1, int t2, int cs,
                   int F2, int Ci, int TB, int nb, int tri_chunks,
                   int n_chunks, const uint8_t* tri_in, const uint8_t* node_in,
-                  const uint8_t* pair_ok, const uint8_t* overlap,
-                  const double* tmin, const double* tmax, const double* nmin,
-                  const double* nmax, const double* lo, const double* mass,
-                  const int32_t* ids, const int32_t* enodes, double young,
-                  double kc, double Cr,
+                  const uint8_t* ok_nodes, const uint8_t* ok_tris,
+                  const uint8_t* list_nodes, const uint8_t* list_tris,
+                  const uint8_t* overlap, const double* lo,
+                  const double* mass, const int32_t* ids,
+                  const int32_t* enodes, double young, double kc, double Cr,
                   double myu, double d_lim, double ddiv, double* force,
-                  int ld, int off, int32_t* count, double* part, int splits,
-                  int side, void* stream) {
+                  int ld, int off_i, int off_t, int32_t* count, int32_t* iws,
+                  double* fws, int B, void* stream) {
   return narrow_entry<double>(kin, R, t0, t1, t2, cs, F2, Ci, TB, nb,
-                              tri_chunks, n_chunks, tri_in, node_in, pair_ok,
-                              overlap, tmin, tmax, nmin, nmax, lo, mass,
-                              ids, enodes, young, kc, Cr, myu, d_lim, ddiv,
-                              force, ld, off, count, part, splits, side,
-                              stream);
+                              tri_chunks, n_chunks, tri_in, node_in,
+                              ok_nodes, ok_tris, list_nodes, list_tris,
+                              overlap, lo, mass, ids, enodes, young, kc, Cr,
+                              myu, d_lim, ddiv, force, ld, off_i, off_t,
+                              count, iws, fws, B, stream);
 }
 
 // src, ld, ptr, mid, col, N, out, stream

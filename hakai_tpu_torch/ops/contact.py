@@ -103,7 +103,7 @@ def broad_phase(pair: ContactPair, kin, ksl, activity,
     pair_ok &= (tin_p.view(tc, TB).any(dim=1)[:, None]
                 & nin_p.view(nc, nb).any(dim=1)[None, :])
     return BroadPhase(tri_in, node_in, torch.minimum(min_i, min_j),
-                      pair_ok, overlap, (bmin_t, bmax_t), (bmin_n, bmax_n))
+                      pair_ok, overlap)
 
 
 def deal_block_pairs(pair_ok, rank: int, world: int):

@@ -27,9 +27,10 @@ from .. import _build
 from ..core.lowering import ContactPair, LoweredModel
 
 _NARROW = {torch.float32: "hk_narrow_f32", torch.float64: "hk_narrow_f64"}
-# threads per CTA of the narrow-phase kernels (NT in csrc/contact.cu), and
-# the CTAs a launch aims for: 132 SMs x 16 resident CTAs, about 2 waves
-_NARROW_NT, _NARROW_CTAS = 64, 4096
+# workspace values per triangle and per node (kGeo, kNode in csrc/contact.cu)
+_GEO, _NODE = 28, 8
+# (triangles, nodes, dtype, device) -> the narrow phase's workspace
+_WORKSPACES: dict = {}
 # (force dtype, nodal dtype) -> scatter entry; float32 -> float64 is mixed
 _SCATTER = {(torch.float32, torch.float32): "hk_scatter_f32",
             (torch.float64, torch.float64): "hk_scatter_f64",
@@ -65,10 +66,6 @@ class BroadPhase(NamedTuple):
     all_min: torch.Tensor   # (3,) grid origin
     pair_ok: torch.Tensor   # (tri_chunks, n_chunks) bool block pairs kept
     overlap: torch.Tensor   # () bool: the two sides' boxes overlap
-    # block boxes: q0 over each triangle block's in-range triangles, the
-    # position over each node block's in-range nodes (+-inf when empty)
-    tri_box: tuple          # ((3, tri_chunks) min, max)
-    node_box: tuple         # ((3, n_chunks) min, max)
 
 
 def kin_views(kin, ksl):
@@ -137,9 +134,11 @@ def narrow_phase_plain(pair: ContactPair, kin, ksl, bp: BroadPhase,
                        sides=None):
     """(force_i (3, Cp), force_t (3, Tp)[, info]) of one pair: the block
     loop of ``_pair_force`` (contact.py:252-374).  With ``record``, ``info``
-    holds the accepted (triangle, node slot) pairs in loop order and the
-    pairs that reached each test (``cell``: both sides in and the cell
-    test passed; ``dist``: the circumradius cull passed; ``accept``).
+    holds the accepted (triangle, node slot) pairs in loop order
+    (``pairs``), those that passed the cell test and the own-element
+    exclusion (``cell_pairs``), and the counts of pairs that reached each
+    test (``cell``: both sides in and the cell test passed; ``dist``: the
+    circumradius cull passed; ``accept``).
     ``sides`` = (node side's, triangle side's) block-pair masks, by default
     both ``bp.pair_ok``: force_i sums the first's pairs, force_t the
     second's."""
@@ -149,7 +148,8 @@ def narrow_phase_plain(pair: ContactPair, kin, ksl, bp: BroadPhase,
     c = constants_on(consts, dt, dev)
     force_i = torch.zeros((3, pair.Cp), dtype=dt, device=dev)
     force_t = torch.zeros((3, pair.Tp), dtype=dt, device=dev)
-    info = {"pairs": [], "cell": 0, "dist": 0, "accept": 0}
+    info = {"pairs": [], "cell_pairs": [], "cell": 0, "dist": 0,
+            "accept": 0}
     if bool(bp.overlap):
         ctr, rmax, nrm, kpen, im = tri_geometry(q0, q1, q2, c)
         cell_t = _cells(q0, bp.all_min, c["ddiv"])
@@ -169,6 +169,10 @@ def narrow_phase_plain(pair: ContactPair, kin, ksl, bp: BroadPhase,
                 m &= ~(pair.tri_enodes[:, ts, None]
                        == ids[None, None, cs]).any(dim=0)
             n_cell = int(m.sum()) if record else 0
+            if record:
+                hit = torch.nonzero(m)
+                info["cell_pairs"].append(torch.stack([hit[:, 0] + t0,
+                                                       hit[:, 1] + c0], 1))
             dpc = torch.sqrt(_sq3(p - ctr[:, ts, None]))
             m &= dpc < rmax[ts, None]
             n_dist = int(m.sum()) if record else 0
@@ -200,19 +204,106 @@ def narrow_phase_plain(pair: ContactPair, kin, ksl, bp: BroadPhase,
                 info["dist"] += n_dist
                 info["accept"] += len(hit)
     if record:
-        info["pairs"] = (torch.cat(info["pairs"]) if info["pairs"] else
-                         torch.zeros((0, 2), dtype=torch.long, device=dev))
+        for k in ("pairs", "cell_pairs"):
+            info[k] = (torch.cat(info[k]) if info[k] else
+                       torch.zeros((0, 2), dtype=torch.long, device=dev))
         return force_i, force_t, info
     return force_i, force_t
 
 
-def narrow_splits(own_blocks, own_len, other_blocks):
-    """How many splits a side's launch deals the other side's blocks out
-    over: enough CTAs (own blocks x tiles of NT items x splits) to fill the
-    card, at most one split per block.  Shapes alone set it, so the order
-    of every sum is fixed."""
-    ctas = own_blocks * -(-own_len // _NARROW_NT)
-    return max(1, min(other_blocks, -(-_NARROW_CTAS // max(ctas, 1))))
+def narrow_buckets(n_tri: int, n_node: int) -> int:
+    """Buckets B of each of the narrow phase's two spatial hashes: the least
+    power of two above an eighth of the larger side, 64 at least.  Shapes
+    alone set it.  (A fracture deck's face inventory is mostly out of range
+    and a cell holds many items, so few buckets are in use; a collision
+    costs only candidates that the exact-cell test drops.)"""
+    return max(64, 1 << (max(n_tri, n_node) // 8).bit_length())
+
+
+def narrow_workspace(n_tri: int, n_node: int, dtype, device):
+    """(int32 bucket counts and starts, work list and item records,
+    element-type rows, B): the narrow phase's workspace for a pair of these
+    shapes, allocated once per shapes, dtype and device and rewritten by
+    every call (calls run in stream order, so pairs of equal shapes can
+    share it).  Its counters start zero, and each call leaves them so."""
+    key = (n_tri, n_node, dtype, device)
+    if key not in _WORKSPACES:
+        B, items = narrow_buckets(n_tri, n_node), n_tri + n_node
+        tiles = max(1, 2 * B // 1024)
+        _WORKSPACES[key] = (
+            torch.zeros(4 * B + 4 + -(-tiles // 4) * 4 + 4
+                        + -(-items // 4) * 4 + 8 * items,
+                        dtype=torch.int32, device=device),
+            torch.empty(_GEO * n_tri + _NODE * n_node + 4 * items,
+                        dtype=dtype, device=device), B)
+    return _WORKSPACES[key]
+
+
+def _bucket(cells, B):
+    """csrc/contact.cu's bucket of (3, n) int64 cells."""
+    h = ((cells[0] * 73856093) ^ (cells[1] * 19349663)
+         ^ (cells[2] * 83492791)) & 0xFFFFFFFF
+    return h & (B - 1)
+
+
+def _probe(own, own_cell, other, other_cell, B):
+    """(own item, other item) for every listed own item and every listed
+    other item whose cell lies within one cell of its own: the buckets of
+    the 27 cells around each own cell in a hash of the other side, each
+    bucket filtered by the exact probed cell: the kernel's enumeration."""
+    dev = own.device
+    b = _bucket(other_cell, B)
+    order = torch.argsort(b, stable=True)
+    keys = torch.arange(B, device=dev)
+    start = torch.searchsorted(b[order], keys)
+    size = torch.searchsorted(b[order], keys, right=True) - start
+    near = torch.tensor([(x, y, z) for z in (-1, 0, 1) for y in (-1, 0, 1)
+                         for x in (-1, 0, 1)], device=dev).T
+    cell = (own_cell[:, :, None] + near[:, None, :]).reshape(3, -1)
+    pb = _bucket(cell, B)
+    n = size[pb]
+    visit = torch.repeat_interleave(torch.arange(len(pb), device=dev), n)
+    first = torch.repeat_interleave(torch.cumsum(n, 0) - n, n)
+    j = order[start[pb][visit] + torch.arange(len(visit), device=dev)
+              - first]
+    exact = (other_cell[:, j] == cell[:, visit]).all(dim=0)
+    return own[visit[exact] // 27], other[j[exact]]
+
+
+def cell_candidates_plain(pair: ContactPair, kin, ksl, bp: BroadPhase,
+                          consts: PairConstants, sides=None, buckets=None):
+    """The (triangle, node slot) pairs each side of kernel N tests past the
+    cell test, as (node side's, triangle side's) (P, 2) int64 lists: the
+    in-range nodes probing a hash of the in-range triangles by q0's cell,
+    and the triangles probing a hash of the nodes; each pair in a block
+    pair of that side's mask (``sides``, by default both ``bp.pair_ok``)
+    and, on a self pair, not of the triangle's own element.  ``buckets``
+    (default :func:`narrow_buckets` of the shapes) sets B; fewer buckets
+    only add collisions.  The plain twin of the kernel's cull, for tests;
+    nothing on the main path calls it."""
+    if not bool(bp.overlap):
+        none = torch.zeros((0, 2), dtype=torch.long, device=kin.device)
+        return none, none
+    q0, _, _, _, pos_i, _, _ = kin_views(kin, ksl)
+    ddiv = torch.tensor(consts.ddiv, dtype=kin.dtype, device=kin.device)
+    tri = torch.nonzero(bp.tri_in).reshape(-1)
+    node = torch.nonzero(bp.node_in).reshape(-1)
+    ct = _cells(q0, bp.all_min, ddiv).long()[:, tri]
+    cn = _cells(pos_i, bp.all_min, ddiv).long()[:, node]
+    B = buckets or narrow_buckets(q0.shape[1], pos_i.shape[1])
+    out = []
+    for side, ok in enumerate(sides if sides is not None
+                              else (bp.pair_ok,) * 2):
+        if side == 0:
+            n, k = _probe(node, cn, tri, ct, B)
+        else:
+            k, n = _probe(tri, ct, node, cn, B)
+        keep = ok[k // pair.tb, n // pair.nb]
+        if pair.is_self:
+            keep &= ~(pair.tri_enodes[:, k].long()
+                      == pair.cand_nodes[n].long()).any(dim=0)
+        out.append(torch.stack([k[keep], n[keep]], dim=1))
+    return tuple(out)
 
 
 def narrow_phase(pair: ContactPair, kin, ksl, bp: BroadPhase,
@@ -222,13 +313,17 @@ def narrow_phase(pair: ContactPair, kin, ksl, bp: BroadPhase,
     force_t (reactions over 3) into ``force[:, off_t:off_t + Tp]``.
 
     ``kin`` (6, R) merged kinematics in the element dtype, ``ksl`` the
-    pair's slices of it, ``bp`` its broad phase.  On the card the node and
-    the triangle kernels run one after the other, each over
-    :func:`narrow_splits` splits of the other side's blocks.  With
-    ``count`` it returns the accepted pairs per node slot (Cp,) and per
-    triangle slot (Tp,), int32, as each side counted them; else None.
-    ``sides`` = (node launch's, triangle launch's) block-pair masks, by
-    default both ``bp.pair_ok``."""
+    pair's slices of it, ``bp`` its broad phase.  On the card one call is
+    four kernels on the current stream: every in-range item is sorted into
+    a spatial hash of its side by grid cell, then a warp per in-range item
+    probes the other side's hash in the 27 cells around its own
+    (``csrc/contact.cu``), in :func:`narrow_workspace`.  With ``count``
+    it returns the accepted pairs per node slot (Cp,) and per triangle
+    slot (Tp,), int32, as each side counted them; else None.  ``sides`` =
+    (node side's, triangle side's) block-pair masks, by default both
+    ``bp.pair_ok``; with them, only the items of blocks that have a set
+    pair in their side's mask probe the other side (the rest find no
+    candidate and write zeros)."""
     off_i, off_t = offsets
     if kin.device.type == "cpu":
         out = narrow_phase_plain(pair, kin, ksl, bp, consts, record=count,
@@ -248,6 +343,9 @@ def narrow_phase(pair: ContactPair, kin, ksl, bp: BroadPhase,
     dt, R, W = kin.dtype, kin.shape[1], force.shape[1]
     F2, Ci = pair.tri_nodes.shape[1], pair.cand_nodes.shape[0]
     oks = (bp.pair_ok,) * 2 if sides is None else tuple(sides)
+    # a rank's share lists only its own blocks' items (one device: all)
+    lists = (None, None) if sides is None else (oks[0].any(dim=0),
+                                                oks[1].any(dim=1))
     blocks = (pair.tri_chunks, pair.n_chunks)
     spec = {"kin": (kin, (6, R), dt), "force": (force, (3, W), dt),
             "tri_in": (bp.tri_in, (F2,), torch.bool),
@@ -256,10 +354,6 @@ def narrow_phase(pair: ContactPair, kin, ksl, bp: BroadPhase,
             "pair_ok (triangles)": (oks[1], blocks, torch.bool),
             "overlap": (bp.overlap, (), torch.bool),
             "all_min": (bp.all_min, (3,), dt),
-            "tri_box min": (bp.tri_box[0], (3, pair.tri_chunks), dt),
-            "tri_box max": (bp.tri_box[1], (3, pair.tri_chunks), dt),
-            "node_box min": (bp.node_box[0], (3, pair.n_chunks), dt),
-            "node_box max": (bp.node_box[1], (3, pair.n_chunks), dt),
             "cand_mass": (pair.cand_mass, (Ci,), dt),
             "cand_nodes": (pair.cand_nodes, (Ci,), torch.int32)}
     if pair.is_self:
@@ -268,41 +362,31 @@ def narrow_phase(pair: ContactPair, kin, ksl, bp: BroadPhase,
     if max(off_i + pair.Cp, off_t + pair.Tp) > W:
         raise ValueError("pair force columns exceed the force buffer")
     lib = _build.library()
+    iws, fws, B = narrow_workspace(F2, Ci, dt, kin.device)
+    cnt = torch.empty(pair.Cp + pair.Tp, dtype=torch.int32,
+                      device=kin.device) if count else None
     (t0, _), (t1, _), (t2, _), (cs, _), _ = ksl
-    ptr = (lambda x: None if x is None else x.data_ptr())
-    sides = ((0, off_i, narrow_splits(pair.n_chunks, pair.nb,
-                                      pair.tri_chunks), pair.Cp),
-             (1, off_t, narrow_splits(pair.tri_chunks, pair.tb,
-                                      pair.n_chunks), pair.Tp))
-    counts = []
     with torch.cuda.device(kin.device):
-        stream = torch.cuda.current_stream(kin.device).cuda_stream
-        for side, off, splits, n in sides:
-            part = None if splits == 1 else torch.empty(
-                (splits, 3, n), dtype=dt, device=kin.device)
-            cnt = torch.empty((splits, n), dtype=torch.int32,
-                              device=kin.device) if count else None
-            err = getattr(lib, entry)(
-                kin.data_ptr(), R, t0, t1, t2, cs, F2, Ci, pair.tb, pair.nb,
-                pair.tri_chunks, pair.n_chunks, bp.tri_in.data_ptr(),
-                bp.node_in.data_ptr(), oks[side].data_ptr(),
-                bp.overlap.data_ptr(), *(x.data_ptr() for x in
-                                         bp.tri_box + bp.node_box),
-                bp.all_min.data_ptr(),
-                pair.cand_mass.data_ptr(), pair.cand_nodes.data_ptr(),
-                ptr(pair.tri_enodes if pair.is_self else None),
-                consts.young, consts.kc, consts.Cr, consts.myu,
-                consts.d_lim, consts.ddiv, force.data_ptr(), W, off,
-                ptr(cnt), ptr(part), splits, side, stream)
-            _build.check(lib, err, "narrow-phase kernel")
-            counts.append(cnt)
+        err = getattr(lib, entry)(
+            kin.data_ptr(), R, t0, t1, t2, cs, F2, Ci, pair.tb, pair.nb,
+            pair.tri_chunks, pair.n_chunks, bp.tri_in.data_ptr(),
+            bp.node_in.data_ptr(), oks[0].data_ptr(), oks[1].data_ptr(),
+            *(None if x is None else x.data_ptr() for x in lists),
+            bp.overlap.data_ptr(), bp.all_min.data_ptr(),
+            pair.cand_mass.data_ptr(), pair.cand_nodes.data_ptr(),
+            pair.tri_enodes.data_ptr() if pair.is_self else None,
+            consts.young, consts.kc, consts.Cr, consts.myu, consts.d_lim,
+            consts.ddiv, force.data_ptr(), W, off_i, off_t,
+            None if cnt is None else cnt.data_ptr(), iws.data_ptr(),
+            fws.data_ptr(), B,
+            torch.cuda.current_stream(kin.device).cuda_stream)
+    _build.check(lib, err, "narrow-phase kernel")
     narrow_phase.launches += 1
-    if count:
-        return tuple(c.sum(dim=0, dtype=torch.int32) for c in counts)
-    return None
+    return (cnt[:pair.Cp], cnt[pair.Cp:]) if count else None
 
 
-# one launch = the node kernel and the triangle kernel of one pair
+# one launch = one pair's narrow_bin, narrow_scan, narrow_sort and
+# narrow_probe
 narrow_phase.launches = 0
 
 

@@ -1,8 +1,9 @@
 """Wrapper of the streaming kernel (``csrc/stream.cu``), which replaces
 the TPU's HBM streaming probe ``copy_kernel``
 (``benchmarks/dma_microbench.py:35``, call ``:42``): ``o = x + 1.0`` over
-a (rows, E) float32 array, one (rows, TE) tile per block, in one of three
-layouts (``LAYOUTS``).  The port's bandwidth probe
+a (rows, E) float32 array in tiles of (rows, TE), in one of three layouts
+(``LAYOUTS``), a warp a 512-byte run with one evict-first 16-byte load and
+store a thread.  The port's bandwidth probe
 (:mod:`hakai_tpu_torch.probes.dma`) drives it; no stepping path does.
 
 For tensors on the CPU the wrapper runs the plain version,

@@ -2,7 +2,8 @@
 time: the two-body cases of tests/test_contact.py with their analytic
 checks, the erosion re-exposure and the self-contact exclusion, and the
 plain versions of the gather and scatter kernels against the JAX pieces
-they replace."""
+they replace; and the narrow kernel's cull (a spatial hash of grid cells)
+in its plain twin against the plain narrow phase."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -23,7 +24,11 @@ from hakai_tpu_torch.core.lowering import model_from_numpy
 from hakai_tpu_torch.core.state import init_state
 from hakai_tpu_torch.ops.contact import (contact_forces, contact_forces_pv,
                                          pair_activity)
-from hakai_tpu_torch.ops.contact_cuda import narrow_splits, scatter_forces
+from hakai_tpu_torch.ops.contact_cuda import (cell_candidates_plain,
+                                              narrow_buckets,
+                                              narrow_phase_plain,
+                                              narrow_workspace,
+                                              scatter_forces)
 from hakai_tpu_torch.ops.gather_cuda import gather_cols
 from test_contact import _corner_node, two_body_model
 from test_element import unit_cube_model
@@ -284,16 +289,90 @@ def test_narrow_phase_counts_accepted_pairs():
     assert torch.equal(forces[0], forces[1]) and forces[0].abs().max() > 0
 
 
-@pytest.mark.parametrize("own,other,want", [
-    ((10, 2048), 2592, 13),     # slab nodes vs the n=48 cube's triangles
-    ((2592, 512), 10, 1),       # those triangles vs the slab's node blocks
-    ((58, 2048), 216, 3),       # cube nodes vs the slab's triangles
-    ((2, 2048), 14, 14),        # the n=12 card test: cube nodes, and
-    ((14, 512), 2, 2),          # the slab's triangles, both split
-    ((1, 2048), 5, 5),          # never more splits than the other's blocks
-    ((1, 0), 0, 1)])
-def test_narrow_splits(own, other, want):
-    """A narrow-phase launch deals the other side's blocks over enough
-    splits to fill the card (~4,096 CTAs of 64 threads), one split a block
-    at most, and from the shapes alone."""
-    assert narrow_splits(*own, other) == want
+def _state(deck):
+    """(port model, state) of a CPU float64 deck for the cull tests: the
+    penalty pair at rest, the off-grid n=4 impact 70 steps in (in contact,
+    9 of 128 elements eroded), the self-contact plates 40 steps in."""
+    from hakai_tpu_torch import SolverConfig as PortConfig
+    from hakai_tpu_torch import lower, run_chunk
+    from hakai_tpu_torch.pre import synthetic as tsyn
+    from test_torch_contact_run import tie_free_impact
+    if deck == "penalty":
+        tm = carried(jax_lower(two_body_model(gap=-0.01,
+                                              upper_shift=(0.1, 0.2))))
+        return tm, init_state(tm)
+    m, steps = ((tie_free_impact(tsyn, n=4, d_time=1e-8, end_time=1e-5), 70)
+                if deck == "impact" else (tsyn.self_contact_model(), 40))
+    tm = lower(m, PortConfig(dtype="float64"), device="cpu")
+    return tm, run_chunk(tm, init_state(tm), steps)
+
+
+@pytest.mark.parametrize("buckets", [None, 1])
+@pytest.mark.parametrize("deck,world", [("penalty", 1), ("impact", 1),
+                                        ("self", 1), ("impact", 2)])
+def test_cell_candidates_match_plain(deck, world, buckets):
+    """The narrow kernel's enumeration (its plain twin: each side's items
+    probing the other side's spatial hash in the 27 cells around their
+    own, exact cells only, within the side's block-pair mask) finds the
+    plain narrow phase's pairs within one cell, each once: on the penalty
+    pair, the eroded impact, the self-contact plates (own elements
+    excluded) and a deal_block_pairs share of each of 2 ranks; with the
+    shapes' buckets and with one bucket for all (every probe a
+    collision)."""
+    from hakai_tpu_torch.ops.contact import (broad_phase, contact_activity,
+                                             contact_kinematics,
+                                             deal_block_pairs)
+    from hakai_tpu_torch.ops.contact_cuda import pair_constants
+    tm, ts = _state(deck)
+    if deck == "impact":
+        assert 0 < int(ts.element_flag.sum()) < tm.n_element
+    kin = contact_kinematics(tm, tm.coord + ts.disp, ts.velo)
+    acts = contact_activity(tm, ts.element_flag)
+    found = 0
+    for i, p in enumerate(tm.pairs):
+        ksl, c = tm.ckin_slices[i], pair_constants(tm, p)
+        bp = broad_phase(p, kin, ksl, acts[i], c)
+        for rank in range(world):
+            sides = None if world == 1 else deal_block_pairs(bp.pair_ok,
+                                                             rank, world)
+            oks = (bp.pair_ok,) * 2 if sides is None else sides
+            got = cell_candidates_plain(p, kin, ksl, bp, c, sides=sides,
+                                        buckets=buckets)
+            info = narrow_phase_plain(p, kin, ksl, bp, c, record=True,
+                                      sides=sides)[2]
+            ref = info["cell_pairs"]
+            assert len(ref) == info["cell"]
+            union = set()
+            for pairs, ok in zip(got, oks):
+                want = ref[ok[ref[:, 0] // p.tb, ref[:, 1] // p.nb]]
+                mine = set(map(tuple, pairs.tolist()))
+                assert len(mine) == len(pairs)
+                assert mine == set(map(tuple, want.tolist()))
+                union |= mine
+            assert union == set(map(tuple, ref.tolist()))
+            if world == 1:
+                assert len(got[0]) == len(got[1]) == info["cell"]
+            found += info["cell"]
+    assert found > 0
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((0, 0), 64), ((5, 3), 64), ((1100, 7), 256),
+    ((27648, 18818), 4096), ((14406, 1437696), 262144)])
+def test_narrow_buckets(shape, want):
+    """B of the narrow kernel's hashes: the least power of two above an
+    eighth of the larger side (64 at least), from the shapes alone; the
+    workspace of a shape, its dtype and device is allocated once: int32
+    counters (zero), starts, a work list and two records an item, and 28
+    values a triangle, 8 a node and 4 an item of the element type."""
+    assert narrow_buckets(*shape) == want == narrow_buckets(*shape[::-1])
+    assert want & (want - 1) == 0 and want > max(shape) // 8
+    iws, fws, B = narrow_workspace(*shape, torch.float64, torch.device("cpu"))
+    tiles, items = max(1, B // 512), sum(shape)
+    assert B == want and iws.dtype == torch.int32 and not iws.any()
+    assert iws.numel() == 4 * B + 4 + -(-tiles // 4) * 4 + 4 + \
+        -(-items // 4) * 4 + 8 * items
+    assert fws.dtype == torch.float64 and fws.numel() == \
+        32 * shape[0] + 12 * shape[1]
+    again = narrow_workspace(*shape, torch.float64, torch.device("cpu"))
+    assert again[0] is iws and again[1] is fws

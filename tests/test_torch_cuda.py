@@ -260,8 +260,7 @@ def _impact(dtype, device, steps=90, ductile=True, n=4):
 def test_contact_kernels_match_plain(cuda, n, steps, dtype):
     """Kernels G, N and S against their plain versions on a state in
     contact: the gather bitwise; the narrow phase as a step launches it
-    (n=12: the cube nodes' pair splits both of its launches, 14 and 2
-    ways) with forces within the element bounds, every node's and every
+    with forces within the element bounds, every node's and every
     triangle's accepted pairs equal to the plain version's (the deck has
     no ties), bitwise repeatable and unchanged by counting; the scatter
     within the assembly's bounds."""
@@ -269,7 +268,6 @@ def test_contact_kernels_match_plain(cuda, n, steps, dtype):
                                              contact_kinematics)
     from hakai_tpu_torch.ops.contact_cuda import (narrow_phase,
                                                   narrow_phase_plain,
-                                                  narrow_splits,
                                                   pair_constants,
                                                   scatter_forces,
                                                   scatter_forces_plain)
@@ -282,11 +280,9 @@ def test_contact_kernels_match_plain(cuda, n, steps, dtype):
                                               m.ckin_idx))
     acts = contact_activity(m, s.element_flag)
     force = torch.empty((3, m.fs_width), dtype=edt, device=cuda)
-    accepts, split_both = 0, False
+    accepts = 0
     for i, p in enumerate(m.pairs):
         ksl, c = m.ckin_slices[i], pair_constants(m, p)
-        split_both |= min(narrow_splits(p.n_chunks, p.nb, p.tri_chunks),
-                          narrow_splits(p.tri_chunks, p.tb, p.n_chunks)) > 1
         bp = broad_phase(p, kin, ksl, acts[i], c)
         off_i, off_t = m.fs_offsets[i]
         before = narrow_phase.launches
@@ -308,7 +304,7 @@ def test_contact_kernels_match_plain(cuda, n, steps, dtype):
         assert torch.equal(again[0], again[1])
         for a, b in ((off_i, p.Cp), (off_t, p.Tp)):
             assert torch.equal(again[0][:, a:a + b], force[:, a:a + b])
-    assert accepts > 0 and split_both == (n == 12)
+    assert accepts > 0
     g = scatter_forces(m, force, m.dtype)
     assert g.dtype == m.dtype
     assert _rel(g, scatter_forces_plain(m, force, m.dtype)) <= \
@@ -316,6 +312,88 @@ def test_contact_kernels_match_plain(cuda, n, steps, dtype):
     assert torch.equal(g, scatter_forces(m, force, m.dtype))
     assert torch.equal(gather_cols(kin, m.ckin_idx[:100]),
                        gather_cols_plain(kin, m.ckin_idx[:100]))
+
+
+def stacked_model(copies=70, n=16, gap=-0.01):
+    """``copies`` coincident unit cubes (each with 8 nodes of its own) under
+    an n x n x 1 plate pressed ``-gap`` into their top face, off their
+    grid: each plate node lies over ``copies`` top triangles and each top
+    triangle under up to 153 plate nodes, more than the 64 (2 a lane) that
+    the narrow kernel's warp holds in registers on either side."""
+    from hakai_tpu_torch.io.model import Instance, Model, Part
+    from hakai_tpu_torch.pre.synthetic import _grid, steel
+    c1, e1 = _grid(1, 1, 1, 1.0, 1.0, 1.0)
+    c1 = np.tile(c1, copies)
+    e1 = np.concatenate([e1 + 8 * i for i in range(copies)], axis=1)
+    c2, e2 = _grid(n, n, 1, 0.8, 0.8, 0.2, origin=(0.113, 0.087, 1.0 + gap))
+    mt = steel()
+    p1 = Part(name="stack", n_node=c1.shape[1], coordmat=c1,
+              n_element=e1.shape[1], elementmat=e1, material_name=mt.name,
+              material_id=1)
+    p2 = Part(name="plate", n_node=c2.shape[1], coordmat=c2,
+              n_element=e2.shape[1], elementmat=e2, material_name=mt.name,
+              material_id=1)
+    insts = [Instance(name="stack-1", part_name="stack", part_id=1,
+                      material_id=1, n_node=p1.n_node,
+                      n_element=p1.n_element),
+             Instance(name="plate-1", part_name="plate", part_id=2,
+                      material_id=1, node_offset=p1.n_node,
+                      element_offset=p1.n_element, n_node=p2.n_node,
+                      n_element=p2.n_element)]
+    n_el = p1.n_element + p2.n_element
+    return Model(parts=[p1, p2], instances=insts, materials=[mt],
+                 n_node=p1.n_node + p2.n_node,
+                 coordmat=np.concatenate([c1, c2], axis=1), n_element=n_el,
+                 elementmat=np.concatenate([e1, e2 + p1.n_node], axis=1),
+                 element_material=np.ones(n_el, np.int64),
+                 element_instance=np.concatenate(
+                     [np.ones(p1.n_element, np.int64),
+                      np.full(p2.n_element, 2, np.int64)]),
+                 d_time=1e-8, end_time=1e-6, contact_flag=1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_narrow_kernel_drops_no_accept(cuda, dtype):
+    """Nodes that accept 70 triangles and triangles that accept up to 153
+    nodes, past the 64 a warp's register lists hold: every node's and
+    every triangle's accepted pairs equal the plain version's (20,230 in
+    all), forces within the element bounds, bitwise repeatable."""
+    from hakai_tpu_torch.ops.contact import (broad_phase, contact_activity,
+                                             contact_kinematics)
+    from hakai_tpu_torch.ops.contact_cuda import (narrow_phase,
+                                                  narrow_phase_plain,
+                                                  pair_constants)
+    m = lower(stacked_model(), SolverConfig(dtype=dtype), device=cuda)
+    s = init_state(m)
+    kin = contact_kinematics(m, (m.coord + s.disp).to(m.edtype),
+                             s.velo.to(m.edtype))
+    acts = contact_activity(m, s.element_flag)
+    most, accepts = [0, 0], 0
+    for i, p in enumerate(m.pairs):
+        ksl, c = m.ckin_slices[i], pair_constants(m, p)
+        bp = broad_phase(p, kin, ksl, acts[i], c)
+        off_i, off_t = m.fs_offsets[i]
+        force = torch.full((2, 3, m.fs_width), float("nan"), dtype=m.edtype,
+                           device=cuda)
+        per_node, per_tri = narrow_phase(p, kin, ksl, bp, c, force[0],
+                                         (off_i, off_t), count=True)
+        narrow_phase(p, kin, ksl, bp, c, force[1], (off_i, off_t))
+        fi, ft, info = narrow_phase_plain(p, kin, ksl, bp, c, record=True)
+        hit = info["pairs"]
+        assert torch.equal(per_node, torch.bincount(
+            hit[:, 1], minlength=p.Cp).int())
+        assert torch.equal(per_tri, torch.bincount(
+            hit[:, 0], minlength=p.Tp).int())
+        for a, b, ref in ((off_i, p.Cp, fi), (off_t, p.Tp, ft)):
+            assert torch.equal(force[0, :, a:a + b], force[1, :, a:a + b])
+            if ref.abs().max() > 0:
+                assert _rel(force[0, :, a:a + b], ref) <= TOL[m.edtype]
+            else:
+                assert not force[0, :, a:a + b].any()
+        most = [max(most[0], int(per_node.max())),
+                max(most[1], int(per_tri.max()))]
+        accepts += info["accept"]
+    assert accepts == 20230 and most == [70, 153]
 
 
 def test_contact_run_chunk_card_matches_cpu_f64(cuda):
@@ -411,10 +489,12 @@ def test_stream_kernel_matches_plain(cuda, layout):
     assert stream_add1.launches == before + 1
 
 
-@pytest.mark.parametrize("E,TE", [(5003, 2048), (4096, 1000), (6, 4)])
+@pytest.mark.parametrize("E,TE", [(5003, 2048), (4096, 1000), (6, 4),
+                                  (5000, 2048)])
 def test_stream_kernel_ragged_strided(cuda, E, TE):
-    """The strided layout's ragged last tile and rows that are no multiple
-    of 4 floats (the scalar path) are written exactly, nothing past them."""
+    """The strided layout's ragged last tile, and rows or tiles that are no
+    multiple of 4 floats (the scalar path), are written exactly, nothing
+    past them."""
     from hakai_tpu_torch.ops.stream_cuda import stream_add1
     x = torch.arange(72 * E, dtype=torch.float32, device=cuda).view(72, E)
     out = torch.full_like(x, -7.0)
