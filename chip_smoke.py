@@ -17,7 +17,13 @@ without its last line):
    output; its unpacked entry (the generic step's) in float32, float32
    with the triaxiality output and float64; the assembly in float32 and
    float32 -> float64 (mixed).  Kernel, plain and (assembly)
-   ``index_add_`` times and the least time the card could take;
+   ``index_add_`` times and the least time the card could take, the
+   kernel's share of it, and each instantiation's registers, local
+   (spill) bytes, shared memory and resident blocks an SM; where
+   ``build/ref/`` holds the reference design's element and assembly
+   sources (REF_DIR), the same for them, built into a library of their
+   own, with every output bitwise the shipped kernels' on the same inputs
+   and a REF_CHUNK-step chunk of [run]'s deck bitwise too;
 4. trajectory: 100 steps of a plastic 16x16x64 bar on the card (kernels)
    and on the CPU (plain versions), compared;
 5. main path of the first slice: the 32x32x128 bar (131,072 elements,
@@ -117,6 +123,8 @@ The line before the last is nvidia-smi's name and power limit; the one
 before that the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX.
 """
+import contextlib
+import ctypes
 import dataclasses
 import json
 import os
@@ -290,6 +298,28 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "mixed": 67e12}
 ELEMENT_FLOP = 6200
 
 
+# The reference design of the element kernel and kernel B: their sources
+# as the parent commit has them, copied under build/ref/ before a run
+#   mkdir -p build/ref && for f in element assemble; do
+#     git show HEAD:hakai_tpu_torch/csrc/$f.cu > build/ref/$f.cu; done
+# [kernels] builds them into a library of their own and holds every
+# instantiation against them bit for bit, with their resources and times,
+# and a chunk of [run]'s deck; without them it says so and goes on.
+REF_DIR = os.path.join(ROOT, "build", "ref")
+REF_CHUNK = 1500                  # [run]'s deck past its first deletion
+# the instantiations hk_element_resources and hk_assemble_resources number
+# (0, 1, ...): element (K, T, unpacked, triax), assembly (T, O, row)
+ELEMENT_INST = [(k, t, g, x) for x in ("false", "true")
+                for k, t, g in (("float", "float", "false"),
+                                ("double", "double", "false"),
+                                ("double", "float", "false"),
+                                ("float", "float", "true"),
+                                ("double", "double", "true"))]
+ASSEMBLE_INST = [(t, o, "3", r) for r in ("NodeMajor", "Grouped")
+                 for t, o in (("float", "float"), ("double", "double"),
+                              ("float", "double"))]
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -360,6 +390,207 @@ def bound(n_bytes, n_flop, kind):
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
+def _ref_shim(name: str) -> str:
+    """A reference source with the resource entry of the shipped one."""
+    kern, inst, args = (("element_kernel", ELEMENT_INST, "int which, int, int")
+                        if name == "element" else
+                        ("assemble_kernel", ASSEMBLE_INST, "int which, int"))
+    cases = "".join(f"    case {i}: return ref_resources({kern}<"
+                    f"{', '.join(a)}>, out);\n" for i, a in enumerate(inst))
+    return f"""#include "{name}.cu"
+namespace {{
+template <class F> int ref_resources(F kernel, int* out) {{
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[1] = fa.numRegs;
+  out[2] = (int)fa.sharedSizeBytes;
+  out[3] = (int)fa.localSizeBytes;
+  out[4] = 0;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel,
+                                                            256, 0);
+}}
+}}  // namespace
+extern "C" int hk_{name}_resources({args}, int* out) {{
+  switch (which) {{
+{cases}    default: return (int)cudaErrorInvalidValue;
+  }}
+}}
+"""
+
+
+def build_reference():
+    """The reference design's element and assembly kernels (REF_DIR) as a
+    library of their own, with the pusai table loaded; None, said so,
+    where REF_DIR lacks their sources."""
+    import numpy as np
+
+    from hakai_tpu_torch import _build
+    from hakai_tpu_torch.ops.shape import pusai_hexa
+    names = ("element", "assemble")
+    if not all(os.path.isfile(os.path.join(REF_DIR, f"{n}.cu"))
+               for n in names):
+        log(f"[kernels] no reference sources in {REF_DIR} (element.cu, "
+            "assemble.cu): the bitwise check against the reference design "
+            "is skipped")
+        return None
+    t0 = time.perf_counter()
+    nvcc = _build.nvcc_path()
+    cmds, objs = [], []
+    for n in names:
+        shim = os.path.join(REF_DIR, f"_{n}_resources.cu")
+        with open(shim, "w") as f:
+            f.write(_ref_shim(n))
+        objs.append(os.path.join(REF_DIR, f"{n}.o"))
+        cmds.append([nvcc, *_build.NVCC_FLAGS, "-c", shim, "-o", objs[-1]])
+    so = os.path.join(REF_DIR, "libref.so")
+    out = _build._run_all(cmds) + _build._run_all(
+        [[nvcc, "-shared", *objs, "-o", so]])
+    lib = ctypes.CDLL(so)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    sigs = {n: _build._SIGNATURES[n] for n in _build._SIGNATURES
+            if n.startswith(("hk_assemble", "hk_blocked_assemble"))}
+    sigs.update({n: (P,) * 13 + (I,) * 3 + (P,) * 4 for n in
+                 ("hk_element_f32", "hk_element_f64", "hk_element_mixed")})
+    sigs.update({n: (P,) * 15 + (I,) * 3 + (P,) * 7 for n in
+                 ("hk_element_update_f32", "hk_element_update_f64")})
+    sigs.update(hk_set_pusai=(P,), hk_element_resources=(I, I, I, P),
+                hk_assemble_resources=(I, I, P))
+    for n, argtypes in sigs.items():
+        getattr(lib, n).argtypes = list(argtypes)
+        getattr(lib, n).restype = ctypes.c_int
+    table = np.ascontiguousarray(pusai_hexa(8), np.float64)
+    if lib.hk_set_pusai(table.ctypes.data) != 0:
+        raise RuntimeError("reference design: hk_set_pusai failed")
+    log(f"[kernels] reference design built from {REF_DIR} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for line in out.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log(f"[kernels] reference ptxas: {line.strip()}")
+    return lib
+
+
+class _Reference:
+    """The port's library with its element and assembly entries taken from
+    the reference build; the element entries drop the hardening table's
+    row count, which the reference design does not take."""
+    CUT = {"hk_element_f32": 13, "hk_element_f64": 13,
+           "hk_element_mixed": 13, "hk_element_update_f32": 15,
+           "hk_element_update_f64": 15}
+
+    def __init__(self, new, old):
+        self.new, self.old = new, old
+
+    def __getattr__(self, name):
+        if not name.startswith(("hk_element", "hk_assemble",
+                                "hk_blocked_assemble")):
+            return getattr(self.new, name)
+        fn, cut = getattr(self.old, name), self.CUT.get(name)
+        return fn if cut is None else (
+            lambda *a: fn(*a[:cut], *a[cut + 1:]))
+
+
+@contextlib.contextmanager
+def reference(ref):
+    """The port's wrappers launch the reference design's kernels."""
+    from hakai_tpu_torch import _build
+    shipped = _build._lib
+    _build._lib = _Reference(shipped, ref)
+    try:
+        yield
+    finally:
+        _build._lib = shipped
+
+
+def resources(lib, which, model=None, slots=0) -> dict:
+    """Resident blocks an SM, registers, static shared, local (spill) and
+    dynamic shared bytes of element instantiation ``which`` (with
+    ``model``'s hardening table) or of the assembly instantiation
+    ``which`` that a launch over ``slots`` incidence slots takes."""
+    from hakai_tpu_torch import _build
+    out = (ctypes.c_int * 5)()
+    if model is not None:
+        err = lib.hk_element_resources(which, *model.hard_strain.shape, out)
+    else:
+        err = lib.hk_assemble_resources(which, slots, out)
+    _build.check(lib, err, "resources")
+    return dict(zip(("blocks", "registers", "smem", "local", "dyn"), out))
+
+
+def _tensors(x):
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in _tensors(y)]
+    return [x]
+
+
+def vs_reference(rec, ref, which, call, out_new, model=None, slots=0):
+    """``rec`` gains the shipped instantiation's resources and, with a
+    reference build, the reference design's resources and time on the same
+    inputs; raises unless its outputs equal ``out_new`` bit for bit.
+    ``model``: an element instantiation's; ``slots``: an assembly's V."""
+    import torch
+    from hakai_tpu_torch import _build
+    rec["res"] = resources(_build.library(), which, model, slots)
+    if ref is None:
+        return
+    with reference(ref):
+        out_ref = call()
+        torch.cuda.synchronize()
+        rec["ref_ms"] = time_ms(call)
+    rec["ref_res"] = resources(ref, which, model, slots)
+    a, b = _tensors(out_new), _tensors(out_ref)
+    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("the kernel's outputs differ from the reference"
+                             " design's")
+
+
+def _res(r) -> str:
+    return (f"{r['registers']} registers, {r['local']} B local a thread, "
+            f"{r['smem']} B static + {r['dyn']} B dynamic shared, "
+            f"{r['blocks']} blocks/SM")
+
+
+def log_resources(rec, labels):
+    """Each instantiation's resources and time as a share of its bound,
+    beside the reference design's on the same inputs."""
+    for key, label in labels.items():
+        r = rec[key]
+        line = (f"[kernels] {label}: {_res(r['res'])}; {r['ms']:.4f} ms, "
+                f"{r['bound_ms'] / r['ms']:.3f} of its bound "
+                f"{r['bound_ms']:.4f} ms")
+        if "ref_ms" in r:
+            line += (f" | reference design: {_res(r['ref_res'])}; "
+                     f"{r['ref_ms']:.4f} ms, "
+                     f"{r['bound_ms'] / r['ref_ms']:.3f} of its bound; "
+                     "outputs bitwise equal")
+        log(line)
+
+
+def reference_chunk(model, ref):
+    """REF_CHUNK steps of ``model`` from its initial state through
+    run_chunk, with the shipped kernels and with the reference design's:
+    every state field bit for bit, past the first deletion."""
+    import torch
+    from hakai_tpu_torch import init_state, run_chunk
+    if ref is None:
+        return
+    s0 = init_state(model)
+    new = run_chunk(model, s0, REF_CHUNK)
+    with reference(ref):
+        old = run_chunk(model, s0, REF_CHUNK)
+    torch.cuda.synchronize()
+    differ = [f.name for f in dataclasses.fields(new)
+              if not torch.equal(getattr(new, f.name), getattr(old, f.name))]
+    alive, n = int(new.element_flag.sum()), int(model.elem_exists.sum())
+    log(f"[kernels] {REF_CHUNK} steps of [run]'s deck with the shipped and "
+        f"the reference kernels: {n - alive} elements deleted; fields that "
+        f"differ: {differ or 'none'}")
+    if differ:
+        raise AssertionError(f"the chunk differs from the reference: {differ}")
+    if alive == n:
+        raise AssertionError("the reference chunk deleted no element")
+
+
 def kind_of(model) -> str:
     import torch
     if model.dtype != model.edtype:
@@ -405,8 +636,9 @@ def element_inputs(model, rng, device):
             t(disp, model.dtype), t(dprev, model.dtype))
 
 
-def check_element(model, rng, name, want_triax=False):
-    """Kernel vs plain version on one random state; returns the JSON
+def check_element(model, rng, name, want_triax=False, ref=None):
+    """Kernel vs plain version on one random state, and bitwise against
+    the reference design ``ref`` where there is one; returns the JSON
     record's numbers."""
     import torch
     from hakai_tpu_torch.ops.element import element_core_packed_plain
@@ -457,8 +689,12 @@ def check_element(model, rng, name, want_triax=False):
     rec["bound_ms"], rec["bound_by"] = bound(moved, ELEMENT_FLOP * model.E,
                                              kind)
     rec["library_ms"] = None
+    vs_reference(rec, ref, ("float32", "float64", "mixed").index(kind)
+                 + 5 * want_triax, lambda: element_core_packed(
+                     model, P, flag, disp, dprev, want_triax), out_k, model)
     log(f"[kernels] element {name} {kind}{' +triax' if want_triax else ''}: "
-        f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+        f"kernel {rec['ms']:.4f} ms ({rec['bound_ms'] / rec['ms']:.3f} of "
+        f"bound), plain {rec['plain_ms']:.4f} ms, bound "
         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {moved / 1e6:.1f} MB,"
         f" {ELEMENT_FLOP * model.E / 1e9:.2f} GFLOP)")
     return rec
@@ -476,9 +712,10 @@ def update_inputs(model, rng, device):
             P[56:64].contiguous(), P[64:72].contiguous(), flag)
 
 
-def check_update(model, rng, name, want_triax=False):
+def check_update(model, rng, name, want_triax=False, ref=None):
     """The unpacked entry (TPU kernel #3) against its plain version on one
-    random state; returns the JSON record's numbers."""
+    random state, and bitwise against the reference design ``ref`` where
+    there is one; returns the JSON record's numbers."""
     import torch
     from hakai_tpu_torch.ops.element import (element_core_plain,
                                              gather_element_nodes,
@@ -532,8 +769,12 @@ def check_update(model, rng, name, want_triax=False):
     rec["bound_ms"], rec["bound_by"] = bound(moved, ELEMENT_FLOP * model.E,
                                              kind)
     rec["library_ms"] = None
+    vs_reference(rec, ref, 3 + (kind == "float64") + 5 * want_triax,
+                 lambda: element_update(model, *u, want_triax=want_triax),
+                 out_k, model)
     log(f"[kernels] element_update {name} {kind}"
-        f"{' +triax' if want_triax else ''}: kernel {rec['ms']:.4f} ms, "
+        f"{' +triax' if want_triax else ''}: kernel {rec['ms']:.4f} ms "
+        f"({rec['bound_ms'] / rec['ms']:.3f} of bound), "
         f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
         f"({rec['bound_by']}: {moved / 1e6:.1f} MB, "
         f"{ELEMENT_FLOP * model.E / 1e9:.2f} GFLOP)")
@@ -553,7 +794,10 @@ def index_add_yardstick(model, qe, out_dtype, ref):
             time_ms(lambda: Q0.clone().index_add_(1, idx, src)))
 
 
-def check_assemble(model, rng, name, out_dtype=None):
+def check_assemble(model, rng, name, out_dtype=None, ref=None):
+    """Kernel B against its plain version on one random qe, and bitwise
+    against the reference design ``ref`` where there is one; returns the
+    JSON record's numbers."""
     import torch
     from hakai_tpu_torch.ops.assemble_cuda import assemble_internal_force
     from hakai_tpu_torch.ops.element import assemble_internal_force_plain
@@ -585,7 +829,11 @@ def check_assemble(model, rng, name, out_dtype=None):
         model, qe, out_dtype, Qp)
     moved = nbytes(qe, model.inc_idx, model.inc_mask, Qk)
     rec["bound_ms"], rec["bound_by"] = bound(moved, 24 * model.E, kind)
-    log(f"[kernels] assemble {name} {kind}: kernel {rec['ms']:.4f} ms, plain "
+    vs_reference(rec, ref, ("float32", "float64", "mixed").index(kind),
+                 lambda: assemble_internal_force(model, qe, out_dtype), Qk,
+                 slots=model.inc_idx.shape[0])
+    log(f"[kernels] assemble {name} {kind}: kernel {rec['ms']:.4f} ms "
+        f"({rec['bound_ms'] / rec['ms']:.3f} of bound), plain "
         f"{rec['plain_ms']:.4f} ms, index_add_ {rec['library_ms']:.4f} ms "
         f"(rel err {rec['library_err']:.1e}), bound {rec['bound_ms']:.4f} ms"
         f" ({rec['bound_by']}: {moved / 1e6:.1f} MB)")
@@ -1667,9 +1915,10 @@ def grouped_plan(model):
                          GROUPED_R_TILE).to(model.device)
 
 
-def check_grouped(model, rng, name, out_dtype=None):
+def check_grouped(model, rng, name, out_dtype=None, ref=None):
     """The grouped entry (TPU kernels #9/#10) against its plain version and
-    bitwise against kernel B on one random qe; returns the JSON record's
+    bitwise against kernel B on one random qe, and bitwise against the
+    reference design ``ref`` where there is one; returns the JSON record's
     numbers."""
     import torch
     from hakai_tpu_torch.ops.assemble_cuda import (assemble_internal_force,
@@ -1710,7 +1959,11 @@ def check_grouped(model, rng, name, out_dtype=None):
     moved = nbytes(src, plan.idx, plan.mask, Ok)
     ops = 3 * int(plan.mask.sum())
     rec["bound_ms"], rec["bound_by"] = bound(moved, ops, kind)
-    log(f"[grouped-asm] {name} {kind}: kernel {rec['ms']:.4f} ms (kernel B "
+    vs_reference(rec, ref, 3 + ("float32", "float64", "mixed").index(kind),
+                 lambda: blocked_assemble(src, plan, out_dtype), Ok,
+                 slots=plan.vl)
+    log(f"[grouped-asm] {name} {kind}: kernel {rec['ms']:.4f} ms "
+        f"({rec['bound_ms'] / rec['ms']:.3f} of bound; kernel B "
         f"on the same qe: see [kernels]), plain {rec['plain_ms']:.4f} ms, "
         f"index_add_ {rec['library_ms']:.4f} ms (rel err "
         f"{rec['library_err']:.1e}), bound {rec['bound_ms']:.4f} ms "
@@ -2353,6 +2606,7 @@ def main() -> int:
     for line in _build.BUILD_INFO["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
+    ref = build_reference()
 
     rng = np.random.default_rng(SEED)
     models = {}
@@ -2380,24 +2634,40 @@ def main() -> int:
                                                  "mixed"))
 
     rec = {
-        "f32": check_element(with_padding(bench, 128), rng, "bench"),
+        "f32": check_element(with_padding(bench, 128), rng, "bench",
+                             ref=ref),
         "f32_triax": check_element(with_padding(bench, 128), rng, "bench",
-                                   want_triax=True),
-        "f64": check_element(with_padding(bench64, 128), rng, "bench"),
+                                   want_triax=True, ref=ref),
+        "f64": check_element(with_padding(bench64, 128), rng, "bench",
+                             ref=ref),
         "mixed": check_element(with_padding(mixed, 128), rng, "bench",
-                               want_triax=True),
-        "u_f32": check_update(with_padding(bench, 128), rng, "bench"),
+                               want_triax=True, ref=ref),
+        "u_f32": check_update(with_padding(bench, 128), rng, "bench",
+                              ref=ref),
         "u_f32_triax": check_update(with_padding(bench, 128), rng, "bench",
-                                    want_triax=True),
-        "u_f64": check_update(with_padding(bench64, 128), rng, "bench"),
-        "asm_f32": check_assemble(bench, rng, "bench"),
-        "asm_f64": check_assemble(bench64, rng, "bench"),
-        "asm_mixed": check_assemble(mixed, rng, "bench", torch.float64),
-        "gasm_f32": check_grouped(bench, rng, "bench"),
-        "gasm_f64": check_grouped(bench64, rng, "bench"),
-        "gasm_mixed": check_grouped(mixed, rng, "bench", torch.float64),
+                                    want_triax=True, ref=ref),
+        "u_f64": check_update(with_padding(bench64, 128), rng, "bench",
+                              ref=ref),
+        "asm_f32": check_assemble(bench, rng, "bench", ref=ref),
+        "asm_f64": check_assemble(bench64, rng, "bench", ref=ref),
+        "asm_mixed": check_assemble(mixed, rng, "bench", torch.float64,
+                                    ref=ref),
+        "gasm_f32": check_grouped(bench, rng, "bench", ref=ref),
+        "gasm_f64": check_grouped(bench64, rng, "bench", ref=ref),
+        "gasm_mixed": check_grouped(mixed, rng, "bench", torch.float64,
+                                    ref=ref),
     }
-    del bench64, models
+    log_resources(rec, {
+        "f32": "element packed float32", "f32_triax": "element packed "
+        "float32 +triax", "f64": "element packed float64", "mixed":
+        "element packed mixed +triax", "u_f32": "element unpacked float32",
+        "u_f32_triax": "element unpacked float32 +triax", "u_f64":
+        "element unpacked float64", "asm_f32": "kernel B float32",
+        "asm_f64": "kernel B float64", "asm_mixed": "kernel B "
+        "float32->float64", "gasm_f32": "grouped float32", "gasm_f64":
+        "grouped float64", "gasm_mixed": "grouped float32->float64"})
+    reference_chunk(mixed, ref)
+    del bench64, models, ref
     lap("[kernels] and [grouped-asm] kernels")
     dma_rec, dma_launches = dma_phase(smi_line)
     lap("[dma]")

@@ -55,17 +55,20 @@ _SIGNATURES = {
     "hk_gather_cols_f64": (_P, _I, _I, _P, _I, _P, _P),
     "hk_set_pusai": (_P,),
     # elem, coord_e, disp, dprev, P, G, lam, mat, hasp, flag,
-    # hard_strain, hard_slope, hard_n, hard_cols, E, N, P_out, qe, triax
-    # (None: no triaxiality output), stream
-    "hk_element_f32": (_P,) * 13 + (_I, _I, _I, _P, _P, _P, _P),
-    "hk_element_f64": (_P,) * 13 + (_I, _I, _I, _P, _P, _P, _P),
-    "hk_element_mixed": (_P,) * 13 + (_I, _I, _I, _P, _P, _P, _P),
+    # hard_strain, hard_slope, hard_n, hard_rows, hard_cols, E, N, P_out,
+    # qe, triax (None: no triaxiality output), stream
+    "hk_element_f32": (_P,) * 13 + (_I,) * 4 + (_P,) * 4,
+    "hk_element_f64": (_P,) * 13 + (_I,) * 4 + (_P,) * 4,
+    "hk_element_mixed": (_P,) * 13 + (_I,) * 4 + (_P,) * 4,
     # elem, position, d_disp, stress, strain, eq_ps, yield, G, lam, mat,
-    # hasp, flag, hard_strain, hard_slope, hard_n, hard_cols, E, N,
-    # stress_out, strain_out, eq_out, yield_out, qe, triax (None: no
+    # hasp, flag, hard_strain, hard_slope, hard_n, hard_rows, hard_cols, E,
+    # N, stress_out, strain_out, eq_out, yield_out, qe, triax (None: no
     # triaxiality output), stream
-    "hk_element_update_f32": (_P,) * 15 + (_I, _I, _I) + (_P,) * 7,
-    "hk_element_update_f64": (_P,) * 15 + (_I, _I, _I) + (_P,) * 7,
+    "hk_element_update_f32": (_P,) * 15 + (_I,) * 4 + (_P,) * 7,
+    "hk_element_update_f64": (_P,) * 15 + (_I,) * 4 + (_P,) * 7,
+    # instantiation, hard_rows, hard_cols, out (5 ints: blocks an SM,
+    # registers, static and local bytes, dynamic shared bytes)
+    "hk_element_resources": (_I, _I, _I, _P),
     # qe, inc_idx, inc_mask, V, N, E, Q, stream
     "hk_assemble_f32": (_P, _P, _P, _I, _I, _I, _P, _P),
     "hk_assemble_f64": (_P, _P, _P, _I, _I, _I, _P, _P),
@@ -74,6 +77,8 @@ _SIGNATURES = {
     "hk_blocked_assemble_f32": (_P, _I, _P, _P, _I, _I, _I, _P, _P),
     "hk_blocked_assemble_f64": (_P, _I, _P, _P, _I, _I, _I, _P, _P),
     "hk_blocked_assemble_f32_f64": (_P, _I, _P, _P, _I, _I, _I, _P, _P),
+    # instantiation, slots V, out (as hk_element_resources)
+    "hk_assemble_resources": (_I, _I, _P),
     # x, o, rows, E, TE, layout, stream
     "hk_stream_add1_f32": (_P, _P, _I, _I, _I, _I, _P),
     # src, W, builds, n_tiles, mode, off (8 ints, host), out, stream

@@ -112,7 +112,7 @@ def element_core_packed(model: LoweredModel, P, flag, disp, disp_prev,
             model.mat_id.data_ptr(), model.has_plastic_e.data_ptr(),
             flag.data_ptr(), model.hard_strain.data_ptr(),
             model.hard_slope.data_ptr(), model.hard_n.data_ptr(),
-            model.hard_strain.shape[1], E, N,
+            *model.hard_strain.shape, E, N,
             P_out.data_ptr(), qe.data_ptr(),
             None if triax is None else triax.data_ptr(),
             torch.cuda.current_stream(P.device).cuda_stream)
@@ -184,7 +184,7 @@ def element_update(model: LoweredModel, position, d_disp, stress, strain,
             model.mat_id.data_ptr(), model.has_plastic_e.data_ptr(),
             element_flag.data_ptr(), model.hard_strain.data_ptr(),
             model.hard_slope.data_ptr(), model.hard_n.data_ptr(),
-            model.hard_strain.shape[1], E, N,
+            *model.hard_strain.shape, E, N,
             *(x.data_ptr() for x in out), qe.data_ptr(),
             None if triax is None else triax.data_ptr(),
             torch.cuda.current_stream(position.device).cuda_stream)

@@ -1,5 +1,6 @@
 """The kernel build recipe (hakai_tpu_torch._build): what nvcc is asked to
 compile, without a compiler (the card's smoke run builds and loads it)."""
+import re
 from pathlib import Path
 
 from hakai_tpu_torch import _build
@@ -39,3 +40,21 @@ def test_every_c_entry_point_is_declared():
             if tok.startswith("hk_"):
                 defined.add(tok)
     assert defined == declared
+
+
+def test_c_entry_arguments_match_their_declarations():
+    """Each extern "C" entry takes as many arguments as its ctypes
+    declaration passes, so a kernel's new parameter (the element kernel's
+    hardening-table row count) reaches every call."""
+    seen = set()
+    for p in _build.CSRC.glob("*.cu"):
+        text = p.read_text()
+        body = text[text.index('extern "C" {'):]
+        for m in re.finditer(r"\b(hk_\w+)\(([^)]*)\)\s*\{", body):
+            name, params = m.groups()
+            if name == "hk_error_string":
+                continue
+            n = len([x for x in params.split(",") if x.strip()])
+            assert len(_build._SIGNATURES[name]) == n, name
+            seen.add(name)
+    assert seen == set(_build._SIGNATURES)

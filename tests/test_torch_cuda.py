@@ -134,6 +134,145 @@ def test_grouped_assembly_matches_kernel_b(cuda, dtype):
         == (before[0] + 1, before[1])
 
 
+# the element arrays of a lowered model (last axis E)
+ELEMENT_FIELDS = ("elem", "elem_exists", "coord_e", "mat_id", "G_e", "lam_e",
+                  "has_plastic_e", "yield0_e", "vol_e")
+
+
+def first_elements(m, E):
+    """``m`` cut to its first ``E`` element lanes, the nodes kept."""
+    return dataclasses.replace(m, E=E, **{
+        f: getattr(m, f)[..., :E].contiguous() for f in ELEMENT_FIELDS})
+
+
+def _cut(x, E):
+    return x[..., :E].contiguous()
+
+
+@pytest.mark.parametrize("E", [1, 31, 32, 33, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "mixed"])
+@pytest.mark.parametrize("entry", ["packed", "unpacked"])
+def test_element_kernel_at_tile_edges(cuda, entry, dtype, E):
+    """Each entry of the element kernel, with and without the triaxiality
+    output, at E = 1, one below, at and one above a multiple of its
+    32-element tile, and at 4,096 lanes of which 2,048 pad the 8x8x32 bar:
+    within the element bounds of its plain version, its lanes bitwise those
+    of a launch over the whole mesh, a second launch bitwise the first, and
+    no force on dead or padding lanes."""
+    m = port_fast_model(bar_model(8, 8, 32, ductile=True),
+                        SolverConfig(dtype=dtype, elem_pad=4096), cuda)
+    assert m.E == 4096 and int(m.elem_exists.sum()) == 2048
+    mc = first_elements(m, E)
+    for want_triax in (False, True):
+        if entry == "packed":
+            P, flag, disp, dprev = _inputs(m, 5)
+            args = (_cut(P, E), _cut(flag, E), disp, dprev)
+            outs = [element_core_packed(mc, *args, want_triax=want_triax)
+                    for _ in range(2)]
+            whole = element_core_packed(m, P, flag, disp, dprev,
+                                        want_triax=want_triax)
+            ref = element_core_packed_plain(mc, *args, want_triax)
+            qe = outs[0][1]
+        else:
+            u = _update_inputs(m, 5)
+            flag = u[-1]
+            uc = u[:2] + tuple(_cut(x, E) for x in u[2:])
+            outs = [element_update(mc, *uc, want_triax=want_triax)
+                    for _ in range(2)]
+            whole = element_update(m, *u, want_triax=want_triax)
+            pos_e, du = gather_element_nodes(mc, uc[0], uc[1])
+            res = element_core_plain(mc, pos_e, du, *uc[2:])
+            ref = (res, triax_stress(res.stress)) if want_triax else res
+
+            def fields(x):   # Qe, stress, strain, eq_ps, yield_s[, triax]
+                return (list(x[0][:5]) + [x[1]]) if want_triax else \
+                    list(x[:5])
+            outs, whole, ref = [fields(o) for o in outs], fields(whole), \
+                fields(ref)
+            qe = outs[0][0]
+        tols = [TOL[m.edtype]] * (len(ref) - want_triax) \
+            + [TRIAX_TOL[m.edtype]] * want_triax
+        for a, b, w, r, tol in zip(*outs, whole, ref, tols):
+            assert a.dtype == r.dtype == m.edtype and a.shape == r.shape
+            assert torch.equal(a, b) and torch.equal(a, _cut(w, E))
+            assert _rel(a, r) <= tol
+        assert not qe[..., ~_cut(flag, E)].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_element_kernel_reads_large_tables_from_memory(cuda, dtype):
+    """A hardening table too large for the kernel's shared-memory staging
+    (2 KB; here its columns padded to 300, its rows unchanged) is read
+    from device memory instead, with the same bits, in both entries."""
+    m = port_fast_model(bar_model(8, 8, 32),
+                        SolverConfig(dtype=dtype, elem_pad=4096), cuda)
+    pad = 300 - m.hard_strain.shape[1]
+    big = dataclasses.replace(
+        m, hard_strain=torch.nn.functional.pad(m.hard_strain, (0, pad)),
+        hard_slope=torch.nn.functional.pad(m.hard_slope, (0, pad)))
+    args, u = _inputs(m, 6), _update_inputs(m, 6)
+    for a, b in zip(element_core_packed(m, *args, want_triax=True),
+                    element_core_packed(big, *args, want_triax=True)):
+        assert torch.equal(a, b)
+    ra, ta = element_update(m, *u, want_triax=True)
+    rb, tb = element_update(big, *u, want_triax=True)
+    assert torch.equal(ta, tb)
+    assert all(torch.equal(a, b) for a, b in zip(ra, rb))
+    assert (args[0][56:64] != element_core_packed(m, *args)[0][56:64]).any()
+
+
+def incidence(V, N, E, masked, seed):
+    """A random (V, N) incidence table into 8E columns with a share
+    ``masked`` of its slots masked, a masked slot's index far out of range
+    (the kernel must not load it), and one node with every slot masked."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, 8 * E, size=(V, N))
+    mask = rng.random((V, N)) >= masked
+    mask[:, 7] = False
+    return np.where(mask, idx, 1 << 30).astype(np.int32), mask
+
+
+@pytest.mark.parametrize("V", [1, 8, 11])
+@pytest.mark.parametrize("types", [("float32", "float32"),
+                                   ("float64", "float64"),
+                                   ("float32", "float64")])
+def test_assembly_kernel_on_synthetic_tables(cuda, V, types):
+    """Kernel B on random incidence tables of V = 1, 8 (the hex meshes')
+    and 11 (above the 8 slots a thread has in flight at once), a quarter
+    of the slots masked, over N = 1,000 columns (a ragged last block):
+    on integer forces (exact sums) bitwise the float64 sum in slot order,
+    rounded; on random forces bitwise a sum in slot order in the force
+    type; bitwise equal on a second launch; and, as the grouped entry on
+    the node-block-major grouping of the table, bitwise kernel B."""
+    qdt, odt = (getattr(torch, t) for t in types)
+    m = lower(bar_model(4, 4, 16), SolverConfig(dtype=types[0]), device=cuda)
+    N, E = 1000, m.E
+    idx, mask = incidence(V, N, E, 0.25, V)
+    mg = dataclasses.replace(m, N=N, inc_idx=torch.as_tensor(idx, device=cuda),
+                             inc_mask=torch.as_tensor(mask, device=cuda))
+    rng = np.random.default_rng(V + 1)
+    q_int = rng.integers(-1024, 1025, size=(24, E)).astype(np.float64)
+    want = np.where(mask[None], q_int.reshape(3, 8 * E)[:, np.where(
+        mask, idx, 0)], 0.0).sum(axis=1)
+    got = assemble_internal_force(mg, torch.as_tensor(q_int, device=cuda)
+                                  .to(qdt), odt)
+    assert got.dtype == odt
+    assert torch.equal(got, torch.as_tensor(want, device=cuda).to(odt))
+    qe = torch.as_tensor(rng.normal(scale=100.0, size=(24, E)),
+                         device=cuda).to(qdt)
+    Q = assemble_internal_force(mg, qe, odt)
+    assert torch.equal(Q, assemble_internal_force(mg, qe, odt))
+    qf, safe = qe.reshape(3, 8 * E), torch.as_tensor(
+        np.where(mask, idx, 0), device=cuda).long()
+    acc = torch.zeros((3, N), dtype=qdt, device=cuda)
+    for v in range(V):
+        acc = acc + torch.where(mg.inc_mask[v], qf[:, safe[v]], 0.0)
+    assert torch.equal(Q, acc.to(odt))
+    gi, gm = node_block_grouping(np.where(mask, idx, 0), mask, 256)
+    plan = plan_assemble(gi, gm, 8 * E, V, 256).to(cuda)
+    assert torch.equal(blocked_assemble(qf, plan, odt)[:, :N], Q)
+
+
 def test_wrappers_refuse_wrong_inputs(cuda):
     m = port_fast_model(bar_model(4, 4, 16), SolverConfig(dtype="float32"),
                         cuda)
