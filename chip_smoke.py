@@ -20,10 +20,11 @@ without its last line):
    ``index_add_`` times and the least time the card could take, the
    kernel's share of it, and each instantiation's registers, local
    (spill) bytes, shared memory and resident blocks an SM; where
-   ``build/ref/`` holds the reference design's element and assembly
-   sources (REF_DIR), the same for them, built into a library of their
-   own, with every output bitwise the shipped kernels' on the same inputs
-   and a REF_CHUNK-step chunk of [run]'s deck bitwise too;
+   ``build/ref/`` holds the reference design's sources (REF_DIR: the
+   parent commit's element, assembly, contact and interleave kernels),
+   times for them, built into a library of their own, with every output
+   bitwise the shipped kernels' on the same inputs and a REF_CHUNK-step
+   chunk of [run]'s deck bitwise too;
 4. trajectory: 100 steps of a plastic 16x16x64 bar on the card (kernels)
    and on the CPU (plain versions), compared;
 5. main path of the first slice: the 32x32x128 bar (131,072 elements,
@@ -51,7 +52,10 @@ without its last line):
    in both types beside PR 7's block-loop kernel, and its CUDA launches a
    step counted by the profiler; its time as each of 2 ranks calls it
    under [sharded-contact]'s deal, the ranks' forces summed bitwise one
-   device's; its time when built with FMA contraction;
+   device's; its time when built with FMA contraction; the scatter's
+   resources and share of bound; given the reference design, the scatter
+   bitwise the reference S, timed beside it, and a REF_CONTACT_CHUNK-step
+   chunk of the deck with either S, every field bitwise;
 10. contact-cpu: a small impact with erosion, cube off the slab's grid
    lines, one step at a time on the card and on the CPU (below 2,048
    elements: the generic step): the first contact steps and the deletion
@@ -108,7 +112,9 @@ without its last line):
    at the TPU probe's 512 tiles x 60 builds from a (64, 8, 128) window,
    through the port's interleave probe (slope-timed us/pass and ns/build,
    each chain bitwise its plain version's), then each mode bitwise its
-   plain version on a random window and timed alone beside the bound;
+   plain version on a random window and timed alone beside the bound,
+   with its resources; given the reference design, the probe on the
+   reference kernel and each mode bitwise it, timed;
 23. multihost (seventh slice): [cli]'s written deck through two CLI
    processes on loopback (``--multihost 127.0.0.1:P,2,K --halo 2``, one
    gloo rank each, sharing the card), each writing to a directory of its
@@ -298,26 +304,20 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "mixed": 67e12}
 ELEMENT_FLOP = 6200
 
 
-# The reference design of the element kernel and kernel B: their sources
-# as the parent commit has them, copied under build/ref/ before a run
-#   mkdir -p build/ref && for f in element assemble; do
+# The reference design of the element kernel, kernel B, kernel S and TPU
+# kernel #12's replacement: their sources as the parent commit has them,
+# copied under build/ref/ before a run
+#   mkdir -p build/ref && for f in element assemble contact interleave; do
 #     git show HEAD:hakai_tpu_torch/csrc/$f.cu > build/ref/$f.cu; done
 # [kernels] builds them into a library of their own and holds every
-# instantiation against them bit for bit, with their resources and times,
-# and a chunk of [run]'s deck; without them it says so and goes on.
+# element and assembly instantiation against them bit for bit, with their
+# resources and times, and a chunk of [run]'s deck; [contact-kernels] and
+# [interleave] do the same for S (and a chunk of [contact]'s deck) and
+# #12.  Without them each says so and goes on.
 REF_DIR = os.path.join(ROOT, "build", "ref")
+REF_SOURCES = ("element", "assemble", "contact", "interleave")
 REF_CHUNK = 1500                  # [run]'s deck past its first deletion
-# the instantiations hk_element_resources and hk_assemble_resources number
-# (0, 1, ...): element (K, T, unpacked, triax), assembly (T, O, row)
-ELEMENT_INST = [(k, t, g, x) for x in ("false", "true")
-                for k, t, g in (("float", "float", "false"),
-                                ("double", "double", "false"),
-                                ("double", "float", "false"),
-                                ("float", "float", "true"),
-                                ("double", "double", "true"))]
-ASSEMBLE_INST = [(t, o, "3", r) for r in ("NodeMajor", "Grouped")
-                 for t, o in (("float", "float"), ("double", "double"),
-                              ("float", "double"))]
+REF_CONTACT_CHUNK = 400           # [contact]'s deck past its first deletion
 
 
 def log(*a):
@@ -390,75 +390,48 @@ def bound(n_bytes, n_flop, kind):
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
-def _ref_shim(name: str) -> str:
-    """A reference source with the resource entry of the shipped one."""
-    kern, inst, args = (("element_kernel", ELEMENT_INST, "int which, int, int")
-                        if name == "element" else
-                        ("assemble_kernel", ASSEMBLE_INST, "int which, int"))
-    cases = "".join(f"    case {i}: return ref_resources({kern}<"
-                    f"{', '.join(a)}>, out);\n" for i, a in enumerate(inst))
-    return f"""#include "{name}.cu"
-namespace {{
-template <class F> int ref_resources(F kernel, int* out) {{
-  cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
-  if (err != cudaSuccess) return (int)err;
-  out[1] = fa.numRegs;
-  out[2] = (int)fa.sharedSizeBytes;
-  out[3] = (int)fa.localSizeBytes;
-  out[4] = 0;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel,
-                                                            256, 0);
-}}
-}}  // namespace
-extern "C" int hk_{name}_resources({args}, int* out) {{
-  switch (which) {{
-{cases}    default: return (int)cudaErrorInvalidValue;
-  }}
-}}
-"""
-
-
 def build_reference():
-    """The reference design's element and assembly kernels (REF_DIR) as a
-    library of their own, with the pusai table loaded; None, said so,
-    where REF_DIR lacks their sources."""
+    """The reference design's kernels (REF_DIR, REF_SOURCES) as a library
+    of their own, with the pusai table loaded; None, said so, where REF_DIR
+    lacks their sources."""
     import numpy as np
 
     from hakai_tpu_torch import _build
     from hakai_tpu_torch.ops.shape import pusai_hexa
-    names = ("element", "assemble")
     if not all(os.path.isfile(os.path.join(REF_DIR, f"{n}.cu"))
-               for n in names):
-        log(f"[kernels] no reference sources in {REF_DIR} (element.cu, "
-            "assemble.cu): the bitwise check against the reference design "
-            "is skipped")
+               for n in REF_SOURCES):
+        log(f"[kernels] no reference sources in {REF_DIR} ("
+            + ", ".join(f"{n}.cu" for n in REF_SOURCES) + "): the bitwise "
+            "check against the reference design is skipped")
         return None
     t0 = time.perf_counter()
     nvcc = _build.nvcc_path()
     cmds, objs = [], []
-    for n in names:
-        shim = os.path.join(REF_DIR, f"_{n}_resources.cu")
-        with open(shim, "w") as f:
-            f.write(_ref_shim(n))
+    for n in REF_SOURCES:
+        src = os.path.join(REF_DIR, f"{n}.cu")
         objs.append(os.path.join(REF_DIR, f"{n}.o"))
-        cmds.append([nvcc, *_build.NVCC_FLAGS, "-c", shim, "-o", objs[-1]])
+        cmds.append([nvcc, *_build.NVCC_FLAGS,
+                     *_build.SOURCE_FLAGS.get(f"{n}.cu", ()), "-c", src,
+                     "-o", objs[-1]])
     so = os.path.join(REF_DIR, "libref.so")
     out = _build._run_all(cmds) + _build._run_all(
         [[nvcc, "-shared", *objs, "-o", so]])
     lib = ctypes.CDLL(so)
     P, I = ctypes.c_void_p, ctypes.c_int
+    # the element, assembly and interleave entries take the shipped ones'
+    # arguments; the reference S takes the CSR: src, ld, ptr, mid, col, N,
+    # out, stream
     sigs = {n: _build._SIGNATURES[n] for n in _build._SIGNATURES
-            if n.startswith(("hk_assemble", "hk_blocked_assemble"))}
-    sigs.update({n: (P,) * 13 + (I,) * 3 + (P,) * 4 for n in
-                 ("hk_element_f32", "hk_element_f64", "hk_element_mixed")})
-    sigs.update({n: (P,) * 15 + (I,) * 3 + (P,) * 7 for n in
-                 ("hk_element_update_f32", "hk_element_update_f64")})
-    sigs.update(hk_set_pusai=(P,), hk_element_resources=(I, I, I, P),
-                hk_assemble_resources=(I, I, P))
+            if n.startswith(("hk_element", "hk_assemble",
+                             "hk_blocked_assemble", "hk_set_pusai",
+                             "hk_interleave_f32"))}
+    sigs.update({n: (P, I, P, P, P, I, P, P) for n in
+                 ("hk_scatter_f32", "hk_scatter_f64", "hk_scatter_f32_f64")})
     for n, argtypes in sigs.items():
         getattr(lib, n).argtypes = list(argtypes)
         getattr(lib, n).restype = ctypes.c_int
+    lib.hk_error_string.argtypes = [I]
+    lib.hk_error_string.restype = ctypes.c_char_p
     table = np.ascontiguousarray(pusai_hexa(8), np.float64)
     if lib.hk_set_pusai(table.ctypes.data) != 0:
         raise RuntimeError("reference design: hk_set_pusai failed")
@@ -471,23 +444,17 @@ def build_reference():
 
 
 class _Reference:
-    """The port's library with its element and assembly entries taken from
-    the reference build; the element entries drop the hardening table's
-    row count, which the reference design does not take."""
-    CUT = {"hk_element_f32": 13, "hk_element_f64": 13,
-           "hk_element_mixed": 13, "hk_element_update_f32": 15,
-           "hk_element_update_f64": 15}
+    """The port's library with its element, assembly and interleave entries
+    taken from the reference build (the reference S takes the CSR: see
+    reference_scatter)."""
 
     def __init__(self, new, old):
         self.new, self.old = new, old
 
     def __getattr__(self, name):
-        if not name.startswith(("hk_element", "hk_assemble",
-                                "hk_blocked_assemble")):
-            return getattr(self.new, name)
-        fn, cut = getattr(self.old, name), self.CUT.get(name)
-        return fn if cut is None else (
-            lambda *a: fn(*a[:cut], *a[cut + 1:]))
+        old = name.startswith(("hk_element", "hk_assemble",
+                               "hk_blocked_assemble", "hk_interleave_f32"))
+        return getattr(self.old if old else self.new, name)
 
 
 @contextlib.contextmanager
@@ -500,6 +467,34 @@ def reference(ref):
         yield
     finally:
         _build._lib = shipped
+
+
+def ref_scatter(ref, model, force, out_dtype):
+    """The reference S (the parent commit's kernel, over the CSR) on
+    ``force``: its (3, N) output."""
+    import torch
+    from hakai_tpu_torch import _build
+    from hakai_tpu_torch.ops.contact_cuda import _SCATTER
+    out = torch.empty((3, model.N), dtype=out_dtype, device=force.device)
+    err = getattr(ref, _SCATTER[(force.dtype, out_dtype)])(
+        force.data_ptr(), model.fs_width, model.fs_ptr.data_ptr(),
+        model.fs_mid.data_ptr(), model.fs_col.data_ptr(), model.N,
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(ref, err, "reference scatter kernel")
+    return out
+
+
+@contextlib.contextmanager
+def reference_scatter(ref):
+    """The contact path sums its forces with the reference S."""
+    from hakai_tpu_torch.ops import contact
+    shipped = contact.scatter_forces
+    contact.scatter_forces = (lambda model, force, out_dtype=None:
+                              ref_scatter(ref, model, force, out_dtype))
+    try:
+        yield
+    finally:
+        contact.scatter_forces = shipped
 
 
 def resources(lib, which, model=None, slots=0) -> dict:
@@ -1500,8 +1495,12 @@ def rank_shares(args, kin, force, world=2):
     return ms
 
 
-def check_scatter(model, force, out_dtype, kind):
+def check_scatter(model, force, out_dtype, kind, ref_lib=None):
+    """Kernel S against its plain version (and, given the reference
+    library, bitwise against the reference S) on ``force``; times, bound,
+    resources."""
     import torch
+    from hakai_tpu_torch import _build
     from hakai_tpu_torch.ops.contact_cuda import (scatter_forces,
                                                   scatter_forces_plain)
     tol = CONTACT_TOL[("scatter", kind)]
@@ -1517,6 +1516,19 @@ def check_scatter(model, force, out_dtype, kind):
     rec["ms"], rec["plain_ms"] = _time_pair(
         lambda: scatter_forces(model, force, out_dtype),
         lambda: scatter_forces_plain(model, force, out_dtype))
+    out = (ctypes.c_int * 5)()
+    which = {torch.float32: 0, torch.float64: 1}[force.dtype]
+    which = 2 if force.dtype != out_dtype else which
+    _build.check(_build.library(), _build.library().hk_scatter_resources(
+        which, model.fs_emax, out), "scatter resources")
+    rec["res"] = dict(zip(("blocks", "registers", "smem", "local", "dyn"),
+                          out))
+    if ref_lib is not None:
+        if not torch.equal(g, ref_scatter(ref_lib, model, force, out_dtype)):
+            raise AssertionError(f"scatter kernel ({kind}) differs from the "
+                                 "reference S")
+        rec["ref_ms"] = time_ms(lambda: ref_scatter(ref_lib, model, force,
+                                                    out_dtype))
     # one PyTorch call for the same sum (another order, atomics): index_add_
     # of the signed contributions into their nodes
     ptr = model.fs_ptr.long()
@@ -1532,14 +1544,49 @@ def check_scatter(model, force, out_dtype, kind):
     moved = nbytes(model.fs_ptr, model.fs_mid, model.fs_col, force, g)
     rec["bound_ms"], rec["bound_by"] = bound(
         moved, 3 * model.fs_col.shape[0], kind)
+    vs = (f"; the reference S {rec['ref_ms']:.4f} ms "
+          f"({rec['bound_ms'] / rec['ref_ms']:.3f} of its bound), outputs "
+          "bitwise equal" if "ref_ms" in rec else
+          "; no reference S (REF_DIR) to hold it against")
     log(f"[contact-kernels] scatter {kind} -> {g.dtype}: rel err {err:.3e} "
-        f"(tol {tol:g}); kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
-        f" ms, index_add_ {rec['library_ms']:.4f} ms, bound "
-        f"{rec['bound_ms']:.4f} ms ({moved / 1e6:.1f} MB)")
+        f"(tol {tol:g}); kernel {rec['ms']:.4f} ms "
+        f"({rec['bound_ms'] / rec['ms']:.3f} of its bound; blocks of "
+        f"{model.fs_nb} nodes, at most {model.fs_emax} entries; "
+        f"{_res(rec['res'])}), plain {rec['plain_ms']:.4f} ms, index_add_ "
+        f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({moved / 1e6:.1f} MB){vs}")
     return rec
 
 
-def contact_kernels(model, state, smi_line, n_launch):
+def reference_contact_chunk(model, ref):
+    """REF_CONTACT_CHUNK steps of [contact]'s deck from its initial state
+    through run_chunk, with the shipped S and with the reference S: every
+    state field bit for bit, past the first contact and first deletion."""
+    import torch
+    from hakai_tpu_torch import init_state, run_chunk
+    if ref is None:
+        return
+    s0 = init_state(model)
+    new = run_chunk(model, s0, REF_CONTACT_CHUNK)
+    with reference_scatter(ref):
+        old = run_chunk(model, s0, REF_CONTACT_CHUNK)
+    torch.cuda.synchronize()
+    differ = [f.name for f in dataclasses.fields(new)
+              if not torch.equal(getattr(new, f.name), getattr(old, f.name))]
+    alive, n = int(new.element_flag.sum()), int(model.elem_exists.sum())
+    log(f"[contact-kernels] {REF_CONTACT_CHUNK} steps of [contact]'s deck "
+        f"with the shipped and the reference S: contact force max "
+        f"{new.contact_force.abs().max().item():.4e}, {n - alive} elements "
+        f"deleted; fields that differ: {differ or 'none'}")
+    if differ:
+        raise AssertionError(f"the contact chunk differs from the reference"
+                             f" S's: {differ}")
+    if alive == n:
+        raise AssertionError("the reference contact chunk deleted no "
+                             "element")
+
+
+def contact_kernels(model, state, smi_line, n_launch, ref=None):
     """Kernels G, N and S against their plain versions on the deck's own
     state with contact active, in the main path's types (f32 math, f64
     store) and in float64; times and bounds, N's in both types beside its
@@ -1558,7 +1605,7 @@ def contact_kernels(model, state, smi_line, n_launch):
         args, force, stages, rec_n = check_narrow(model, kin, acts, kind)
         out_dtype = torch.float64
         rec_s = check_scatter(model, force, out_dtype,
-                              "mixed" if dt == torch.float32 else kind)
+                              "mixed" if dt == torch.float32 else kind, ref)
         recs[kind] = (rec_g, rec_n, rec_s)
 
         def step_calls(out=force):
@@ -1610,6 +1657,7 @@ def contact_kernels(model, state, smi_line, n_launch):
             f"against {rec_n['ms']:.4f} ms before and {ms_after:.4f} ms after"
             f" it for the shipped -fmad=false build; forces differ by "
             f"{err_fma:.3e} normwise [{smi_line}]")
+    reference_contact_chunk(model, ref)
     return recs["float32"]
 
 
@@ -2293,19 +2341,30 @@ def dma_phase(smi_line):
     return recs["strided"], launches["stream"]
 
 
-def interleave_phase(smi_line):
+def interleave_phase(smi_line, ref=None):
     """[interleave]: TPU kernel #12's replacement through the port's
     interleave probe (the probe's passes are the launches counted), then
     each mode bitwise against its plain version on a random window and
-    timed alone (cold L2) beside the bound.  Returns {mode: record}."""
+    timed alone (cold L2) beside the bound, with its resources; given the
+    reference library, the probe again on the reference kernel, and each
+    mode bitwise against it, timed.  Returns {mode: record}."""
     import torch
-    from hakai_tpu_torch.ops.interleave_cuda import (MODES, interleave,
+    from hakai_tpu_torch import _build
+    from hakai_tpu_torch.ops.interleave_cuda import (MODES, OFFSETS,
+                                                     interleave,
                                                      interleave_plain)
     from hakai_tpu_torch.probes.interleave import W, bound_s, probe
     reset_counts()
     slopes = probe(IL_TILES, IL_BUILDS, IL_N1, IL_N2, "cuda",
                    out=lambda line: log(f"[interleave] {line}"))
     counts = read_counts()
+    ref_slopes = {}
+    if ref is not None:
+        with reference(ref):
+            ref_slopes = probe(IL_TILES, IL_BUILDS, IL_N1, IL_N2, "cuda",
+                               out=lambda line: log(
+                                   f"[interleave] reference: {line}"),
+                               place=False)
     # per mode: a warm chain of n2, the timed n1 and n2, the checked n2
     want = 3 * IL_N2 + IL_N1
     launches = {m: counts.get(f"interleave[{m}]", 0) for m in MODES}
@@ -2329,13 +2388,38 @@ def interleave_phase(smi_line):
                    src, mode, IL_TILES, IL_BUILDS)),
                "library_ms": None, "bound_ms": b_s * 1e3, "bound_by": by,
                "launches": launches[mode]}
+        res = (ctypes.c_int * 5)()
+        offs = (ctypes.c_int * 8)(*OFFSETS)
+        _build.check(_build.library(), _build.library()
+                     .hk_interleave_resources(W, IL_BUILDS, IL_TILES,
+                                              MODES[mode],
+                                              ctypes.addressof(offs), res),
+                     "interleave resources")
+        rec["res"] = dict(zip(("blocks", "registers", "smem", "local",
+                               "dyn"), res))
+        vs = "; no reference kernel (REF_DIR) to hold it against"
+        if ref is not None:
+            with reference(ref):
+                k_ref = interleave(src, mode, IL_TILES, IL_BUILDS)
+                torch.cuda.synchronize()
+                ref_ms = time_ms(lambda: interleave(src, mode, IL_TILES,
+                                                    IL_BUILDS, out=out))
+            if not torch.equal(k, k_ref):
+                raise AssertionError(f"[interleave] {mode} differs from the "
+                                     "reference kernel")
+            vs = (f"; the reference kernel {ref_ms:.4f} ms alone, slope "
+                  f"{ref_slopes[mode] * 1e6:.3f} us/pass, outputs bitwise "
+                  "equal")
         recs[mode] = rec
         log(f"[interleave] {mode}: bitwise its plain version; kernel "
-            f"{rec['ms']:.4f} ms (cold L2, events), probe slope "
+            f"{rec['ms']:.4f} ms (cold L2, events; "
+            f"{rec['bound_ms'] / rec['ms']:.4f} of its bound; "
+            f"{_res(rec['res'])}), probe slope "
             f"{slopes[mode] * 1e6:.3f} us/pass = "
             f"{slopes[mode] / (IL_TILES * IL_BUILDS) * 1e9:.4f} ns/build; "
             f"plain {rec['plain_ms']:.4f} ms; bound {rec['bound_ms']:.5f} ms"
-            f" ({by}); no single PyTorch call computes a build [{smi_line}]")
+            f" ({by}); no single PyTorch call computes a build{vs} "
+            f"[{smi_line}]")
     return recs
 
 
@@ -2667,11 +2751,11 @@ def main() -> int:
         "float32->float64", "gasm_f32": "grouped float32", "gasm_f64":
         "grouped float64", "gasm_mixed": "grouped float32->float64"})
     reference_chunk(mixed, ref)
-    del bench64, models, ref
+    del bench64, models
     lap("[kernels] and [grouped-asm] kernels")
     dma_rec, dma_launches = dma_phase(smi_line)
     lap("[dma]")
-    il_recs = interleave_phase(smi_line)
+    il_recs = interleave_phase(smi_line, ref)
     lap("[interleave]")
 
     trajectory()
@@ -2706,7 +2790,7 @@ def main() -> int:
         f" of the same steps untraced ({busy3:.2f} of {wall3:.2f} us; run()"
         f" averaged {contact_us:.2f} us/step over its 5,000 steps)")
     crec = contact_kernels(impact, s_kern, smi_line, sum(
-        v for k, v in per3.items() if k.startswith("narrow_")))
+        v for k, v in per3.items() if k.startswith("narrow_")), ref)
     impact_cut = cut_to(impact, SHARD_CONTACT_STEPS, output_num=1,
                         checkpoint_every=0, out_dir=SHARD_CONTACT_DIR,
                         metrics_path=None)

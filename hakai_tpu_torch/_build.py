@@ -46,10 +46,12 @@ _NARROW = ((_P,) + (_I,) * 11 + (_P,) * 11,
 _SIGNATURES = {
     "hk_narrow_f32": _NARROW[0] + (ctypes.c_float,) * 6 + _NARROW[1],
     "hk_narrow_f64": _NARROW[0] + (ctypes.c_double,) * 6 + _NARROW[1],
-    # src, ld, ptr, mid, col, N, out, stream
-    "hk_scatter_f32": (_P, _I, _P, _P, _P, _I, _P, _P),
-    "hk_scatter_f64": (_P, _I, _P, _P, _P, _I, _P, _P),
-    "hk_scatter_f32_f64": (_P, _I, _P, _P, _P, _I, _P, _P),
+    # src, ld, ptr, mid, word, nb, bits, emax, N, out, stream
+    "hk_scatter_f32": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "hk_scatter_f64": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "hk_scatter_f32_f64": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    # instantiation, emax, out (as hk_element_resources)
+    "hk_scatter_resources": (_I, _I, _P),
     # src, C, S, idx, R, out, stream
     "hk_gather_cols_f32": (_P, _I, _I, _P, _I, _P, _P),
     "hk_gather_cols_f64": (_P, _I, _I, _P, _I, _P, _P),
@@ -83,6 +85,9 @@ _SIGNATURES = {
     "hk_stream_add1_f32": (_P, _P, _I, _I, _I, _I, _P),
     # src, W, builds, n_tiles, mode, off (8 ints, host), out, stream
     "hk_interleave_f32": (_P, _I, _I, _I, _I, _P, _P, _P),
+    # W, builds, n_tiles, mode, off (8 ints, host), out (as
+    # hk_element_resources)
+    "hk_interleave_resources": (_I, _I, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()

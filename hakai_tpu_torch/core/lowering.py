@@ -213,6 +213,14 @@ class LoweredModel:
     fs_col: torch.Tensor | None = None         # (nnz,) int32
     fs_offsets: tuple = ()          # (force_i column, force_t column) per pair
     fs_width: int = 0
+    # the same entries for kernel S (see _scatter_blocks): the nodes in
+    # blocks of fs_nb, each block's entries (its range of fs_col) sorted by
+    # column, one word each, column << fs_bits | place in the range; at
+    # most fs_emax entries a block
+    fs_sorted: torch.Tensor | None = None      # (nnz,) int32
+    fs_nb: int = 0
+    fs_bits: int = 0
+    fs_emax: int = 0
     # a grouped assembly plan: when set, the assembly runs through
     # blocked_assemble (hakai_tpu/ops/element.py:619-621); no lowering
     # builds one, as the JAX lowering builds no plan_asm with vl > 0
@@ -298,7 +306,8 @@ def model_from_numpy(fields: dict, static: dict, device) -> LoweredModel:
     # the contact fields are formed below from fields["pairs"]; a grouped
     # assembly plan is carried only as the port's AssemblePlan
     names = {f.name for f in dataclasses.fields(LoweredModel)} - {
-        "pairs", "ckin_slices", "fs_offsets", "fs_width", "plan_asm"}
+        "pairs", "ckin_slices", "fs_offsets", "fs_width", "fs_sorted",
+        "fs_nb", "fs_bits", "fs_emax", "plan_asm"}
     kw = {k: static[k] for k in names if k in static}
     for k in names:
         if k in fields and fields[k] is not None and k not in kw:
@@ -322,12 +331,15 @@ def model_from_numpy(fields: dict, static: dict, device) -> LoweredModel:
     if pairs:
         idx, slices, ptr, mid, col, offsets, width = _contact_tables(
             pairs, static["N"])
+        words, nb, bits, emax = _scatter_blocks(ptr, col, width)
         kw.update(
             ckin_idx=torch.as_tensor(idx, device=device),
             ckin_slices=slices, fs_offsets=offsets, fs_width=width,
             fs_ptr=torch.as_tensor(ptr, device=device),
             fs_mid=torch.as_tensor(mid, device=device),
             fs_col=torch.as_tensor(col, device=device),
+            fs_sorted=torch.as_tensor(words, device=device), fs_nb=nb,
+            fs_bits=bits, fs_emax=emax,
             pairs=tuple(_pair_tensors(p, edt, device) for p in pairs))
     return LoweredModel(**kw)
 
@@ -412,6 +424,44 @@ def _contact_tables(pairs, N: int):
     return (np.concatenate(segs).astype(np.int32), tuple(slices),
             ptr.astype(np.int32), mid.astype(np.int32),
             cols[order].astype(np.int32), tuple(offsets), width)
+
+
+# kernel S's blocks: nodes a block at most, and the entries a block may
+# hold in shared memory (three float64 values each)
+SCATTER_NB = 32
+SCATTER_EMAX = 8192
+
+
+def _scatter_blocks(ptr, col, width: int):
+    """Kernel S's copy of the force table: the nodes in blocks of ``nb``
+    (consecutive node ids), each block's entries (its range of ``col``)
+    sorted by column, stably, each one word ``column << bits | place``
+    (place: its position in the block's range), so that neighbouring
+    threads gather neighbouring columns and each value still lands at its
+    place in table order.  ``nb`` is SCATTER_NB, halved until a block's
+    entries fit SCATTER_EMAX and their places and the columns fit one
+    32-bit word.  Returns (words as int32, nb, bits, most entries a
+    block)."""
+    ptr = np.asarray(ptr, np.int64)
+    col = np.asarray(col, np.int64)
+    N, col_bits = len(ptr) - 1, max(int(width - 1).bit_length(), 1)
+    nb = SCATTER_NB
+    while True:
+        starts = ptr[np.minimum(np.arange(0, N + nb, nb), N)]
+        emax = int((starts[1:] - starts[:-1]).max()) if N else 0
+        bits = max(int(emax - 1).bit_length(), 1)
+        if (emax <= SCATTER_EMAX and bits + col_bits <= 32) or nb == 1:
+            break
+        nb //= 2
+    if emax > SCATTER_EMAX or bits + col_bits > 32:
+        raise ValueError(f"a node's {emax} force-table entries over {width} "
+                         "columns exceed kernel S's block")
+    block = np.repeat(np.arange(N) // nb, np.diff(ptr))
+    place = np.arange(len(col)) - ptr[block * nb]
+    order = np.lexsort((place, col, block))
+    words = (col[order].astype(np.uint64) << np.uint64(bits)) \
+        | place[order].astype(np.uint64)
+    return words.astype(np.uint32).view(np.int32), nb, bits, emax
 
 
 def uses_plans(model: Model, cfg: SolverConfig) -> bool:

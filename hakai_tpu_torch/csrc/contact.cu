@@ -14,7 +14,7 @@
 // S replaces the TPU's scatter-as-gather chain (blocked_gather through the
 // plans plan_fgi, plan_fgt, plan_pick and plan_fx: gather_pallas.py
 // _make_diag_kernel and _make_merged_kernel): each node sums its own rows of
-// a fixed-order table.
+// a fixed-order table, in table order: no atomics, no reassociation.
 //
 // What bounds N on an H100: the JAX blocking asks for (surviving block
 // pairs) x TB x nb tests, 3.6e9 at the contact deck's kernel state, of
@@ -76,8 +76,17 @@
 // inputs.  Every force column of the pair is written each call, zeros
 // included; on request each item also writes its count of accepted pairs.
 //
-// S is bound by device-memory bytes: its table (4 bytes a column index)
-// and the gathered force columns.
+// S is bound by device-memory bytes: its table (4 bytes an entry), the
+// force buffer and the output, 41 MB at the contact deck's kernel state
+// in float32 -> float64 (0.0123 ms at 3.35 TB/s).  A thread a node walking
+// its row waits ~74 memory round trips one after the other, and a warp's
+// 37 index loads touch 32 lines each.  So S reads its table in blocks of
+// nodes sorted by column: the index loads coalesce, a warp's gathers fall
+// on few lines, and every load of a thread's entries is in flight at
+// once; the row sums then read shared memory.  A thread a node with its
+// row's loads in waves, a slot-major copy of the table, nodes dealt by row
+// length and 4 to 16 lanes a node each did no better
+// (scripts/scatter_variants.py).
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -698,41 +707,99 @@ int narrow(const Args<T>& a, int B, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// g[c, n] = sum of src[c, col[q]] over q in ptr[n]..mid[n], minus those
-// over mid[n]..ptr[n+1], in table order, in T; stored as O
+// Kernel S: g[c, n] = the sum of src[c, col[q]] over q in ptr[n]..mid[n],
+// minus those over mid[n]..ptr[n+1], in table order, in T; stored as O.
+// A block sums the nodes n0 .. n0 + nb - 1, whose entries are the range
+// e0 = ptr[n0] .. ptr[n0 + nb] of the table.  First every thread takes
+// entries of the range in `word`'s order (sorted by column: neighbouring
+// threads gather neighbouring columns, so a warp's loads fall on few
+// lines), kScatterWave at a time, all their loads in flight together, and
+// writes each gathered value to its place in shared memory, (3, emax) in
+// T; then one thread a (channel, node) sums the node's places in table
+// order, adds before subtracts as the table has them.
+constexpr int kScatterThreads = 256;
+constexpr int kScatterWave = 2;       // entries a thread has in flight
+
 template <typename T, typename O>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kScatterThreads)
 scatter_kernel(const T* __restrict__ src, int64_t ld,
                const int32_t* __restrict__ ptr,
                const int32_t* __restrict__ mid,
-               const int32_t* __restrict__ col, int N, O* __restrict__ out) {
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  T acc[3] = {T(0), T(0), T(0)};
-  const int b = ptr[n], m = mid[n], e = ptr[n + 1];
-  for (int q = b; q < m; ++q) {
-    const int64_t s = col[q];
+               const uint32_t* __restrict__ word, int nb, int bits, int emax,
+               int N, O* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char scatter_raw[];
+  T* buf = reinterpret_cast<T*>(scatter_raw);
+  const int n0 = blockIdx.x * nb, n1 = n0 + nb < N ? n0 + nb : N;
+  const int e0 = ptr[n0], E = ptr[n1] - e0;
+  const uint32_t place = (1u << bits) - 1u;
+  for (int q0 = threadIdx.x; q0 < E; q0 += kScatterWave * kScatterThreads) {
+    int s[kScatterWave], d[kScatterWave];
 #pragma unroll
-    for (int r = 0; r < 3; ++r) acc[r] += src[r * ld + s];
+    for (int u = 0; u < kScatterWave; ++u) {
+      const int q = q0 + u * kScatterThreads;
+      const uint32_t w = q < E ? __ldcs(word + e0 + q) : 0u;
+      s[u] = (int)(w >> bits);
+      d[u] = (int)(w & place);
+    }
+    T x[kScatterWave][3];
+#pragma unroll
+    for (int u = 0; u < kScatterWave; ++u)
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+        x[u][r] = q0 + u * kScatterThreads < E ? src[r * ld + s[u]] : T(0);
+#pragma unroll
+    for (int u = 0; u < kScatterWave; ++u)
+      if (q0 + u * kScatterThreads < E)
+#pragma unroll
+        for (int r = 0; r < 3; ++r) buf[r * emax + d[u]] = x[u][r];
   }
-  for (int q = m; q < e; ++q) {
-    const int64_t s = col[q];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) acc[r] -= src[r * ld + s];
+  __syncthreads();
+  for (int t = threadIdx.x; t < 3 * nb; t += kScatterThreads) {
+    const int r = t / nb, n = n0 + t % nb;
+    if (n >= N) continue;
+    const int b = ptr[n] - e0, m = mid[n] - e0, e = ptr[n + 1] - e0;
+    const T* row = buf + r * emax;
+    T acc = T(0);
+    for (int q = b; q < m; ++q) acc += row[q];
+    for (int q = m; q < e; ++q) acc -= row[q];
+    out[r * (int64_t)N + n] = O(acc);
   }
-#pragma unroll
-  for (int r = 0; r < 3; ++r) out[r * (int64_t)N + n] = O(acc[r]);
 }
 
 template <typename T, typename O>
 int scatter(const T* src, int ld, const int32_t* ptr, const int32_t* mid,
-            const int32_t* col, int N, O* out, void* stream) {
+            const uint32_t* word, int nb, int bits, int emax, int N, O* out,
+            void* stream) {
   if (N <= 0) return 0;
-  const int block = 256;
-  scatter_kernel<T, O><<<(N + block - 1) / block, block, 0,
-                         (cudaStream_t)stream>>>(src, ld, ptr, mid, col, N,
-                                                 out);
+  const size_t smem = sizeof(T) * 3 * (size_t)emax;
+  cudaError_t err = cudaFuncSetAttribute(
+      scatter_kernel<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  scatter_kernel<T, O><<<(N + nb - 1) / nb, kScatterThreads, smem,
+                         (cudaStream_t)stream>>>(src, ld, ptr, mid, word, nb,
+                                                 bits, emax, N, out);
   return (int)cudaGetLastError();
+}
+
+// What a launch over blocks of emax entries takes: out = {resident blocks
+// an SM, registers a thread, static shared bytes a block, local bytes a
+// thread (spills), dynamic shared bytes a block}.
+template <typename T, typename O>
+int scatter_resources(int emax, int* out) {
+  const size_t smem = sizeof(T) * 3 * (size_t)emax;
+  cudaError_t err = cudaFuncSetAttribute(
+      scatter_kernel<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, scatter_kernel<T, O>);
+  if (err != cudaSuccess) return (int)err;
+  out[1] = fa.numRegs;
+  out[2] = (int)fa.sharedSizeBytes;
+  out[3] = (int)fa.localSizeBytes;
+  out[4] = (int)smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, scatter_kernel<T, O>, kScatterThreads, smem);
 }
 
 template <typename T>
@@ -828,24 +895,40 @@ int hk_narrow_f64(const double* kin, int R, int t0, int t1, int t2, int cs,
                               count, iws, fws, B, stream);
 }
 
-// src, ld, ptr, mid, col, N, out, stream
+// src (3, ld), ptr (N + 1), mid (N), word (nnz: column << bits | place,
+// in blocks of nb nodes, at most emax entries a block), N, out, stream
 int hk_scatter_f32(const float* src, int ld, const int32_t* ptr,
-                   const int32_t* mid, const int32_t* col, int N, float* out,
-                   void* stream) {
-  return scatter<float, float>(src, ld, ptr, mid, col, N, out, stream);
+                   const int32_t* mid, const uint32_t* word, int nb,
+                   int bits, int emax, int N, float* out, void* stream) {
+  return scatter<float, float>(src, ld, ptr, mid, word, nb, bits, emax, N,
+                               out, stream);
 }
 
 int hk_scatter_f64(const double* src, int ld, const int32_t* ptr,
-                   const int32_t* mid, const int32_t* col, int N,
-                   double* out, void* stream) {
-  return scatter<double, double>(src, ld, ptr, mid, col, N, out, stream);
+                   const int32_t* mid, const uint32_t* word, int nb,
+                   int bits, int emax, int N, double* out, void* stream) {
+  return scatter<double, double>(src, ld, ptr, mid, word, nb, bits, emax, N,
+                                 out, stream);
 }
 
 // float32 sum, stored as float64 (mixed precision)
 int hk_scatter_f32_f64(const float* src, int ld, const int32_t* ptr,
-                       const int32_t* mid, const int32_t* col, int N,
-                       double* out, void* stream) {
-  return scatter<float, double>(src, ld, ptr, mid, col, N, out, stream);
+                       const int32_t* mid, const uint32_t* word, int nb,
+                       int bits, int emax, int N, double* out,
+                       void* stream) {
+  return scatter<float, double>(src, ld, ptr, mid, word, nb, bits, emax, N,
+                                out, stream);
+}
+
+// The resources of instantiation `which` (0 f32, 1 f64, 2 f32 -> f64) for
+// blocks of emax entries into out[5] (see scatter_resources).
+int hk_scatter_resources(int which, int emax, int* out) {
+  switch (which) {
+    case 0: return scatter_resources<float, float>(emax, out);
+    case 1: return scatter_resources<double, double>(emax, out);
+    case 2: return scatter_resources<float, double>(emax, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

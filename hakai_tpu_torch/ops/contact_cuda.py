@@ -410,7 +410,8 @@ def scatter_forces_plain(model: LoweredModel, force, out_dtype=None):
 
 def scatter_forces(model: LoweredModel, force, out_dtype=None):
     """Kernel S: the (3, N) contact force from the pair-force buffer,
-    summed in its dtype and stored in ``out_dtype`` (default: its dtype)."""
+    summed in its dtype and stored in ``out_dtype`` (default: its dtype),
+    in table order; the kernel reads the table as ``model.fs_sorted``."""
     out_dtype = force.dtype if out_dtype is None else out_dtype
     if force.device.type == "cpu":
         return scatter_forces_plain(model, force, out_dtype)
@@ -425,14 +426,16 @@ def scatter_forces(model: LoweredModel, force, out_dtype=None):
         "force": (force, (3, W), force.dtype),
         "fs_ptr": (model.fs_ptr, (N + 1,), torch.int32),
         "fs_mid": (model.fs_mid, (N,), torch.int32),
-        "fs_col": (model.fs_col, tuple(model.fs_col.shape), torch.int32)})
+        "fs_sorted": (model.fs_sorted, tuple(model.fs_col.shape),
+                      torch.int32)})
     lib = _build.library()
     out = torch.empty((3, N), dtype=out_dtype, device=force.device)
     with torch.cuda.device(force.device):
         err = getattr(lib, entry)(
             force.data_ptr(), W, model.fs_ptr.data_ptr(),
-            model.fs_mid.data_ptr(), model.fs_col.data_ptr(), N,
-            out.data_ptr(), torch.cuda.current_stream(force.device).cuda_stream)
+            model.fs_mid.data_ptr(), model.fs_sorted.data_ptr(), model.fs_nb,
+            model.fs_bits, model.fs_emax, N, out.data_ptr(),
+            torch.cuda.current_stream(force.device).cuda_stream)
     _build.check(lib, err, "scatter kernel")
     scatter_forces.launches += 1
     return out

@@ -24,7 +24,8 @@ ROWS, LANES = 8, 128
 # the TPU probe's row offsets, arange(8) % 4, held in its SMEM
 OFFSETS = (0, 1, 2, 3, 0, 1, 2, 3)
 # window slabs the kernel keeps in a block's shared memory (its kMaxSlabs)
-SMEM_SLABS = 56
+# and, for copy and gatherrow, the next ones in registers (kRegSlabs)
+SMEM_SLABS, REG_SLABS = 56, 8
 
 
 def _check(mode: str, W: int, builds: int, off) -> tuple:
@@ -54,12 +55,21 @@ def window_slabs(mode: str, W: int, builds: int, off=OFFSETS) -> int:
 
 
 def window_place(mode: str, W: int, builds: int, off=OFFSETS) -> str:
-    """Where the kernel keeps the window ``mode`` reads."""
+    """Where the kernel keeps the window ``mode`` reads: shared memory,
+    then (copy, gatherrow) registers, then L1/L2.  A gatherrow build reads
+    one lane of the row that depends on the build, so its registers serve
+    the first pass over the window only."""
     n = window_slabs(mode, W, builds, off)
     if n <= SMEM_SLABS:
         return f"slabs 0-{n - 1} in shared memory"
-    return (f"slabs 0-{SMEM_SLABS - 1} in shared memory, {SMEM_SLABS}-"
-            f"{n - 1} through L1/L2")
+    regs = min(n, SMEM_SLABS + REG_SLABS)
+    where = (f"slabs 0-{SMEM_SLABS - 1} in shared memory, {SMEM_SLABS}-"
+             f"{regs - 1} in registers")
+    if mode == "gatherrow" and builds > W:
+        where += " (on the first pass; later passes through L1/L2)"
+    if n > regs:
+        where += f", {regs}-{n - 1} through L1/L2"
+    return where
 
 
 def builds_plain(src, mode: str, builds: int, off=OFFSETS):

@@ -90,8 +90,10 @@ def bound_s(mode: str, tiles: int, builds: int) -> tuple[float, str]:
 
 
 def probe(tiles=512, builds=60, n1=20, n2=120, device="cuda",
-          out=print) -> dict:
-    """Run the probe; returns {mode: seconds a pass}."""
+          out=print, place=True) -> dict:
+    """Run the probe; returns {mode: seconds a pass}.  ``place``: name
+    where the kernel keeps the window (off for a kernel of another
+    design)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' for the plain "
@@ -129,8 +131,9 @@ def probe(tiles=512, builds=60, n1=20, n2=120, device="cuda",
         ns = per / (tiles * builds) * 1e9
         where = (window_place(mode, W, builds) if device.type == "cuda"
                  else "the plain version's")
-        out(f"{mode:10s}{per * 1e6:9.3f} us/pass {ns:8.4f} ns/build  window: "
-            f"{where}; bound {b_s * 1e6:.3f} us "
+        where = f"  window: {where};" if place else ";"
+        out(f"{mode:10s}{per * 1e6:9.3f} us/pass {ns:8.4f} ns/build{where}"
+            f" bound {b_s * 1e6:.3f} us "
             f"({by}); chain of {n2} bitwise its plain version's")
     return res
 

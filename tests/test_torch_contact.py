@@ -245,9 +245,12 @@ def test_pairs_and_tables_move_with_the_model():
             v = getattr(p, f.name)
             if isinstance(v, torch.Tensor):
                 assert v.device.type == "meta", f.name
-    assert moved.ckin_idx.device.type == moved.fs_col.device.type == "meta"
+    assert moved.ckin_idx.device.type == moved.fs_col.device.type == \
+        moved.fs_sorted.device.type == "meta"
     assert moved.fs_offsets == tm.fs_offsets and moved.pairs[0].tb == \
         tm.pairs[0].tb
+    assert (moved.fs_nb, moved.fs_bits, moved.fs_emax) == (
+        tm.fs_nb, tm.fs_bits, tm.fs_emax) and tm.fs_emax > 0
     with pytest.raises(ValueError, match="cand_mass is on cpu"):
         _build.check_inputs(torch.device("meta"), {
             "cand_mass": (tm.pairs[0].cand_mass,

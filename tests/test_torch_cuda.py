@@ -661,13 +661,17 @@ def test_stream_kernel_refuses_wrong_inputs(cuda):
 
 @pytest.mark.parametrize("mode", ["copy", "stackrows", "selrows",
                                   "gatherrow"])
-@pytest.mark.parametrize("tiles,builds", [(512, 60), (133, 70), (3, 5)])
+@pytest.mark.parametrize("tiles,builds", [(512, 60), (133, 70), (3, 5),
+                                          (1, 8), (131, 100), (600, 60)])
 def test_interleave_kernel_matches_plain(cuda, mode, tiles, builds):
     """TPU kernel #12's replacement, each mode bit for bit its plain
     version on a random window: the probe's 512 tiles x 60 builds (copy's
-    and gatherrow's last slabs read past shared memory), more tiles than a
-    persistent block takes with builds past the window, and a few builds;
-    other row offsets; one launch counted."""
+    and gatherrow's last slabs held in registers), a tile count an SM
+    more than the card's SMs with builds past the window (the wrap), few
+    builds (below 16: part of a staging group), one tile, one tile an SM
+    with builds wrapping past the registers' first pass, and more tiles
+    than the blocks hold at once; other row offsets; one launch
+    counted."""
     from hakai_tpu_torch.ops.interleave_cuda import (interleave,
                                                      interleave_plain)
     src = torch.as_tensor(np.random.default_rng(12).normal(
@@ -680,6 +684,72 @@ def test_interleave_kernel_matches_plain(cuda, mode, tiles, builds):
         assert torch.equal(got, interleave_plain(src, mode, tiles, builds,
                                                  off))
         assert interleave.launches_by[mode] == before + 1
+
+
+@pytest.mark.parametrize("mode", ["copy", "gatherrow"])
+def test_interleave_kernel_wide_window(cuda, mode):
+    """A window of 100 slabs and 130 builds: slabs 0-55 in shared memory,
+    56-63 in registers, 64-99 through L1/L2, the builds wrapping past the
+    window; into an output 4 bytes off 16-byte alignment.  Bit for bit
+    the plain version."""
+    from hakai_tpu_torch.ops.interleave_cuda import (interleave,
+                                                     interleave_plain)
+    src = torch.as_tensor(np.random.default_rng(13).normal(
+        size=(100, 8, 128)), dtype=torch.float32, device=cuda)
+    tiles = 140
+    flat = torch.full((tiles * 1024 + 1,), float("nan"), device=cuda)
+    out = flat[1:].view(tiles * 8, 128)
+    got = interleave(src, mode, tiles, 130, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(got, interleave_plain(src, mode, tiles, 130))
+
+
+def _scatter_table(rows, adds, width, seed, device, words_over=None):
+    """A force table in the lowering's layout (the CSR and kernel S's
+    block-sorted copy) for the given row lengths and leading adds, random
+    columns below ``width``; the words laid out as for ``words_over``
+    columns (default ``width``)."""
+    from types import SimpleNamespace
+
+    from hakai_tpu_torch.core.lowering import _scatter_blocks
+    rows, adds = np.asarray(rows), np.asarray(adds)
+    ptr = np.concatenate([[0], np.cumsum(rows)]).astype(np.int32)
+    col = np.random.default_rng(seed).integers(0, width, ptr[-1])
+    words, nb, bits, emax = _scatter_blocks(ptr, col, words_over or width)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+    return SimpleNamespace(
+        N=len(rows), fs_width=width, fs_ptr=t(ptr), fs_col=t(col),
+        fs_mid=t(ptr[:-1] + adds), fs_sorted=t(words), fs_nb=nb,
+        fs_bits=bits, fs_emax=emax)
+
+
+@pytest.mark.parametrize("types", [("float32", "float32"),
+                                   ("float64", "float64"),
+                                   ("float32", "float64")])
+def test_scatter_kernel_on_synthetic_tables(cuda, types):
+    """Kernel S on a table of 1,000 nodes with empty rows, rows of 70
+    entries (past a thread's wave and a warp), subtract-only and add-only
+    rows and a ragged last block: bitwise its plain version in every type
+    pair, on a second launch too; and with the words laid out for 2^24
+    columns, where the nodes go in smaller blocks."""
+    from hakai_tpu_torch.ops.contact_cuda import (scatter_forces,
+                                                  scatter_forces_plain)
+    fdt, odt = (getattr(torch, t) for t in types)
+    rng = np.random.default_rng(5)
+    rows = rng.choice([0, 1, 10, 19, 37, 70], size=1000)
+    adds = np.minimum(rows, rng.integers(0, 3, 1000))
+    adds[::7] = 0                                # subtract-only rows
+    adds[3::11] = rows[3::11]                    # add-only rows
+    force = torch.as_tensor(rng.normal(size=(3, 20000)), device=cuda).to(fdt)
+    for words_over, nb in ((None, 32), (1 << 24, 4)):
+        tab = _scatter_table(rows, adds, 20000, 6, cuda, words_over)
+        assert tab.fs_nb == nb
+        got = scatter_forces(tab, force, odt)
+        assert got.dtype == odt
+        assert torch.equal(got, scatter_forces_plain(tab, force, odt))
+        assert torch.equal(got, scatter_forces(tab, force, odt))
 
 
 def test_interleave_kernel_refuses_wrong_inputs(cuda):

@@ -93,16 +93,22 @@ def test_gatherrow_is_the_batched_lax_gather():
 
 def test_window_slabs_and_refusals():
     """What each mode reads of the window (the kernel keeps at most 56
-    slabs in shared memory), and the calls the wrapper refuses: an unknown
-    mode, offsets that are not eight non-negative ints, a build past the
-    window."""
+    slabs in shared memory and, for copy and gatherrow, the next 8 in
+    registers), and the calls the wrapper refuses: an unknown mode, offsets
+    that are not eight non-negative ints, a build past the window."""
     assert window_slabs("copy", W, 60) == 60
     assert window_slabs("gatherrow", W, 70) == 64
     assert window_slabs("stackrows", W, 60) == 19
     assert window_slabs("selrows", W, 8) == 11
     assert window_place("stackrows", W, 60) == "slabs 0-18 in shared memory"
     assert window_place("copy", W, 60) == ("slabs 0-55 in shared memory, "
-                                           "56-59 through L1/L2")
+                                           "56-59 in registers")
+    assert window_place("gatherrow", W, 70) == (
+        "slabs 0-55 in shared memory, 56-63 in registers (on the first "
+        "pass; later passes through L1/L2)")
+    assert window_place("copy", 100, 100) == (
+        "slabs 0-55 in shared memory, 56-63 in registers, 64-99 through "
+        "L1/L2")
     src = torch.zeros((W, 8, LANE))
     with pytest.raises(ValueError, match="unknown mode"):
         interleave(src, "diagonal", 1, 4)
