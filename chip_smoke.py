@@ -8,7 +8,8 @@ without its last line):
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit (nvidia-smi) and the torch/CUDA versions;
-2. build: compiles ``hakai_tpu_torch/csrc/*.cu`` with nvcc for sm_90a;
+2. build: compiles ``hakai_tpu_torch/csrc/*.cu`` with nvcc for sm_90a,
+   and the host-IO helper ``csrc/host_io.cpp`` with the host compiler;
 3. kernels: each kernel instantiation against its plain PyTorch version on
    the card, at the main paths' shapes (the 32x32x128 bar), with random
    inputs that engage the plastic branch, a dead element and padding
@@ -38,6 +39,11 @@ without its last line):
    frames, a checkpoint every other frame, the energy balance and the metrics
    stream; launches counted, frames checked against the alive count, the
    first deletion located exactly from the checkpoints; then a trace;
+   then host-io: the C++ helper's build (seconds, library), [cli]'s deck
+   text (12.6 MB) parsed through the helper and through its Python twin
+   (equal arrays) and [run]'s last frame written through either (equal
+   bytes, and equal to [run]'s own frame), each timed on the host beside
+   its CPU's model name;
 8. contact, main path of the third slice: a flying 48^3 cube on a 96x96x1
    slab (119,808 elements), all-exterior contact with ductile erosion, in
    mixed precision through ``run()`` for 5,000 steps with 5 frames and a
@@ -71,10 +77,16 @@ without its last line):
    mixed precision (the rule of [fracture]);
 13. cli: ``python -m hakai_tpu_torch`` in a subprocess on a small deck
    written by ``scripts/inp_deck.py``, on the card and with ``--device
-   cpu``, frames compared; then [run]'s ductile bar written as a deck
-   (depth cut to CLI_STEPS steps, its amplitude kept) and run through the
-   CLI in mixed precision: its frames equal [run]'s byte for byte at the
-   steps both wrote; the parse, lowering, step and frame seconds;
+   cpu``, frames compared; then, each with the energy guard at its default
+   (abort at 0.1 of the energy scale) and ``--metrics``, its peak
+   ``energy_rel_error`` printed beside the 0.1: [run]'s ductile bar
+   written as a deck and run through the CLI in mixed precision for its
+   10,000 steps, every frame equal to [run]'s byte for byte; [contact]'s
+   impact written as a deck, mixed, 5,000 steps, every frame equal to
+   [contact]'s byte for byte; and both in float64, cut in depth (CLI_STEPS
+   and CLI_CONTACT_STEPS, their amplitudes kept) without frames; the
+   parse, lowering, step and frame seconds and the host-IO helper each
+   run used;
 14. grouped-asm (fifth slice, TPU kernels #9/#10): in the kernels phase,
    the grouped entry of the assembly kernel on the node-block-major
    grouping of the bench bar's incidence table, float32, float64 and
@@ -233,9 +245,15 @@ GENERIC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # [generic-cpu]: ductile 4x4x16 bar pulled over 800 steps (first deletions
 # near step 130), single steps on card and CPU
 GCPU_STEPS = 300
-# [cli]: the [run] deck cut to CLI_STEPS steps, CLI_FRAMES frames: the
-# frames land on [run]'s frame steps (every 2,000)
+# [cli]: [run]'s and [contact]'s decks at full depth in mixed precision;
+# in float64, [run]'s deck cut to CLI_STEPS steps and [contact]'s to
+# CLI_CONTACT_STEPS (past its first contact and deletion), each with
+# CLI_F64_RECORDS metrics records.  [multihost] takes the cut bar deck with
+# CLI_FRAMES frames, which land on [run]'s frame steps (every 2,000)
 CLI_STEPS, CLI_FRAMES = 4000, 2
+CLI_CONTACT_STEPS, CLI_F64_RECORDS = 2000, 20
+# the CLI's default energy abort (cli.py: _resolve_energy_flags)
+ENERGY_ABORT = 0.1
 CLI_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        "smoke_cli")
 # [grouped-asm]: TPU kernels #9/#10 on the node-block-major grouping of the
@@ -1890,11 +1908,13 @@ def run_cli(args, timeout):
 
 def cli_phase(smi_line):
     """The CLI: a small written deck on the card and on the CPU, frames
-    compared; then [run]'s deck through the CLI, frames byte for byte."""
+    compared; then [run]'s and [contact]'s decks through the CLI, mixed at
+    full depth (frames byte for byte) and f64 cut in depth, each with the
+    energy guard at its default and its peak energy_rel_error printed."""
     import re
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
     from inp_deck import write_deck
-    from hakai_tpu_torch.pre.synthetic import bar_model
+    from hakai_tpu_torch.pre.synthetic import bar_model, impact_model
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     os.makedirs(CLI_DIR)
     small = write_deck(os.path.join(CLI_DIR, "small.inp"), bar_model(
@@ -1919,31 +1939,162 @@ def cli_phase(smi_line):
     if heads["cuda"] != heads["cpu"] or not any(
             "Element deleted" in x for x in heads["cuda"]):
         raise AssertionError(f"[cli] console lines differ: {heads}")
+    from hakai_tpu_torch import _build
+    _build.host_library()
+    host_lib = _build.HOST_INFO["path"]
     big = bar_model(NX, NY, NZ, d_time=1e-8, end_time=RUN_END, ductile=True)
-    big.end_time = (CLI_STEPS + 0.5) * big.d_time
     t0 = time.perf_counter()
     path = write_deck(os.path.join(CLI_DIR, "bar.inp"), big)
     t_write = time.perf_counter() - t0
-    out_dir = os.path.join(CLI_DIR, "bar")
-    out, sec = run_cli([path, "--precision", "mixed", "--out-dir", out_dir,
-                        "--output-num", str(CLI_FRAMES), "--timings"], 900)
-    if f"time_num:{CLI_STEPS}" not in out:
+    log(f"[cli] [run]'s deck ({big.n_element} elements, "
+        f"{os.path.getsize(path) / 1e6:.1f} MB, written in {t_write:.2f} s)")
+    cli_run("[run]'s deck", path, "bar", "mixed", RUN_END / 1e-8,
+            RUN_FRAMES, RUN_DIR, host_lib, smi_line)
+    big.end_time = (CLI_STEPS + 0.5) * big.d_time      # the ramp kept
+    cut = write_deck(os.path.join(CLI_DIR, "bar_cut.inp"), big)
+    cli_run("[run]'s deck", cut, "bar_f64", "f64", CLI_STEPS,
+            CLI_F64_RECORDS, None, host_lib, smi_line, RUN_END / 1e-8)
+    impact = impact_model(n=CONTACT_N, v0=CONTACT_V0, d_time=CONTACT_DT,
+                          end_time=CONTACT_END)
+    t0 = time.perf_counter()
+    path = write_deck(os.path.join(CLI_DIR, "impact.inp"), impact)
+    t_write = time.perf_counter() - t0
+    log(f"[cli] [contact]'s deck ({impact.n_element} elements, "
+        f"{os.path.getsize(path) / 1e6:.1f} MB, written in {t_write:.2f} s)")
+    cli_run("[contact]'s deck", path, "impact", "mixed",
+            CONTACT_END / CONTACT_DT, CONTACT_FRAMES, CONTACT_DIR, host_lib,
+            smi_line)
+    impact.end_time = (CLI_CONTACT_STEPS + 0.5) * impact.d_time
+    cut = write_deck(os.path.join(CLI_DIR, "impact_cut.inp"), impact)
+    cli_run("[contact]'s deck", cut, "impact_f64", "f64", CLI_CONTACT_STEPS,
+            CLI_F64_RECORDS, None, host_lib, smi_line,
+            CONTACT_END / CONTACT_DT)
+
+
+def cli_run(what, deck, tag, precision, steps, frames, ref_dir, host_lib,
+            smi_line, cut_from=None):
+    """One of the CLI's owed runs: ``deck`` (of ``steps`` steps, cut in
+    depth from ``cut_from``) through ``python -m hakai_tpu_torch`` at
+    ``precision``, the energy guard at its default and ``--metrics`` on,
+    ``frames`` chunks; with ``ref_dir``, its frames byte-identical to that
+    run's, else no frames.  Prints the peak ``energy_rel_error`` beside the
+    guard's abort."""
+    steps = int(round(steps))
+    out_dir = os.path.join(CLI_DIR, tag)
+    metrics = out_dir + ".jsonl"
+    args = [deck, "--precision", precision, "--out-dir", out_dir,
+            "--output-num", str(frames), "--metrics", metrics, "--timings"]
+    out, sec = run_cli(args + ([] if ref_dir else ["--no-output"]), 900)
+    if f"time_num:{steps}" not in out:
         raise AssertionError(f"[cli] time_num line: {out[:400]}")
     timing = next(x for x in out.splitlines() if x.startswith("timings:"))
-    same = []
-    for i in range(CLI_FRAMES + 1):
-        name = f"file{i:03d}.vtk"
-        with open(os.path.join(out_dir, name), "rb") as fa, \
-                open(os.path.join(RUN_DIR, name), "rb") as fb:
-            same.append(fa.read() == fb.read())
-    log(f"[cli] [run]'s deck ({big.n_element} elements, "
-        f"{os.path.getsize(path) / 1e6:.1f} MB, written in {t_write:.2f} s) "
-        f"through the CLI, mixed, {CLI_STEPS} steps: {timing}; subprocess "
-        f"{sec:.2f} s in all; frames at steps "
-        f"{[i * CLI_STEPS // CLI_FRAMES for i in range(CLI_FRAMES + 1)]} "
-        f"byte-identical to [run]'s: {same} [{smi_line}]")
+    helper = next(x for x in out.splitlines() if x.startswith("host-io:"))
+    if helper != f"host-io: C++ helper {host_lib}":
+        raise AssertionError(f"[cli] {helper!r}, not {host_lib}")
+    with open(metrics) as f:
+        errs = [json.loads(x)["energy_rel_error"] for x in f]
+    peak = max(errs)
+    same, said = [], "no frames"
+    if ref_dir:
+        for i in range(frames + 1):
+            name = f"file{i:03d}.vtk"
+            with open(os.path.join(out_dir, name), "rb") as fa, \
+                    open(os.path.join(ref_dir, name), "rb") as fb:
+                same.append(fa.read() == fb.read())
+        said = (f"frames at steps "
+                f"{[i * steps // frames for i in range(frames + 1)]} "
+                f"byte-identical to {os.path.basename(ref_dir)}'s: {same}")
+    cut = f" (cut in depth from {cut_from:.0f})" if cut_from else ""
+    log(f"[cli] {what} through the CLI, {precision}, {steps} steps{cut}: "
+        f"{timing}; {helper}; subprocess {sec:.2f} s in all; peak "
+        f"energy_rel_error {peak:.3e} over {len(errs)} records (the "
+        f"guard's default abort: {ENERGY_ABORT}); {said} [{smi_line}]")
+    if len(errs) != frames or not peak <= ENERGY_ABORT:
+        raise AssertionError(f"[cli] energy records {errs}")
     if not all(same):
-        raise AssertionError("[cli] frames differ from [run]'s")
+        raise AssertionError(f"[cli] frames differ from {ref_dir}'s")
+
+
+def host_cpu() -> str:
+    """The host CPU: /proc/cpuinfo's model name (else its vendor, family
+    and model numbers, else the machine type) and the logical cores."""
+    import platform
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, sep, value = line.partition(":")
+                if not sep:
+                    if info:
+                        break           # the first processor's block
+                    continue
+                info.setdefault(key.strip().lower(), value.strip())
+    except OSError:
+        pass
+    name = info.get("model name") or " ".join(
+        f"{k} {info[k]}" for k in ("vendor_id", "cpu family", "model")
+        if k in info) or platform.machine()
+    return f"{name}, {os.cpu_count()} logical cores"
+
+
+def host_io_phase(model, state, smi_line):
+    """[host-io]: the C++ helper's build; [cli]'s deck text parsed through
+    the helper and through its Python twin, and [run]'s last frame (from
+    ``state``) written through the helper and through the twins, each
+    timed; equal arrays, equal bytes, and the frame equal to [run]'s."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from inp_deck import deck_text
+    from hakai_tpu_torch import _build
+    from hakai_tpu_torch.io import native, vtk
+    from hakai_tpu_torch.pre.synthetic import bar_model
+    from hakai_tpu_torch.solver.explicit import _deck_order_frame
+    from hakai_tpu_torch.solver.output import node_fields
+    info = dict(_build.HOST_INFO)
+    text = deck_text(bar_model(NX, NY, NZ, d_time=1e-8, end_time=RUN_END,
+                               ductile=True))
+    t0 = time.perf_counter()
+    got = native.parse_numbers(text)
+    t_helper = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = native.parse_numbers_plain(text)
+    t_plain = time.perf_counter() - t0
+    parsed_same = (got.shape == ref.shape and np.array_equal(got, ref)
+                   and np.array_equal(np.signbit(got), np.signbit(ref)))
+    nd = node_fields(model, state.stress, state.strain, state.eq_ps,
+                     state.triax)
+    frame = _deck_order_frame(model, state.disp, state.velo,
+                              state.element_flag, nd)
+    index = RUN_FRAMES
+    out = os.path.join(RUN_DIR, "host_io")
+    t0 = time.perf_counter()
+    a = vtk.write_vtk(index, os.path.join(out, "helper"), *frame,
+                      model.n_node, model.n_element)
+    f_helper = time.perf_counter() - t0
+    keep = vtk.format_e_rows, vtk.format_i_rows
+    vtk.format_e_rows = native.format_e_rows_plain
+    vtk.format_i_rows = native.format_i_rows_plain
+    try:
+        t0 = time.perf_counter()
+        b = vtk.write_vtk(index, os.path.join(out, "plain"), *frame,
+                          model.n_node, model.n_element)
+        f_plain = time.perf_counter() - t0
+    finally:
+        vtk.format_e_rows, vtk.format_i_rows = keep
+    with open(a, "rb") as fa, open(b, "rb") as fb, \
+            open(os.path.join(RUN_DIR, f"file{index:03d}.vtk"), "rb") as fr:
+        ba, bb, br = fa.read(), fb.read(), fr.read()
+    log(f"[host-io] helper {info['path']} (compiler {info['compiler'][0]}),"
+        f" built={info['built']} in {info['seconds']:.3f} s; [cli]'s deck "
+        f"text {len(text) / 1e6:.1f} MB, {len(got)} numbers: helper "
+        f"{t_helper:.3f} s, twin {t_plain:.3f} s, equal arrays "
+        f"{parsed_same}; [run]'s frame {index} ({len(ba) / 1e6:.1f} MB): "
+        f"write_vtk through the helper {f_helper:.3f} s, through the twins "
+        f"{f_plain:.3f} s, equal bytes {ba == bb}, equal to [run]'s frame "
+        f"{ba == br}; host CPU {host_cpu()} [{smi_line}]")
+    if not (parsed_same and ba == bb == br):
+        raise AssertionError("[host-io] the helper and its twins differ")
+    shutil.rmtree(out)
 
 
 def grouped_plan(model):
@@ -2463,7 +2614,7 @@ def multihost_phase(smi_line):
     import numpy as np
     shutil.rmtree(MH_DIR, ignore_errors=True)
     os.makedirs(MH_DIR)
-    deck = os.path.join(CLI_DIR, "bar.inp")
+    deck = os.path.join(CLI_DIR, "bar_cut.inp")
     t0 = time.perf_counter()
     outs = _cli_pair("a", deck, lambda k: ["--checkpoint-every", "1"])
     wall_a = time.perf_counter() - t0
@@ -2690,6 +2841,11 @@ def main() -> int:
     for line in _build.BUILD_INFO["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
+    _build.host_library()
+    log(f"[build] host-IO helper {_build.HOST_INFO['path']} built="
+        f"{_build.HOST_INFO['built']} in {_build.HOST_INFO['seconds']:.2f} s "
+        f"({' '.join(_build.HOST_INFO['compiler'])} "
+        f"{' '.join(_build.HOST_FLAGS)})")
     ref = build_reference()
 
     rng = np.random.default_rng(SEED)
@@ -2779,8 +2935,10 @@ def main() -> int:
     cut = cut_to(mixed, SHARD_RUN_STEPS, output_num=1, checkpoint_every=1,
                  out_dir=SHARD_RUN_DIR,
                  metrics_path=os.path.join(SHARD_RUN_DIR, "metrics.jsonl"))
-    del mixed, final2
     lap("[run] and its [trace]")
+    host_io_phase(mixed, final2, smi_line)
+    del mixed, final2
+    lap("[host-io]")
 
     impact = contact_model(smi_line)
     launches3, final3, contact_us, s_kern = contact_path(impact, smi_line)

@@ -16,8 +16,10 @@ PyTorch version instead; the entry points run on the GPU unless called with
 The JAX package ``hakai_tpu`` is the reference the port is held against.
 The port imports nothing of it and never imports jax: it keeps its own
 copies of the NumPy-only modules it needs (``config``, ``io.model``,
-``io.inp``, ``io.native``, ``pre.synthetic``, ``ops.shape``,
-``core.renumber``).
+``io.inp``, ``pre.synthetic``, ``ops.shape``, ``core.renumber``, the
+offline tools ``pre.gilgamsh``, ``pre.shell_to_solid``, ``pre.viewer`` and
+``utils.plot``) and its own copy of the C++ host-IO helper
+(``csrc/host_io.cpp``, bound by ``io.native``).
 """
 from .config import SolverConfig
 from .core.lowering import LoweredModel, lower

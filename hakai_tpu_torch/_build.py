@@ -12,6 +12,11 @@ name keyed by a hash of the sources, the flags and the compiler's version:
 an edited source or flag builds a new library, an unchanged one reuses the
 last build.  The sources in the checkout are the only input.
 
+The host-IO helper (``csrc/host_io.cpp``: the ``.inp`` number parser and
+the VTK number formatters) is host C++, not a kernel: :func:`host_library`
+compiles it with the host compiler into ``build/host/``, keyed the same
+way, on the card's machine and on a CPU alike.
+
 Nothing here runs at import: tests on machines without nvcc import every
 module of the port.
 """
@@ -20,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
 import threading
@@ -28,6 +34,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+HOST_BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "host"
+HOST_SOURCE = CSRC / "host_io.cpp"
+# the JAX package's native/Makefile flags
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-Wall")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # per-source flags: the contact source keeps every multiply and add
@@ -93,6 +103,8 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 BUILD_INFO: dict = {}
+_host_lib: ctypes.CDLL | None = None
+HOST_INFO: dict = {}
 
 
 def nvcc_path() -> str:
@@ -216,3 +228,77 @@ def check_inputs(device, spec: dict) -> None:
                              f"expected {tuple(shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+
+
+def host_compiler() -> list[str]:
+    """The host C++ compiler as a command: ``$CXX`` (split as a shell
+    would), else ``c++`` or ``g++`` on PATH; raises if there is none."""
+    if os.environ.get("CXX"):
+        cmd = shlex.split(os.environ["CXX"])
+        found = shutil.which(cmd[0])
+        if not found:
+            raise RuntimeError(f"host compiler CXX={os.environ['CXX']!r} not "
+                               "found; the port's host-IO helper cannot be "
+                               "built")
+        return [found, *cmd[1:]]
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found:
+            return [found]
+    raise RuntimeError("no host C++ compiler (set CXX or put c++ or g++ on "
+                       "PATH); the port's host-IO helper cannot be built")
+
+
+def _host_key(cxx: list[str]) -> str:
+    h = hashlib.sha256()
+    ver = subprocess.run([*cxx, "--version"], capture_output=True,
+                         text=True)
+    h.update(" ".join(cxx).encode())
+    h.update((ver.stdout + ver.stderr + str(ver.returncode)).encode())
+    h.update(" ".join(HOST_FLAGS).encode())
+    h.update(HOST_SOURCE.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def host_library() -> ctypes.CDLL:
+    """Build (once per source, flags and compiler) and load the host-IO
+    helper ``build/host/libhakai_host_<hash>.so``.  Raises with the
+    compiler's output if it cannot be built: its callers have no other
+    path."""
+    global _host_lib
+    with _lock:
+        if _host_lib is not None:
+            return _host_lib
+        cxx = host_compiler()
+        HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        so = HOST_BUILD_DIR / f"libhakai_host_{_host_key(cxx)}.so"
+        t0 = time.perf_counter()
+        built = False
+        if not so.exists():
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [*cxx, *HOST_FLAGS, "-o", str(tmp), str(HOST_SOURCE)]
+            r = subprocess.run(cmd, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+            if r.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"host compiler {cxx[0]} failed "
+                                   f"({r.returncode}): {' '.join(cmd)}\n"
+                                   f"{r.stdout}")
+            os.replace(tmp, so)             # atomic: no half-written library
+            built = True
+        lib = ctypes.CDLL(str(so))
+        lib.hk_parse_numbers.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_double), ctypes.c_int64]
+        lib.hk_format_e.argtypes = [
+            ctypes.POINTER(ctypes.c_double), ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_char_p, ctypes.c_int64]
+        lib.hk_format_i.argtypes = [
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_char_p, ctypes.c_int64]
+        for fn in (lib.hk_parse_numbers, lib.hk_format_e, lib.hk_format_i):
+            fn.restype = ctypes.c_int64
+        HOST_INFO.update(path=str(so), built=built, compiler=cxx,
+                         seconds=time.perf_counter() - t0)
+        _host_lib = lib
+        return lib

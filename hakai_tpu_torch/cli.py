@@ -14,39 +14,81 @@ collectives backend) choosing NCCL or gloo; ``--resume`` of a shard-major
 halo checkpoint needs the matching ``--halo``.  ``--profile`` traces the
 run's loop, on ranks rank 0's.
 
-``--multihost ADDR:PORT,NPROC,PID`` (or ``auto`` in a SLURM job) makes
-this process one of NPROC that run the same command: ``--devices n`` and
+``--multihost ADDR:PORT,NPROC,PID`` (or ``auto`` in an Open MPI or SLURM
+job, read as ``jax.distributed.initialize()`` reads them on a GPU host)
+makes this process one of NPROC that run the same command: ``--devices n`` and
 ``--halo n`` then count ranks over every process, n / NPROC in each
 (``parallel.dist.initialize``).  Every process prints the deck's lines
 and returns the final state; process 0 alone writes frames, metrics,
 ``collection.pvd`` and ``final.ckpt.npz``, while a halo run's checkpoints
 are one file a process plus process 0's manifest.
+
+``--timings`` also prints which host-IO path parsed the deck and wrote the
+frames: the path of the C++ helper's shared library.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import re
 import time
 
-# what --multihost auto reads, as jax.distributed.initialize() reads a
-# SLURM job (jax/_src/clusters/slurm_cluster.py: SlurmCluster)
+# what --multihost auto reads, in jax.distributed.initialize()'s order of
+# detection on a GPU host: an Open MPI job (jax/_src/clusters/
+# ompi_cluster.py: OmpiCluster), then a SLURM job step (slurm_cluster.py:
+# SlurmCluster); both take the port from JAX_COORDINATOR_PORT where it is
+# set (cluster.py: ClusterEnv.auto_detect_unset_distributed_params)
+OMPI_VARS = ("OMPI_MCA_orte_hnp_uri", "OMPI_COMM_WORLD_SIZE",
+             "OMPI_COMM_WORLD_RANK")
 SLURM_VARS = ("SLURM_JOB_ID", "SLURM_STEP_NODELIST", "SLURM_NTASKS",
               "SLURM_PROCID", "SLURM_LOCALID")
+PORT_VAR = "JAX_COORDINATOR_PORT"
+
+
+def _missing(env, names) -> list[str]:
+    return [v for v in names if v not in env]
+
+
+def ompi_spec(env=None) -> tuple[str, int, int]:
+    """(coordinator address, process count, process id) of an Open MPI
+    job: the launcher's first IP address in ``OMPI_MCA_orte_hnp_uri`` at a
+    port in [61440, 65535] from the job id (or ``JAX_COORDINATOR_PORT``),
+    ``OMPI_COMM_WORLD_SIZE`` and ``OMPI_COMM_WORLD_RANK``."""
+    env = os.environ if env is None else env
+    missing = _missing(env, OMPI_VARS)
+    if missing:
+        raise SystemExit(
+            "--multihost auto reads an Open MPI job's environment ("
+            f"{', '.join(OMPI_VARS)}); not set: {', '.join(missing)}")
+    # '1531576320.0;tcp://10.96.0.1,10.148.0.1:34911',
+    # '1314521088.0;tcp6://[fe80::b9b:ac5d:9cf0:b858,2620:10d::2]:43370'
+    uri = env[OMPI_VARS[0]]
+    port = env.get(PORT_VAR) or str(
+        int(uri.split(".", 1)[0]) // 2**12 % 2**12 + (65535 - 2**12 + 1))
+    ip = re.search(r"tcp://(.+?)[,:]|tcp6://\[(.+?)[,\]]", uri)
+    if ip is None:
+        raise SystemExit(f"--multihost auto: no launcher address in "
+                         f"{OMPI_VARS[0]}={uri!r}")
+    host = next(g for g in ip.groups() if g is not None)
+    return (f"{host}:{port}", int(env["OMPI_COMM_WORLD_SIZE"]),
+            int(env["OMPI_COMM_WORLD_RANK"]))
 
 
 def slurm_spec(env=None) -> tuple[str, int, int]:
     """(coordinator address, process count, process id) of a SLURM job
     step: the first node of ``SLURM_STEP_NODELIST`` at a port in
-    [61440, 65535] from the job id, ``SLURM_NTASKS`` and
-    ``SLURM_PROCID``.  Stops, naming the variables, outside such a job."""
+    [61440, 65535] from the job id (or ``JAX_COORDINATOR_PORT``),
+    ``SLURM_NTASKS`` and ``SLURM_PROCID``.  Stops, naming the variables,
+    outside such a job."""
     env = os.environ if env is None else env
-    missing = [v for v in SLURM_VARS if v not in env]
+    missing = _missing(env, SLURM_VARS)
     if missing:
         raise SystemExit(
             "--multihost auto reads a SLURM job step's environment ("
             f"{', '.join(SLURM_VARS)}); not set: {', '.join(missing)}.  "
             "Outside SLURM pass --multihost ADDR:PORT,NPROC,PID")
-    port = int(env["SLURM_JOB_ID"]) % 2**12 + (65535 - 2**12 + 1)
+    port = env.get(PORT_VAR) or str(
+        int(env["SLURM_JOB_ID"]) % 2**12 + (65535 - 2**12 + 1))
     # 'node001', 'node001,host2', 'node[001-015],host2', 'node[001,007]'
     nodes = env["SLURM_STEP_NODELIST"]
     cut = next((i for i, ch in enumerate(nodes) if ch in ",["), len(nodes))
@@ -60,11 +102,29 @@ def slurm_spec(env=None) -> tuple[str, int, int]:
             int(env["SLURM_PROCID"]))
 
 
+def auto_spec(env=None) -> tuple[str, int, int]:
+    """``--multihost auto``: an Open MPI job (``OMPI_MCA_orte_hnp_uri``
+    set) wins over a SLURM job step, as in JAX; outside both it stops,
+    naming the variables of both."""
+    env = os.environ if env is None else env
+    if OMPI_VARS[0] in env:
+        return ompi_spec(env)
+    missing = _missing(env, SLURM_VARS)
+    if missing:
+        raise SystemExit(
+            "--multihost auto reads an Open MPI job's environment ("
+            f"{', '.join(OMPI_VARS)}) or a SLURM job step's ("
+            f"{', '.join(SLURM_VARS)}); not set: "
+            f"{', '.join(missing + [OMPI_VARS[0]])}.  Outside both pass "
+            "--multihost ADDR:PORT,NPROC,PID")
+    return slurm_spec(env)
+
+
 def multihost_spec(spec: str) -> tuple[str, int, int]:
     """``ADDR:PORT,NPROC,PID`` (split as the JAX CLI splits it) or
     ``auto`` -> (coordinator address, process count, process id)."""
     if spec == "auto":
-        return slurm_spec()
+        return auto_spec()
     try:
         addr, nproc, pid = spec.rsplit(",", 2)
         return addr, int(nproc), int(pid)
@@ -145,9 +205,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--multihost", default=None, metavar="SPEC",
                     help="run as one of several processes (on one host or "
                          "several): ADDR:PORT,NPROC,PID, process 0 hosting "
-                         "the rendezvous at ADDR:PORT, or auto in a SLURM "
-                         "job; --devices/--halo n then spread n ranks over "
-                         "the processes")
+                         "the rendezvous at ADDR:PORT, or auto in an Open "
+                         "MPI job or a SLURM job step (JAX_COORDINATOR_PORT "
+                         "sets the port); --devices/--halo n then spread n "
+                         "ranks over the processes")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="capture a torch.profiler trace of the run's loop "
                          "(on --devices/--halo ranks, rank 0's) into "
@@ -169,7 +230,8 @@ def _parser() -> argparse.ArgumentParser:
                          "on the GPU, gloo on the CPU)")
     ap.add_argument("--timings", action="store_true",
                     help="print the host seconds of the parse, the "
-                         "lowering, the step chunks and the frame output")
+                         "lowering, the step chunks and the frame output, "
+                         "and the host-IO helper's library")
     return ap
 
 
@@ -275,6 +337,9 @@ def main(argv=None):
               f"steps {timings['step_s']:.3f} s for {timings['steps']} "
               f"steps, frames {timings['frame_s']:.3f} s for "
               f"{timings['frames']} frames")
+        from ._build import HOST_INFO, host_library
+        host_library()                  # loaded by the parse already
+        print(f"host-io: C++ helper {HOST_INFO['path']}")
     return state
 
 

@@ -1,12 +1,14 @@
 """Legacy-VTK ASCII writer (UNSTRUCTURED_GRID), the port's own copy of
-``hakai_tpu/io/vtk.py``: for the same arrays it writes the same bytes.
+``hakai_tpu/io/vtk.py``: for the same arrays it writes the same bytes as
+the JAX package with its C++ helper.
 
 Same header, same field names and order (DISPLACEMENT vector; Vx/Vy/Vz,
 E11..E13, EQ_PSTRAIN, S11..S13, MISES_STRESS, TRIAX_STRESS scalars),
 ``%1.6e`` formatting of the values widened to float64, magnitudes below
 1e-16 flushed to zero, deleted elements left out of CELLS.  Output goes to
-``<out_dir>/fileNNN.vtk``.  The formatter is NumPy and Python only: one
-``%`` over a whole block.
+``<out_dir>/fileNNN.vtk``.  Every number is formatted by the port's
+host-IO helper (``csrc/host_io.cpp`` through :mod:`.native`: ``snprintf``,
+so a negative NaN prints ``-nan`` as it does in the JAX package).
 """
 from __future__ import annotations
 
@@ -14,24 +16,15 @@ import os
 
 import numpy as np
 
+from .native import format_e_rows, format_i_rows
+
 
 def _flush_small(a: np.ndarray) -> np.ndarray:
     return np.where(np.abs(a) < 1e-16, 0.0, a)
 
 
-def _format_rows(a: np.ndarray, fmt: str, dtype) -> str:
-    """Rows of ``a`` (1-D: one value a row) as ``fmt`` values joined by
-    single spaces, one line each."""
-    a = np.ascontiguousarray(a, dtype)
-    if a.ndim == 1:
-        a = a[:, None]
-    rows, cols = a.shape
-    line = " ".join([fmt] * cols) + "\n"
-    return (line * rows) % tuple(a.ravel().tolist())
-
-
 def _fmt_block(a: np.ndarray) -> str:
-    return _format_rows(a, "%1.6e", np.float64)
+    return format_e_rows(np.asarray(a))
 
 
 def write_vtk(index: int, out_dir: str, coord: np.ndarray, elem: np.ndarray,
@@ -64,9 +57,8 @@ def write_vtk(index: int, out_dir: str, coord: np.ndarray, elem: np.ndarray,
     parts.append(_fmt_block(coord.T))
     parts.append(f"CELLS {n_alive} {n_alive * 9}\n")
     cells = elem[:, alive].T                      # (n_alive, 8)
-    parts.append(_format_rows(np.concatenate(
-        [np.full((n_alive, 1), 8, np.int64), cells], axis=1), "%d",
-        np.int32))
+    parts.append(format_i_rows(np.concatenate(
+        [np.full((n_alive, 1), 8, np.int64), cells], axis=1)))
     parts.append(f"CELL_TYPES {n_alive}\n")
     parts.append("12\n" * n_alive)
     parts.append(f"POINT_DATA {n_node}\n")

@@ -289,6 +289,23 @@ def test_profile_writes_chrome_trace(tmp_path, capsys):
     assert len(events["traceEvents"]) > 10
 
 
+def test_timings_name_the_host_io_helper(tmp_path, capsys):
+    """``--timings`` prints, on a line of its own, the host-IO helper's
+    library that parsed the deck and wrote the frames."""
+    from hakai_tpu_torch import _build
+    deck = tmp_path / "deck.inp"
+    deck.write_text(deck_text(tsyn.bar_model(2, 2, 4, d_time=5e-8,
+                                             end_time=5e-7)))
+    tcli.main([str(deck), "--device", "cpu", "--output-num", "2",
+               "--out-dir", str(tmp_path / "out"), "--timings"])
+    out = capsys.readouterr().out
+    line = re.search(r"^host-io: C\+\+ helper (\S+)$", out, re.M)
+    assert line and line.group(1) == _build.HOST_INFO["path"]
+    assert os.path.basename(line.group(1)).startswith("libhakai_host_")
+    assert os.path.exists(line.group(1))
+    assert (tmp_path / "out" / "file002.vtk").exists()
+
+
 def _trace_names(path):
     import json
     events = json.loads(path.read_text())["traceEvents"]

@@ -475,6 +475,8 @@ def test_auto_reads_slurm_as_jax(monkeypatch, nodes):
     from jax._src.clusters.slurm_cluster import SlurmCluster
     env = {"SLURM_JOB_ID": "4194327", "SLURM_STEP_NODELIST": nodes,
            "SLURM_NTASKS": "8", "SLURM_PROCID": "5", "SLURM_LOCALID": "1"}
+    for k in tcli.OMPI_VARS + (tcli.PORT_VAR,):          # not Open MPI
+        monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     assert SlurmCluster.is_env_present()
@@ -483,19 +485,89 @@ def test_auto_reads_slurm_as_jax(monkeypatch, nodes):
         SlurmCluster.get_process_count(), SlurmCluster.get_process_id())
 
 
+def _jax_auto():
+    """(address, count, id) that jax.distributed.initialize() detects from
+    this environment: its own cluster detection, in its order, with its
+    JAX_COORDINATOR_PORT handling."""
+    from jax._src.clusters import ClusterEnv
+    return ClusterEnv.auto_detect_unset_distributed_params(
+        None, None, None, None, None, None)[:3]
+
+
+# Open MPI's launcher URIs: the two examples of JAX's OmpiCluster
+# (jax/_src/clusters/ompi_cluster.py), one with a single IPv4 address, and
+# the first again with JAX_COORDINATOR_PORT set
+OMPI_URIS = {
+    "ipv4s": ("1531576320.0;tcp://10.96.0.1,10.148.0.1,10.108.0.1:34911",
+              None),
+    "ipv6": ("1314521088.0;tcp6://[fe80::b9b:ac5d:9cf0:b858,"
+             "2620:10d:c083:150e::3000:2]:43370", None),
+    "one_ipv4": ("3737124864.0;tcp://192.168.17.4:51234", None),
+    "port_set": ("1531576320.0;tcp://10.96.0.1,10.148.0.1,10.108.0.1:34911",
+                 "12345"),
+}
+
+
+@pytest.mark.parametrize("with_slurm", [False, True])
+@pytest.mark.parametrize("uri", sorted(OMPI_URIS))
+def test_auto_reads_ompi_as_jax(monkeypatch, uri, with_slurm):
+    """``--multihost auto`` in an Open MPI job: the coordinator address,
+    process count and process id that jax.distributed.initialize() reads
+    from the same environment; with a SLURM job step's variables set as
+    well, Open MPI wins, as in JAX."""
+    value, port = OMPI_URIS[uri]
+    env = {"OMPI_MCA_orte_hnp_uri": value, "OMPI_COMM_WORLD_SIZE": "6",
+           "OMPI_COMM_WORLD_RANK": "4", "OMPI_COMM_WORLD_LOCAL_RANK": "0"}
+    if with_slurm:
+        env.update({"SLURM_JOB_ID": "4194327",
+                    "SLURM_STEP_NODELIST": "node[001-015]",
+                    "SLURM_NTASKS": "8", "SLURM_PROCID": "5",
+                    "SLURM_LOCALID": "1"})
+    else:
+        for k in tcli.SLURM_VARS:
+            monkeypatch.delenv(k, raising=False)
+    if port is None:
+        monkeypatch.delenv(tcli.PORT_VAR, raising=False)
+    else:
+        env[tcli.PORT_VAR] = port
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    got = tcli.multihost_spec("auto")
+    assert got == _jax_auto()
+    assert got[1:] == (6, 4)
+    assert got[0].endswith(":12345" if port else
+                           f":{int(value.split('.')[0]) // 4096 % 4096 + 61440}")
+
+
+def test_auto_slurm_honours_coordinator_port(monkeypatch):
+    """A SLURM job step with JAX_COORDINATOR_PORT set: JAX's address,
+    at that port."""
+    for k in tcli.OMPI_VARS:
+        monkeypatch.delenv(k, raising=False)
+    env = {"SLURM_JOB_ID": "4194327", "SLURM_STEP_NODELIST": "node001,h2",
+           "SLURM_NTASKS": "8", "SLURM_PROCID": "5", "SLURM_LOCALID": "1",
+           tcli.PORT_VAR: "23456"}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert tcli.multihost_spec("auto") == _jax_auto() == ("node001:23456",
+                                                          8, 5)
+
+
 def test_auto_without_slurm_and_indivisible_ranks_stop(monkeypatch,
                                                       tmp_path):
-    """``auto`` outside a SLURM job step stops naming the variables it
-    reads; ``--halo 3`` (or ``--devices 3``) over two processes stops
-    before any process joins."""
-    for k in tcli.SLURM_VARS:
+    """``auto`` outside an Open MPI job and a SLURM job step stops naming
+    the variables of both; ``--halo 3`` (or ``--devices 3``) over two
+    processes stops before any process joins."""
+    for k in tcli.SLURM_VARS + tcli.OMPI_VARS:
         monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("SLURM_JOB_ID", "7")
     with pytest.raises(SystemExit) as err:
         tcli.main(["deck.inp", "--multihost", "auto", "--device", "cpu"])
     msg = str(err.value)
     assert all(v in msg for v in tcli.SLURM_VARS)
+    assert all(v in msg for v in tcli.OMPI_VARS)
     assert "not set: SLURM_STEP_NODELIST, SLURM_NTASKS" in msg
+    assert "OMPI_MCA_orte_hnp_uri." in msg
     for flag in ("--halo", "--devices"):
         with pytest.raises(SystemExit, match=f"{flag} 3 does not divide "
                            "over the 2 processes"):

@@ -1,9 +1,10 @@
 """The port runs without JAX and without the JAX package: a fresh
-interpreter imports every module of hakai_tpu_torch (``parallel``
-included), builds the ductile bar and the impact contact deck from the
-port's own pre.synthetic and runs run() on each on the CPU, the bar also
-on two element-sharded ranks and on two halo ranks, the bandwidth and interleave probes
-at a small size; ``python -m hakai_tpu_torch deck.inp
+interpreter imports every module of hakai_tpu_torch (``parallel`` and the
+offline tools included), builds the ductile bar and the impact contact
+deck from the port's own pre.synthetic and runs run() on each on the CPU,
+the bar also on two element-sharded ranks and on two halo ranks, the
+bandwidth and interleave probes at a small size, the host-IO helper, the
+mesh tools and the metrics plot; ``python -m hakai_tpu_torch deck.inp
 --device cpu`` runs a written deck; two interpreters run the bar as the
 two processes of a multi-host run (``parallel.dist.initialize``); no
 module of jax or hakai_tpu is ever loaded, in the interpreters or in a
@@ -24,8 +25,13 @@ import importlib, pkgutil, sys, tempfile
 sys.path.insert(0, {root!r})
 import torch
 import hakai_tpu_torch as ht
+names = set()
 for mod in pkgutil.walk_packages(ht.__path__, "hakai_tpu_torch."):
     importlib.import_module(mod.name)
+    names.add(mod.name)
+assert {{"hakai_tpu_torch.io.native", "hakai_tpu_torch.pre.gilgamsh",
+         "hakai_tpu_torch.pre.shell_to_solid", "hakai_tpu_torch.pre.viewer",
+         "hakai_tpu_torch.utils.plot"}} <= names
 from hakai_tpu_torch.pre.synthetic import bar_model
 out = tempfile.mkdtemp()
 cfg = ht.SolverConfig(dtype="mixed", output_num=2, energy_check=True,
@@ -34,6 +40,20 @@ m = ht.lower(bar_model(4, 4, 16, d_time=5e-8, end_time=5e-7, ductile=True),
              cfg, device="cpu")
 s = ht.run(m, verbose=False, device="cpu")
 assert int(s.t) == m.time_num == 10 and bool(torch.isfinite(s.disp).all())
+from hakai_tpu_torch import _build
+from hakai_tpu_torch.io.native import parse_numbers
+from hakai_tpu_torch.pre.gilgamsh import refine_hex, refine_quad
+from hakai_tpu_torch.pre.shell_to_solid import shell_to_solid
+from hakai_tpu_torch.pre.viewer import write_wireframe_vtk
+from hakai_tpu_torch.utils.plot import load_jsonl, plot_metrics
+assert _build.HOST_INFO["path"].endswith(".so")
+assert list(parse_numbers("1.0d3, -inf")) == [1.0, 3.0, float("-inf")]
+bar = bar_model(2, 2, 3)
+cm, em = refine_hex(bar.coordmat, bar.elementmat)
+write_wireframe_vtk(out + "/wf.vtk", cm, em)
+quad = bar.elementmat[:4, :2]
+shell_to_solid(*refine_quad(bar.coordmat, quad), 0.5)
+plot_metrics(load_jsonl(out + "/m.jsonl"), out + "/m.png")
 s2 = ht.run(m, verbose=False, write_output=False, devices=2, device="cpu")
 assert torch.equal(s2.disp, s.disp)
 s3 = ht.run(m, verbose=False, write_output=False, halo=2, device="cpu")
