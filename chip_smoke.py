@@ -30,8 +30,9 @@ without its last line):
    and on the CPU (plain versions), compared;
 5. main path of the first slice: the 32x32x128 bar (131,072 elements,
    float32) stepped with ``run_chunk`` for 50 and 400 steps (slope timing,
-   as bench.py times the JAX package), counting kernel launches, checking
-   that repeat runs from one state are bitwise equal; then a profiler trace;
+   as bench.py times the JAX package), counting kernel launches (a graph
+   replay adds what its capture launched), checking that repeat runs from
+   one state are bitwise equal; then a profiler trace;
 6. fracture: the ductile 8x8x32 bar in mixed precision, 500 steps one at a
    time on the card and on the CPU; the deletion histories compared;
 7. main path of the second slice: the ductile 32x32x128 bar in mixed
@@ -135,7 +136,21 @@ without its last line):
    HALO_FRAME_REL, CELLS equal the alive counts, the manifest and both
    processes' files carry rows [0] and [1]; then two new processes resume
    from the first checkpoint, and their frame 2 is byte-identical to the
-   first run's.
+   first run's;
+24. graph (the twelfth slice's main path: ``run_chunk`` on one card
+   replays captured CUDA graphs of its steps, so every phase above that
+   steps a single-device chunk, through ``run_chunk`` or ``run()``, rides
+   them): after [main], [run], [contact] and [generic], each model's
+   chunk through ``graph_chunk`` against ``eager_chunk`` from its initial
+   state, bit for bit in every state field, with launch counts equal to
+   the steps ([main] N2 steps; [run] GRAPH_RUN_CHUNK, past its first
+   deletion; [contact] REF_CONTACT_CHUNK, past first contact and first
+   deletion; [generic] f32 N2, mixed GENERIC_STEPS), one eager step under
+   ``torch.cuda.set_sync_debug_mode("error")``, both loops slope-timed and
+   traced (device busy, idle share), the capture and instantiate seconds
+   and the graph pool's bytes; on [main] and [contact] the graph chunk
+   timed in graphs of GRAPH_KS steps; and ``run(profile=...)`` capturing
+   under the profiler, its trace holding every step's element kernel.
 
 The line before the last is nvidia-smi's name and power limit; the one
 before that the per-kernel JSON record; the last line is
@@ -335,6 +350,9 @@ ELEMENT_FLOP = 6200
 REF_DIR = os.path.join(ROOT, "build", "ref")
 REF_SOURCES = ("element", "assemble", "contact", "interleave")
 REF_CHUNK = 1500                  # [run]'s deck past its first deletion
+GRAPH_KS = (1, 8, 32)             # graph lengths timed on [main], [contact]
+GRAPH_RUN_CHUNK = 2000            # [graph]'s [run] chunk: past step 1,424
+GRAPH_PROFILE_STEPS = 100         # run(profile=...) on the bench bar
 REF_CONTACT_CHUNK = 400           # [contact]'s deck past its first deletion
 
 
@@ -342,8 +360,8 @@ def log(*a):
     print(*a, flush=True)
 
 
-def smi() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def smi(query="name,power.limit") -> str:
+    r = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
@@ -580,17 +598,19 @@ def log_resources(rec, labels):
 
 
 def reference_chunk(model, ref):
-    """REF_CHUNK steps of ``model`` from its initial state through
-    run_chunk, with the shipped kernels and with the reference design's:
-    every state field bit for bit, past the first deletion."""
+    """REF_CHUNK steps of ``model`` from its initial state through the
+    eager chunk loop (a captured graph replays the kernels it captured),
+    with the shipped kernels and with the reference design's: every state
+    field bit for bit, past the first deletion."""
     import torch
-    from hakai_tpu_torch import init_state, run_chunk
+    from hakai_tpu_torch import init_state
+    from hakai_tpu_torch.solver.explicit import eager_chunk
     if ref is None:
         return
     s0 = init_state(model)
-    new = run_chunk(model, s0, REF_CHUNK)
+    new = eager_chunk(model, s0, REF_CHUNK)
     with reference(ref):
-        old = run_chunk(model, s0, REF_CHUNK)
+        old = eager_chunk(model, s0, REF_CHUNK)
     torch.cuda.synchronize()
     differ = [f.name for f in dataclasses.fields(new)
               if not torch.equal(getattr(new, f.name), getattr(old, f.name))]
@@ -935,7 +955,8 @@ def main_path(model, smi_line, tag="[main]",
         _ = float(s.disp.sum())         # scalar readback forces completion
         return s, time.perf_counter() - t0
 
-    run_sync(N1)                        # warm-up (allocator, first launches)
+    run_sync(N1)                        # warm-up (allocator, first launches,
+    run_sync(N2)                        # the graphs of both lengths)
     reset_counts()
     per_step, runs = [], []
     for _ in range(REPEATS):
@@ -971,22 +992,25 @@ def main_path(model, smi_line, tag="[main]",
     return launches, s2, med
 
 
-def trace(model, state, smi_line, tag, n=40):
+def trace(model, state, smi_line, tag, n=40, chunk=None):
     """Device time per step by kernel, from torch.profiler (CUPTI):
-    (busy us a step, untraced us a step, {kernel: launches a step})."""
+    (busy us a step, untraced us a step, {kernel: launches a step}), of
+    ``chunk`` (default run_chunk: on the card, the captured graphs; a
+    warm-up chunk of the same length captures them first)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from hakai_tpu_torch import run_chunk
-    run_chunk(model, state, 5)
+    chunk = chunk or run_chunk
+    chunk(model, state, n)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run_chunk(model, state, n)
+    chunk(model, state, n)
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) / n * 1e6
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_chunk(model, state, n)
+        chunk(model, state, n)
         torch.cuda.synchronize()
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1005,6 +1029,134 @@ def trace(model, state, smi_line, tag, n=40):
                     for k, v in sorted(by_name.items()))
         + f"; the same {n} steps untraced {wall_us:.2f} us/step [{smi_line}]")
     return busy, wall_us, count
+
+
+def slope_us(chunk, model, state0, repeats=REPEATS):
+    """Median over ``repeats`` pairs of (T(N2) - T(N1)) / (N2 - N1) in
+    us/step of ``chunk`` from ``state0``, each run ending in a scalar
+    readback, after one untimed run of each length."""
+    def run_sync(k):
+        t0 = time.perf_counter()
+        _ = float(chunk(model, state0, k).disp.sum())
+        return time.perf_counter() - t0
+    run_sync(N1)
+    run_sync(N2)
+    return statistics.median((run_sync(N2) - run_sync(N1)) / (N2 - N1) * 1e6
+                             for _ in range(repeats))
+
+
+def graph_path(tag, model, steps, counts, smi_line, ks=(), deletes=False,
+               contact=False):
+    """[graph]: ``model``'s chunk as captured CUDA graphs against the eager
+    loop.  One eager step under ``torch.cuda.set_sync_debug_mode("error")``
+    (no step reads the device back); ``steps`` steps from the initial state
+    through ``graph_chunk`` and ``eager_chunk``, every state field bit for
+    bit, the graph chunk's launches (``counts``: count -> launches a step)
+    equal to its steps; both loops slope-timed and traced (device busy and
+    idle share); the capture and instantiate seconds and the graph pool's
+    bytes by captured length; with ``ks``, the graph chunk slope-timed in
+    graphs of each k.  Returns the phase's record."""
+    import torch
+    from hakai_tpu_torch import init_state
+    from hakai_tpu_torch.solver.explicit import eager_chunk, graph_chunk
+    from hakai_tpu_torch.solver.graph import GRAPH_STEPS
+    loop = "generic" if model.coord_e is None else "packed"
+    s0 = init_state(model)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager_chunk(model, s0, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eager = eager_chunk(model, s0, steps)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = graph_chunk(model, s0, steps)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = {k: v * steps for k, v in counts.items()}
+    if any(launches.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"{tag} graph chunk launches {launches} != "
+                             f"{want}")
+    differ = [f.name for f in dataclasses.fields(got)
+              if not torch.equal(getattr(got, f.name),
+                                 getattr(eager, f.name))]
+    if differ or int(got.t) != steps:
+        raise AssertionError(f"{tag} graph chunk differs from the eager "
+                             f"chunk in {differ}")
+    alive = int(got.element_flag.sum())
+    if deletes and alive == int(model.elem_exists.sum()):
+        raise AssertionError(f"{tag} graph chunk deleted no element")
+    cmax = float(got.contact_force.abs().max())
+    if contact and not cmax > 0:
+        raise AssertionError(f"{tag} graph chunk made no contact")
+    # the card's SM clock and power draw read before each timing: the one
+    # graph chunk timed after the eager loop and again after the k sweep
+    clocks = {"eager": smi("clocks.sm,power.draw")}
+    rec = {"eager_us": slope_us(eager_chunk, model, s0)}
+    clocks["graph"] = smi("clocks.sm,power.draw")
+    rec["graph_us"] = slope_us(graph_chunk, model, s0)
+    for which, fn in (("eager", eager_chunk), ("graph", graph_chunk)):
+        busy, wall, per = trace(model, got, smi_line, f"{tag} {which}",
+                                n=20 if contact else 40, chunk=fn)
+        rec[which] = {"busy": busy, "wall": wall,
+                      "kernels": sum(per.values())}
+    for k in ks:
+        clocks[f"k={k}"] = smi("clocks.sm,power.draw")
+        rec[f"k={k}"] = slope_us(lambda m, s, n: graph_chunk(m, s, n, k),
+                                 model, s0, repeats=3)
+    if ks:
+        clocks["graph again"] = smi("clocks.sm,power.draw")
+        rec["graph again"] = slope_us(graph_chunk, model, s0)
+    caps = model._chunk_graphs[loop].graphs
+    main = caps[GRAPH_STEPS]
+    rec.update(capture_s=main.capture_s, instantiate_s=main.instantiate_s,
+               pool_bytes=sum(c.pool_bytes for c in caps.values()))
+    log(f"[graph] {tag} ({loop} loop): {steps} steps through captured "
+        f"graphs bitwise the eager loop in every field ({alive} alive, "
+        f"contact force max {cmax:.4e}); no host sync in an eager step; "
+        f"launches {launches}; step by slope eager {rec['eager_us']:.2f} "
+        f"us, graph {rec['graph_us']:.2f} us ("
+        f"{rec['eager_us'] / rec['graph_us']:.3f}x); device busy a step "
+        f"eager {rec['eager']['busy']:.2f} us ({rec['eager']['kernels']:.1f}"
+        f" kernels), graph {rec['graph']['busy']:.2f} us "
+        f"({rec['graph']['kernels']:.1f}); idle share of the same steps "
+        f"untraced eager {1 - rec['eager']['busy'] / rec['eager']['wall']:.4f}"
+        f", graph {1 - rec['graph']['busy'] / rec['graph']['wall']:.4f}; "
+        f"the {GRAPH_STEPS}-step graph captured in {main.capture_s:.3f} s, "
+        f"instantiated in {main.instantiate_s:.3f} s; graph pool "
+        f"{rec['pool_bytes']} B over lengths "
+        + ", ".join(f"{n}: {c.pool_bytes} B, {c.capture_s:.3f} + "
+                    f"{c.instantiate_s:.3f} s" for n, c in sorted(caps.items()))
+        + "".join(f"; k={k} {rec[f'k={k}']:.2f} us" for k in ks)
+        + (f"; graph again {rec['graph again']:.2f} us" if ks else "")
+        + "; SM clock, power draw before each timing: "
+        + ", ".join(f"{k} {v}" for k, v in clocks.items())
+        + f" [{smi_line}]")
+    return rec
+
+
+def graph_profile(model, smi_line):
+    """run() with ``profile`` on a model with no graphs yet: the capture
+    runs under torch.profiler, and the trace holds one element kernel a
+    step, launched from the graphs, and the warm-up step's, which runs
+    once eagerly before the first capture (its result dropped)."""
+    import torch
+    from hakai_tpu_torch import run
+    out = os.path.join(ROOT, "build", "smoke_graph_profile")
+    shutil.rmtree(out, ignore_errors=True)
+    run(model, verbose=False, write_output=False, profile=out)
+    with open(os.path.join(out, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    n = sum(1 for e in events if e.get("cat") == "kernel"
+            and "element_kernel" in e.get("name", ""))
+    log(f"[graph] run(profile=...) of {model.time_num} steps, captured under"
+        f" the profiler: {n} element kernels in its trace (the steps' and "
+        f"the warm-up step's) [{smi_line}]")
+    if n != model.time_num + 1:
+        raise AssertionError(f"the profiled run traced {n} element kernels "
+                             f"for {model.time_num} steps")
+    torch.cuda.synchronize()
 
 
 def fracture_margin(model, state):
@@ -1578,16 +1730,18 @@ def check_scatter(model, force, out_dtype, kind, ref_lib=None):
 
 def reference_contact_chunk(model, ref):
     """REF_CONTACT_CHUNK steps of [contact]'s deck from its initial state
-    through run_chunk, with the shipped S and with the reference S: every
-    state field bit for bit, past the first contact and first deletion."""
+    through the eager chunk loop, with the shipped S and with the
+    reference S: every state field bit for bit, past the first contact and
+    first deletion."""
     import torch
-    from hakai_tpu_torch import init_state, run_chunk
+    from hakai_tpu_torch import init_state
+    from hakai_tpu_torch.solver.explicit import eager_chunk
     if ref is None:
         return
     s0 = init_state(model)
-    new = run_chunk(model, s0, REF_CONTACT_CHUNK)
+    new = eager_chunk(model, s0, REF_CONTACT_CHUNK)
     with reference_scatter(ref):
-        old = run_chunk(model, s0, REF_CONTACT_CHUNK)
+        old = eager_chunk(model, s0, REF_CONTACT_CHUNK)
     torch.cuda.synchronize()
     differ = [f.name for f in dataclasses.fields(new)
               if not torch.equal(getattr(new, f.name), getattr(old, f.name))]
@@ -2923,6 +3077,12 @@ def main() -> int:
         f"({busy_us:.2f} of {step_us:.2f} us)")
     launches_g = grouped_path(bench, final, smi_line)
     lap("[main], its [trace] and [grouped-asm]'s run")
+    graphs = {"[main]": graph_path(
+        "[main]", bench, N2, {"element": 1, "assemble": 1,
+                              "element[float32]": 1}, smi_line, GRAPH_KS)}
+    graph_profile(cut_to(bench, GRAPH_PROFILE_STEPS, output_num=1,
+                         checkpoint_every=0, metrics_path=None), smi_line)
+    lap("[graph] of [main]")
 
     fracture()
     lap("[fracture]")
@@ -2936,6 +3096,11 @@ def main() -> int:
                  out_dir=SHARD_RUN_DIR,
                  metrics_path=os.path.join(SHARD_RUN_DIR, "metrics.jsonl"))
     lap("[run] and its [trace]")
+    graphs["[run]"] = graph_path(
+        "[run]", mixed, GRAPH_RUN_CHUNK, {"element[mixed+triax]": 1,
+                                          "assemble[hk_assemble_f32_f64]": 1},
+        smi_line, deletes=True)
+    lap("[graph] of [run]")
     host_io_phase(mixed, final2, smi_line)
     del mixed, final2
     lap("[host-io]")
@@ -2949,6 +3114,11 @@ def main() -> int:
         f" averaged {contact_us:.2f} us/step over its 5,000 steps)")
     crec = contact_kernels(impact, s_kern, smi_line, sum(
         v for k, v in per3.items() if k.startswith("narrow_")), ref)
+    graphs["[contact]"] = graph_path(
+        "[contact]", impact, REF_CONTACT_CHUNK, {
+            "element[mixed+triax]": 1, "assemble[hk_assemble_f32_f64]": 1,
+            "gather": 1, "narrow": len(impact.pairs), "scatter": 1},
+        smi_line, GRAPH_KS, deletes=True, contact=True)
     impact_cut = cut_to(impact, SHARD_CONTACT_STEPS, output_num=1,
                         checkpoint_every=0, out_dir=SHARD_CONTACT_DIR,
                         metrics_path=None)
@@ -2975,14 +3145,26 @@ def main() -> int:
         f"{1.0 - busy4 / gen_us:.4f} of the median untraced step "
         f"({busy4:.2f} of {gen_us:.2f} us)")
     del final4
+    graphs["[generic] f32"] = graph_path(
+        "[generic] f32", gen, N2, {"update": 1, "assemble": 1,
+                                   "update[float32+triax]": 1}, smi_line)
     gen_mixed, launches5, final5, gen_run_us = generic_run(
         smi_line, run_first, run_alive)
     busy5 = trace(gen_mixed, final5, smi_line, "generic mixed ductile")[0]
     log(f"[trace] generic mixed ductile: device idle share "
         f"{1.0 - busy5 / gen_run_us:.4f} of the run() step ({busy5:.2f} of "
         f"{gen_run_us:.2f} us)")
+    graphs["[generic] mixed"] = graph_path(
+        "[generic] mixed", gen_mixed, GENERIC_STEPS, {
+            "update[float32+triax]": 1, "assemble[hk_assemble_f32_f64]": 1},
+        smi_line, deletes=True)
     del gen_mixed, final5
-    lap("[generic] and its [trace]s")
+    lap("[generic] and its [trace]s, [graph] of both")
+    log("[graph] summary (us a step; eager -> graph): " + "; ".join(
+        f"{tag} step {r['eager_us']:.2f} -> {r['graph_us']:.2f}, busy "
+        f"{r['eager']['busy']:.2f} -> {r['graph']['busy']:.2f}, capture "
+        f"{r['capture_s']:.3f} s + {r['instantiate_s']:.3f} s, pool "
+        f"{r['pool_bytes']} B" for tag, r in graphs.items()))
     generic_cpu()
     lap("[generic-cpu]")
     cli_phase(smi_line)

@@ -18,7 +18,8 @@ element's stress and strain every step and reports its triaxiality from
 the trial stress.  ``run()`` drives chunks from the host and writes VTK
 frames, checkpoints and metrics between them, on one device or, with
 ``devices``, on element-sharded ranks (``parallel/sharding.py``), whose
-steps are these same functions given a ``comm``.
+steps are these same functions given a ``comm``.  On one CUDA device a
+chunk replays captured CUDA graphs of its steps (``solver/graph.py``).
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from ..ops.element_cuda import element_update, packed_element_step
 from ..ops.erosion import erode
 from ..utils.checkpoint import save_checkpoint
 from ..utils.metrics import MetricsWriter, energy_guard, step_metrics
+from .graph import GRAPH_STEPS, chunk_graphs
 from .output import node_fields
 
 
@@ -208,9 +210,23 @@ def run_chunk(model: LoweredModel, state: SimState, n_steps: int,
     elements keep stale stress inside the chunk and are zeroed once at its
     exit; on fracture-free decks the triaxiality is formed once at exit
     from the final stress, on fracture decks it is the last step's (the
-    erosion walk needs it every step).  With ``comm``, ``model`` and
-    ``state`` are a rank's element shard (every per-element act of the
-    chunk, its exit included, stays on the rank's elements)."""
+    erosion walk needs it every step).
+
+    On a CUDA device with no ``comm`` the steps replay captured CUDA
+    graphs (:func:`graph_chunk`), as the JAX package runs a chunk as one
+    compiled program; on the CPU, and on ranks, they run eagerly
+    (:func:`eager_chunk`).  The two give the same bits.  With ``comm``,
+    ``model`` and ``state`` are a rank's element shard (every per-element
+    act of the chunk, its exit included, stays on the rank's elements).
+    The state returned is the caller's: no later chunk changes it."""
+    if comm is None and state.disp.device.type == "cuda":
+        return graph_chunk(model, state, n_steps)
+    return eager_chunk(model, state, n_steps, comm)
+
+
+def eager_chunk(model: LoweredModel, state: SimState, n_steps: int,
+                comm=None) -> SimState:
+    """:func:`run_chunk`'s loop with every op launched from the host."""
     if model.coord_e is None:
         for _ in range(n_steps):
             state = step(model, state, comm)
@@ -218,6 +234,24 @@ def run_chunk(model: LoweredModel, state: SimState, n_steps: int,
     P = pack_gauss_state(state)
     for _ in range(n_steps):
         state, P = step_fast_packed(model, state, P, comm)
+    return finish_packed(model, state, P)
+
+
+def _generic_step(model: LoweredModel, state: SimState):
+    return (step(model, state),)
+
+
+def graph_chunk(model: LoweredModel, state: SimState, n_steps: int,
+                k: int = GRAPH_STEPS) -> SimState:
+    """:func:`run_chunk` on one CUDA device: the chunk's steps replay the
+    model's captured graphs of ``k`` steps and of the remainder
+    (:mod:`hakai_tpu_torch.solver.graph`); the packed loop's entry and
+    exit run eagerly, once a chunk, around them."""
+    if model.coord_e is None:
+        return chunk_graphs(model, "generic", _generic_step).advance(
+            model, state, (), n_steps, k)[0]
+    state, P = chunk_graphs(model, "packed", step_fast_packed).advance(
+        model, state, (pack_gauss_state(state),), n_steps, k)
     return finish_packed(model, state, P)
 
 

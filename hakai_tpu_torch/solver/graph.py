@@ -1,0 +1,269 @@
+"""The chunk loop as captured CUDA graphs: the port's counterpart of the
+JAX package's compiled ``run_chunk`` (``jax.jit`` over
+``jax.lax.fori_loop``, ``hakai_tpu/solver/explicit.py:326-400``), in which
+a chunk of n steps is one device program and the host takes no part in
+the steps.
+
+A step's kernels, and the plain PyTorch ops around them, launch on the
+current stream with static shapes and read nothing back to the host, so
+``GRAPH_STEPS`` consecutive steps are captured once into a
+``torch.cuda.CUDAGraph`` over static input buffers (the state's tensors
+and, on the packed loop, the packed Gauss state ``P``) and replayed.  A
+chunk of n steps copies its input into those buffers, replays the
+``GRAPH_STEPS``-step graph ``n // GRAPH_STEPS`` times and a graph of the
+remaining ``n % GRAPH_STEPS`` steps once, and copies the buffers out.
+Each length is captured the first time it appears, as ``jit`` compiles
+once per static ``n_steps``; the graphs of one model and loop live in a
+:class:`ChunkGraphs` held by the model object, and die with it.
+
+A replay runs the captured kernels with the captured launch shapes in
+the captured order, so a chunk's state equals the eager loop's
+(``solver/explicit.eager_chunk``) bit for bit.  Each graph ends by
+writing its last step's state into the static buffers, so consecutive
+replays need no copy between them.  Launch counts: the kernel wrappers
+run only while a graph is captured; a replay adds each wrapper's
+captured launches to its count, so the counts say what ran on the card.
+
+Nothing falls back: a failed warm-up, capture or replay raises, with a
+note naming the step.  Element-sharded and halo ranks and the CPU run
+the eager loop (``solver/explicit.run_chunk`` decides).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple
+
+import torch
+
+from ..core.lowering import LoweredModel
+from ..core.state import SimState
+from ..ops.assemble_cuda import assemble_internal_force, blocked_assemble
+from ..ops.contact_cuda import narrow_phase, scatter_forces
+from ..ops.element_cuda import element_core_packed, element_update
+from ..ops.gather_cuda import gather_cols
+
+# steps a replay advances (K): chosen on the H100 from the step times of
+# K = 1, 8 and 32 on [main] and [contact] (PERF.md, section 5)
+GRAPH_STEPS = 32
+
+# the kernel wrappers a step can launch, each with a ``launches`` count
+# and, some, counts by instantiation (``launches_by``)
+_COUNTED = (element_core_packed, element_update, assemble_internal_force,
+            blocked_assemble, gather_cols, narrow_phase, scatter_forces)
+
+
+def split(n_steps: int, k: int = GRAPH_STEPS) -> tuple[int, int]:
+    """(replays of the k-step graph, steps of the remainder graph) of an
+    n-step chunk."""
+    if k < 1 or n_steps < 0:
+        raise ValueError(f"a chunk of {n_steps} steps in graphs of {k}")
+    return divmod(n_steps, k)
+
+
+def _counts() -> dict:
+    return {fn: (fn.launches, dict(getattr(fn, "launches_by", {})))
+            for fn in _COUNTED}
+
+
+def _set_counts(counts: dict) -> None:
+    for fn, (n, by) in counts.items():
+        fn.launches = n
+        if by:
+            fn.launches_by.update(by)
+
+
+def _add_counts(delta: dict, times: int) -> None:
+    for fn, (n, by) in delta.items():
+        fn.launches += times * n
+        for k, v in by.items():
+            fn.launches_by[k] += times * v
+
+
+def _count_delta(before: dict, after: dict) -> dict:
+    return {fn: (after[fn][0] - n, {k: after[fn][1][k] - v
+                                    for k, v in by.items()})
+            for fn, (n, by) in before.items()}
+
+
+def leaves(carry) -> list:
+    """The tensors of a carry ``(SimState, *tensors)``, in field order."""
+    state, *extra = carry
+    return [getattr(state, f.name) for f in dataclasses.fields(state)] + \
+        list(extra)
+
+
+def rebuild(carry, tensors) -> tuple:
+    """A carry shaped like ``carry`` from :func:`leaves`-ordered
+    ``tensors``."""
+    names = [f.name for f in dataclasses.fields(carry[0])]
+    return (SimState(**dict(zip(names, tensors))), *tensors[len(names):])
+
+
+def write_back(static: list, out: list) -> None:
+    """``static[i] <- out[i]`` for every leaf, reading every output before
+    writing any buffer: an output that is a buffer of another field (a
+    one-step graph's ``disp_pre`` is its input ``disp``) or a view of one
+    is copied first.  An output that is its own buffer (a field the steps
+    pass through) stays."""
+    held = {s.untyped_storage().data_ptr() for s in static}
+    out = [o if o is s or o.untyped_storage().data_ptr() not in held
+           else o.clone() for s, o in zip(static, out)]
+    for s, o in zip(static, out):
+        if o is not s:
+            s.copy_(o)
+
+
+class Captured(NamedTuple):
+    """One captured length: its graph (anything with ``replay()``), the
+    kernel launches of one replay by wrapper, and what the capture took:
+    host seconds to capture and to instantiate, and the bytes the graph
+    pool grew by."""
+    graph: object
+    launches: dict
+    capture_s: float
+    instantiate_s: float
+    pool_bytes: int
+
+
+class ChunkGraphs:
+    """The captured graphs of one model's chunk loop (``loop``: "packed" or
+    "generic"), each length captured once, over one set of static buffers
+    and one memory pool.  ``step_fn(model, state, *extra)`` is one step of
+    the loop, returning ``(state, *extra)``.  The model holds this object
+    and passes itself to every call (no reference back to it, so the
+    graphs die with the model as soon as it is dropped).
+
+    The graphs share the pool safely: each replays alone, in stream
+    order, and leaves nothing in the pool that a later replay reads (its
+    result is in the static buffers, which lie outside the pool)."""
+
+    def __init__(self, loop: str, step_fn):
+        self.loop, self.step_fn = loop, step_fn
+        self.static = None        # the carry the graphs read and write
+        self.graphs: dict[int, Captured] = {}
+        self.pool = None
+        self.warm = False
+
+    def advance(self, model: LoweredModel, state: SimState, extra: tuple,
+                n_steps: int, k: int = GRAPH_STEPS) -> tuple:
+        """``(state, *extra)`` after ``n_steps`` steps: ``split(n_steps,
+        k)`` replays of the k-step graph, then the remainder's; a copy of
+        the static buffers, which the next chunk overwrites."""
+        q, r = split(n_steps, k)
+        self._load((state, *extra))
+        for length, times in ((k, q), (r, 1)):
+            if length and times:
+                self._replay(model, length, times)
+        return rebuild(self.static, [x.clone() for x in leaves(self.static)])
+
+    def _load(self, carry) -> None:
+        """Copy ``carry`` into the static buffers (made at first use)."""
+        new = leaves(carry)
+        if self.static is None:
+            self.static = rebuild(carry, [torch.empty_like(x) for x in new])
+        for s, x in zip(leaves(self.static), new):
+            if (s.shape, s.dtype, s.device) != (x.shape, x.dtype, x.device):
+                raise ValueError(
+                    f"the {self.loop} loop's graphs take {tuple(s.shape)} "
+                    f"{s.dtype} on {s.device}, not {tuple(x.shape)} "
+                    f"{x.dtype} on {x.device}")
+            s.copy_(x)
+
+    def _replay(self, model: LoweredModel, length: int, times: int) -> None:
+        g = self.graphs.get(length)
+        if g is None:
+            g = self.graphs[length] = self._capture(model, length)
+        for j in range(times):
+            try:
+                g.graph.replay()
+            except RuntimeError as e:
+                e.add_note(f"replaying steps {j * length + 1}-"
+                           f"{(j + 1) * length} of the chunk ({length}-step "
+                           f"graph of the {self.loop} loop)")
+                raise
+        _add_counts(g.launches, times)
+
+    def _steps(self, model: LoweredModel, length: int, what: str):
+        carry = self.static
+        for i in range(length):
+            try:
+                carry = self.step_fn(model, *carry)
+            except Exception as e:
+                e.add_note(f"in step {i + 1} of {length} of {what}")
+                raise
+        return carry
+
+    def _warm_up(self, model: LoweredModel) -> None:
+        """One eager step from the static buffers on a side stream, its
+        result dropped, as PyTorch's CUDA-graph recipe warms up.  It does
+        outside any capture what a step does at first use: the kernel
+        library's build and each kernel's first launch, the allocator's
+        first blocks, the narrow phase's
+        workspace (its counters are left zero by every call) and the
+        element kernel's shape-gradient table, a synchronous
+        ``cudaMemcpyToSymbol`` that no capture may hold.  That table is
+        global per device, so every model's graphs replay the one table:
+        sound while it is model-independent, as ``pusai_hexa(8)`` is."""
+        dev = model.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._steps(model, 1, f"the warm-up of the {self.loop} loop")
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.warm = True
+
+    def _capture(self, model: LoweredModel, length: int) -> Captured:
+        """Capture ``length`` steps from the static buffers back into them.
+        The wrappers' counts are restored afterwards: neither the warm-up
+        nor the capture launches a kernel of the chunk."""
+        before = _counts()
+        try:
+            with torch.cuda.device(model.device):
+                if not self.warm:
+                    self._warm_up(model)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved()
+                if self.pool is None:
+                    self.pool = torch.cuda.graph_pool_handle()
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                mark = _counts()
+                t0 = time.perf_counter()
+                with torch.cuda.graph(graph, pool=self.pool):
+                    out = self._steps(model, length, f"the {length}-step "
+                                      f"capture of the {self.loop} loop")
+                    write_back(leaves(self.static), leaves(out))
+                    del out
+                t1 = time.perf_counter()
+                launches = _count_delta(mark, _counts())
+                graph.instantiate()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                pool = torch.cuda.memory_reserved() - reserved
+        finally:
+            _set_counts(before)
+        return Captured(graph, launches, t1 - t0, t2 - t1, pool)
+
+
+class _Cache(dict):
+    """A model's :class:`ChunkGraphs` by loop.  It pickles and deep-copies
+    as empty: graphs hold this process's device pointers (a model sent to
+    a spawned rank captures its own, or none)."""
+
+    def __reduce__(self):
+        return _Cache, ()
+
+
+def chunk_graphs(model: LoweredModel, loop: str, step_fn) -> ChunkGraphs:
+    """The model's graphs of ``loop``, kept in an attribute of the model
+    object, not in a dataclass field: a model made by
+    ``dataclasses.replace`` (or ``model.to``), whose tensors may differ,
+    starts with no graphs."""
+    cache = model.__dict__.get("_chunk_graphs")
+    if cache is None:
+        cache = _Cache()
+        object.__setattr__(model, "_chunk_graphs", cache)
+    if loop not in cache:
+        cache[loop] = ChunkGraphs(loop, step_fn)
+    return cache[loop]

@@ -772,3 +772,111 @@ def test_interleave_kernel_refuses_wrong_inputs(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         interleave(torch.zeros(64, 8, 128, device=cuda), "selrows", 2, 60,
                    (41, 0, 0, 0, 0, 0, 0, 0))
+
+
+# ---- the chunk loop as captured CUDA graphs (solver/graph.py) ----
+
+def _graph_vs_eager(m, s0, n, k=None):
+    """graph_chunk against eager_chunk from ``s0`` over ``n`` steps: every
+    state field bit for bit (work and triax included), and the graph
+    chunk's launches of the element and assembly kernels equal to its
+    steps.  Returns the graph chunk's state."""
+    from hakai_tpu_torch.solver.explicit import eager_chunk, graph_chunk
+    from hakai_tpu_torch.solver.graph import GRAPH_STEPS
+    eager = eager_chunk(m, s0, n)
+    el = element_core_packed if m.coord_e is not None else element_update
+    before = (el.launches, assemble_internal_force.launches)
+    got = graph_chunk(m, s0, n, k or GRAPH_STEPS)
+    assert (el.launches - before[0],
+            assemble_internal_force.launches - before[1]) == (n, n)
+    differ = [f.name for f in dataclasses.fields(got)
+              if not torch.equal(getattr(got, f.name),
+                                 getattr(eager, f.name))]
+    assert differ == []
+    assert int(got.t) == int(s0.t) + n
+    return got
+
+
+def test_graph_chunk_f32_packed_bitwise(cuda):
+    """The f32 8x8x32 bar (2,048 elements: the packed loop), 2K + 5 steps
+    in graphs of K and the remainder, and in graphs of 8 and the
+    remainder: bitwise the eager loop; run_chunk takes the graph path on
+    the card, and captures no length twice."""
+    from hakai_tpu_torch.solver.graph import GRAPH_STEPS as K
+    m = lower(bar_model(8, 8, 32, d_time=5e-8, end_time=1e-4),
+              SolverConfig(dtype="float32", energy_check=True), device=cuda)
+    assert m.coord_e is not None
+    s0 = init_state(m)
+    n = 2 * K + 5
+    got = _graph_vs_eager(m, s0, n)
+    _graph_vs_eager(m, s0, n, k=8)
+    assert got.eq_ps.max() > 0
+    lengths = sorted({K, n % K, 8, n % 8} - {0})
+    assert sorted(m._chunk_graphs["packed"].graphs) == lengths
+    again = run_chunk(m, s0, n)
+    assert all(torch.equal(getattr(again, f.name), getattr(got, f.name))
+               for f in dataclasses.fields(got))
+    assert sorted(m._chunk_graphs["packed"].graphs) == lengths
+
+
+@pytest.mark.parametrize("loop", ["generic", "packed"])
+def test_graph_chunk_mixed_fracture_bitwise(cuda, loop):
+    """The mixed ductile 4x4x16 bar over a chunk of 500 steps that deletes
+    elements (first deletions near step 454-480), on the generic step and
+    on the packed loop: bitwise the eager loop."""
+    bar = bar_model(4, 4, 16, d_time=5e-8, end_time=1e-4, ductile=True)
+    low = lower if loop == "generic" else port_fast_model
+    m = low(bar, SolverConfig(dtype="mixed", energy_check=True),
+            device=cuda)
+    got = _graph_vs_eager(m, init_state(m), 500)
+    assert not got.element_flag[:m.n_element].all()
+
+
+@pytest.mark.parametrize("dtype", ["float64", "mixed"])
+def test_graph_chunk_generic_bitwise(cuda, dtype, tmp_path):
+    """The generic step in float64 and mixed precision, with the energy
+    balance and a metrics stream (the negative-Jacobian count runs in the
+    step), 100 plastic steps: bitwise the eager loop."""
+    m = lower(bar_model(4, 4, 16, d_time=5e-8, end_time=1e-4),
+              SolverConfig(dtype=dtype, energy_check=True,
+                           metrics_path=str(tmp_path / "m.jsonl")),
+              device=cuda)
+    assert m.coord_e is None
+    got = _graph_vs_eager(m, init_state(m), 100)
+    assert got.eq_ps.max() > 0 and got.work.abs().max() > 0
+
+
+def test_graph_chunk_contact_bitwise(cuda):
+    """The n=4 tie-free impact through its first contact (near step 63),
+    mixed: bitwise the eager loop, with one gather, one narrow phase a
+    pair and one scatter launched a step."""
+    from hakai_tpu_torch.ops.contact_cuda import narrow_phase, scatter_forces
+    from hakai_tpu_torch.ops.gather_cuda import gather_cols
+    m, s0 = _impact("mixed", cuda, 0)
+    before = (gather_cols.launches, narrow_phase.launches,
+              scatter_forces.launches)
+    got = _graph_vs_eager(m, s0, 90)
+    assert (gather_cols.launches - before[0],
+            narrow_phase.launches - before[1],
+            scatter_forces.launches - before[2]) == \
+        (2 * 90, 2 * 90 * len(m.pairs), 2 * 90)   # eager and graph chunks
+    assert got.contact_force.abs().max() > 0
+
+
+def test_graph_chunk_keeps_returned_states(cuda):
+    """A state returned by run_chunk is unchanged by the next chunk, which
+    overwrites the graphs' static buffers; chunks of K + 5 and 2K + 7
+    compose to the eager loop's 3K + 12 steps, bit for bit."""
+    from hakai_tpu_torch.solver.explicit import eager_chunk
+    from hakai_tpu_torch.solver.graph import GRAPH_STEPS as K
+    m = lower(bar_model(8, 8, 32, d_time=5e-8, end_time=1e-4),
+              SolverConfig(dtype="float32"), device=cuda)
+    s0 = init_state(m)
+    s1 = run_chunk(m, s0, K + 5)
+    kept = {f.name: getattr(s1, f.name).clone()
+            for f in dataclasses.fields(s1)}
+    s2 = run_chunk(m, s1, 2 * K + 7)
+    assert all(torch.equal(getattr(s1, k), v) for k, v in kept.items())
+    whole = eager_chunk(m, s0, 3 * K + 12)
+    assert all(torch.equal(getattr(s2, f.name), getattr(whole, f.name))
+               for f in dataclasses.fields(s2))
