@@ -99,24 +99,37 @@ without its last line):
    sharing the card; NCCL with a card per rank where there are two): the
    bench bar in the packed loop and on the generic step, bitwise equal to
    one device, with us/step, the all-gathers' share and rank 0's device
-   busy; single sharded steps around the next phases' events;
+   busy; single sharded steps around the next phases' events; in the same
+   launch [halo]'s jobs, then again with the all-gather halo exchange
+   that the ring replaced, with [halo-run]'s and [multihost]'s decks (the
+   reference runs);
 16. sharded-run: [run]'s deck cut to 2,000 steps through
    ``run(devices=2)``: first deletion, alive count, frames byte-identical
    to [run]'s, its checkpoint resumed on one device bitwise;
 17. sharded-contact: [contact]'s deck cut to 400 steps through
    ``run(devices=2)``: first contact and first deletion, the alive count
    and the contact force against one device;
-18. nccl: one NCCL rank on the bench bar, bitwise equal to ``run_chunk``;
-   two NCCL ranks on one card refused;
-19. halo (sixth slice), in [sharded]'s launch: the bench bar on two
-   node-sharded halo ranks (gloo, sharing the card) in the packed loop
-   and on the generic step, against one device at the f32 halo
-   tolerances, with the partition, us/step, the exchanges' share and rank
-   0's device busy; single halo steps around [run]'s first deletion and
-   [contact]'s first contact and first deletion;
+18. nccl (the thirteenth slice's main path: a rank's chunk replays
+   captured CUDA graphs with its NCCL collectives inside them): one NCCL
+   rank on the bench bar packed and generic and on [contact]'s deck cut to
+   400 steps (past first contact and deletion), each through its graphs
+   and through its eager loop, both bitwise equal to ``run_chunk``,
+   launches equal to the steps, an eager step under
+   ``torch.cuda.set_sync_debug_mode("error")``; graph and eager us/step,
+   device busy, idle share, the NCCL kernels' time, capture and
+   instantiate seconds; two NCCL ranks on one card refused;
+19. halo (sixth slice; the exchange a neighbour ring since the
+   thirteenth), in [sharded]'s launch: the bench bar on two node-sharded
+   halo ranks (gloo, sharing the card) in the packed loop and on the
+   generic step, against one device at the f32 halo tolerances, with the
+   partition, the ring's bytes a step beside the all-gather's, us/step,
+   the exchanges' share and rank 0's device busy; single halo steps
+   around [run]'s first deletion and [contact]'s first contact and first
+   deletion; every job bitwise its reference run;
 20. halo-run: [run]'s deck cut to 2,000 steps through ``run(halo=2)``:
-   the alive count, frame 0 byte-identical to [run]'s and frame 1 within
-   2e-5, its shard-major checkpoint reloaded to the returned state;
+   bitwise its reference run, the alive count, frame 0 byte-identical to
+   [run]'s and frame 1 within 2e-5, its shard-major checkpoint reloaded
+   to the returned state;
 21. dma (TPU kernel #11): the streaming kernel in its three layouts at
    (72, 1,048,576) float32, bitwise its plain version, through the port's
    bandwidth probe (slope-timed us/pass and GB/s, ``torch.add`` beside it,
@@ -279,9 +292,10 @@ GROUPED_R_TILE = 2048
 # under gloo; the bench bar in both loops, SHARD_STEPS steps after
 # SHARD_WARM dropped ones, then SHARD_TRACE traced ones (few steps keep the
 # script short: gloo's steps on one card take 10-17 ms; the generic loop
-# runs half as many to keep the script near its time)
+# runs half as many to keep the script near its time; both halved again
+# when [nccl] took graphs and [halo] its reference runs)
 SHARD_RANKS, SHARD_WARM, SHARD_TRACE = 2, 10, 10
-SHARD_STEPS = {"packed f32": 200, "generic f32": 100}
+SHARD_STEPS = {"packed f32": 100, "generic f32": 50}
 # [sharded-run]: [run]'s deck cut to SHARD_RUN_STEPS steps (its amplitude
 # ramp kept), frames at steps 0 and 2,000 and a checkpoint, resumed on one
 # device for
@@ -303,8 +317,12 @@ SHARD_CONTACT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # the single steps that locate [sharded-run]'s and [sharded-contact]'s
 # events start this many steps before them, from the one-device state
 SHARD_LEAD = 2
-# [nccl]: one NCCL rank on the card, the bench bar
-NCCL_STEPS = 200
+# [nccl]: one NCCL rank on the card through its captured graphs and its
+# eager loop: the bench bar packed and generic NCCL_STEPS steps,
+# [contact]'s deck SHARD_CONTACT_STEPS; the graph job's warm-up captures
+# every length the chunk replays (32 and the remainder), and NCCL_TRACE
+# steps (one replay of the 32-step graph) are timed and traced
+NCCL_STEPS, NCCL_TRACE = 200, 32
 # [halo]: node-sharded runs on HALO_RANKS gloo ranks sharing the card, in
 # [sharded]'s launch (SHARD_STEPS steps after SHARD_WARM, SHARD_TRACE
 # traced).  A halo Q adds the ghost rows after the owned sum, so the f32
@@ -2382,19 +2400,79 @@ def state_diff(a, b) -> list:
                                getattr(b, f.name).cpu())]
 
 
-def sharded_phase(bench, gen, cut, impact, smi_line):
+# The all-gather halo exchange that the neighbour ring replaced (the
+# parent design: every rank's head and tail rows all-gathered), patched
+# into HaloComm for the reference runs of [halo], [halo-run] and
+# [multihost], which hold the ring's states to it bit for bit.
+
+def _ag_rows(self, x):
+    import torch
+    H = self.hm.H
+    parts = self.all_gather(torch.cat([x[..., :H], x[..., -H:]], -1))
+    return parts.view(x.shape[0], self.world, 2, H)
+
+
+def _ag_exchange_window(self, x):
+    import torch
+    d, S, H = self.rank, self.world, self.hm.H
+    parts = _ag_rows(self, x)
+    zero = x.new_zeros((x.shape[0], H))
+    from_left = parts[:, d - 1, 1] if d > 0 else zero
+    from_right = parts[:, d + 1, 0] if d < S - 1 else zero
+    return torch.cat([from_left, x, from_right], dim=-1)
+
+
+def _ag_return_ghosts(self, fw):
+    import torch
+    d, S, H, No = self.rank, self.world, self.hm.H, self.hm.No
+    parts = _ag_rows(self, torch.cat([fw[..., :H], fw[..., H + No:]], -1))
+    own = fw[..., H:H + No].clone()
+    zero = fw.new_zeros((fw.shape[0], H))
+    own[..., No - H:] += parts[:, d + 1, 0] if d < S - 1 else zero
+    own[..., :H] += parts[:, d - 1, 1] if d > 0 else zero
+    return own
+
+
+def smoke_rank(ctx, jobs, ref_jobs):
+    """[sharded]'s ranks: ``jobs`` through ``chunk_rank``, then ``ref_jobs``
+    (halo jobs) with the all-gather exchange patched in.  Rank 0 returns
+    (the jobs' records, the reference jobs' records)."""
+    from hakai_tpu_torch.parallel.halo import HaloComm
+    from hakai_tpu_torch.parallel.sharding import chunk_rank
+    out = chunk_rank(ctx, jobs)
+    HaloComm.exchange_window = _ag_exchange_window
+    HaloComm.return_ghosts = _ag_return_ghosts
+    ref = chunk_rank(ctx, ref_jobs)
+    return (out, ref) if ctx.rank == 0 else None
+
+
+def multihost_model():
+    """[multihost]'s deck (``[cli]``'s cut bar) lowered as its processes
+    lower it: the CLI with ``--precision mixed --halo 2`` and the energy
+    balance on (cli.py)."""
+    from hakai_tpu_torch import SolverConfig, lower
+    from hakai_tpu_torch.io.inp import read_inp_file
+    return lower(read_inp_file(os.path.join(CLI_DIR, "bar_cut.inp")),
+                 SolverConfig(dtype="mixed", node_pad=16, renumber="always",
+                              energy_check=True), device="cpu")
+
+
+def sharded_phase(bench, gen, cut, impact, mh_model, smi_line):
     """One launch of SHARD_RANKS ranks running sharded chunks: the bench
     bar in the packed loop and on the generic step (bitwise against one
     device, us/step, the all-gathers' share, rank 0's device busy), then
     the single steps around [sharded-run]'s first deletion and
     [sharded-contact]'s first contact and first deletion, from the one
     device states SHARD_LEAD steps before them (a sharded run is bitwise
-    the one-device run, so these are its states too).  Returns (the
-    launch's records, the one-device states the jobs started from)."""
+    the one-device run, so these are its states too).  The launch also runs
+    [halo]'s jobs, and their reference runs with the all-gather exchange:
+    the same halo jobs, [halo-run]'s deck through SHARD_RUN_STEPS steps and
+    [multihost]'s (``mh_model``) to its first checkpoint.  Returns (the
+    launch's records, the reference records, the one-device states the
+    jobs started from, the one-device bars' states)."""
     import torch
     from hakai_tpu_torch import init_state, run_chunk
     from hakai_tpu_torch.parallel.dist import launch
-    from hakai_tpu_torch.parallel.sharding import chunk_rank
     backend, setup = shard_backend()
     starts = {"cut": run_chunk(cut, init_state(cut),
                                SHARD_RUN_FIRST - SHARD_LEAD)}
@@ -2412,13 +2490,22 @@ def sharded_phase(bench, gen, cut, impact, smi_line):
     impact_cpu = impact.to("cpu")
     jobs += [dict(model=impact_cpu, state=starts[k].to("cpu"), chunks=single)
              for k in ("contact", "contact_del")]
-    # [halo]'s jobs, in the same launch (jobs 5-9)
+    # [halo]'s jobs, in the same launch (jobs 5-9), and their reference
+    # runs with [halo-run]'s (untimed, untraced)
     jobs += [dict(j, halo=True) for j in jobs[:5]]
+    ref_jobs = [dict(model=j["model"], state=j.get("state"),
+                     chunks=j["chunks"], halo=True) for j in jobs[5:]]
+    ref_jobs += [dict(model=cut.to("cpu"), chunks=[SHARD_RUN_STEPS],
+                      halo=True),
+                 dict(model=mh_model, chunks=[CLI_STEPS // CLI_FRAMES],
+                      halo=True)]
     t0 = time.perf_counter()
-    res = launch(chunk_rank, SHARD_RANKS, "cuda", backend, jobs)
+    res, ref_res = launch(smoke_rank, SHARD_RANKS, "cuda", backend, jobs,
+                          ref_jobs)
     log(f"[sharded] {backend}, {setup}: one launch of {len(jobs)} jobs "
-        f"([halo]'s included) in {time.perf_counter() - t0:.2f} s (spawn, "
-        f"model transfer, partitions and every chunk)")
+        f"([halo]'s included) and {len(ref_jobs)} reference halo jobs in "
+        f"{time.perf_counter() - t0:.2f} s (spawn, model transfer, "
+        f"partitions and every chunk)")
     refs = {}
     for tag, m, r, kernel in (("packed f32", bench, res[0],
                                "element_core_packed"),
@@ -2449,16 +2536,26 @@ def sharded_phase(bench, gen, cut, impact, smi_line):
             and int(starts["contact_del"].element_flag.sum())
             == impact.n_element):
         raise AssertionError("[sharded] a job starts past its event")
-    return res, starts, refs
+    return res, ref_res, starts, refs
 
 
-def halo_phase(res, refs, cut, impact, smi_line):
+def halo_phase(res, ref_res, refs, cut, impact, smi_line):
     """[halo]: the halo jobs of [sharded]'s launch (``res``: the bench bar
     packed and generic, then the single steps from [sharded]'s one-device
-    states): each bar against one device's state (``refs``) normwise at
-    HALO_TOL, with its partition, us/step, the exchanges' share and rank
-    0's trace; the first deletion and first contact and first deletion to
-    the step.  Returns rank 0's launches by the kernels JSON's keys."""
+    states): every job's state bit for bit its reference run's with the
+    all-gather exchange (``ref_res``); each bar against one device's state
+    (``refs``) normwise at HALO_TOL, with its partition, the ring's bytes a
+    step and rank beside the all-gather's, us/step, the exchanges' share
+    and rank 0's trace; the first deletion and first contact and first
+    deletion to the step.  Returns rank 0's launches by the kernels JSON's
+    keys."""
+    same = [not state_diff(r["state"], q["state"])
+            for r, q in zip(res, ref_res)]
+    log(f"[halo] every halo job of the launch bit for bit its reference run "
+        f"with the all-gather exchange: {same} [{smi_line}]")
+    if not all(same):
+        raise AssertionError("[halo] the ring differs from the all-gather "
+                             "exchange")
     counts = {}
 
     def count(key, n):
@@ -2472,10 +2569,16 @@ def halo_phase(res, refs, cut, impact, smi_line):
                           getattr(ref, k)) for k in HALO_TOL}
         sec, coll = r["seconds"][0], r["collective_s"][0]
         us = sec / n * 1e6
+        # the all-gather's count: a rank put its head and tail rows (C
+        # channels of the window, 3 of the ghost forces) on each exchange
+        # and took every rank's
+        ag = ((3 if p["packed"] else 6) + 3) * 2 * p["H"] * 4
         log(f"[halo] bench bar {tag}, {HALO_RANKS} gloo ranks sharing the "
             f"card: partition No={p['No']} H={p['H']} W={p['W']} El={p['El']}"
-            f" packed={p['packed']}, {p['exchange_bytes']} B on the "
-            f"exchanges a step and rank; {n} steps: {us:.2f} us/"
+            f" packed={p['packed']}; rank 0's exchanges a step: the ring "
+            f"sends {p['exchange_bytes']} B and receives "
+            f"{p['exchange_bytes']} B (the all-gather: {ag} B and "
+            f"{HALO_RANKS * ag} B); {n} steps: {us:.2f} us/"
             f"step on the host clock, exchanges {coll * 1e3:.2f} ms = "
             f"{coll / sec:.4f} of the chunk (CUDA events); rank 0 device busy"
             f" {r['busy_us']:.2f} us/step, {r['kernels']:.1f} kernels/step, "
@@ -2540,11 +2643,26 @@ def vtk_close(path_a, path_b, rel):
             sum(a == b for a, b in zip(la, lb)) / len(la))
 
 
-def halo_run(cut, smi_line):
+def exchange_line(hm) -> str:
+    """Rank 0's exchange bytes a step on partition ``hm``: the ring's, sent
+    and received, beside the all-gather's that the ring replaced (a rank
+    put its head and tail rows on each exchange and took every rank's)."""
+    from hakai_tpu_torch.parallel.halo import exchange_bytes
+    ring = exchange_bytes(hm, 0)
+    ag = ((3 if hm.coord_e is not None else 6) + 3) * 2 * hm.H * \
+        hm.base.dtype.itemsize
+    return (f"rank 0's exchanges a step: the ring sends {ring} B and "
+            f"receives {ring} B (the all-gather: {ag} B and "
+            f"{hm.n_shards * ag} B)")
+
+
+def halo_run(cut, ref, smi_line):
     """[halo-run]: run(halo=HALO_RANKS) of [run]'s deck cut to
     SHARD_RUN_STEPS steps (metrics and the energy balance on, a shard-major
-    checkpoint at its one frame): the alive count near [run]'s, the frames'
-    CELLS equal to it, frame 0 byte-identical to [run]'s and frame 1 within
+    checkpoint at its one frame): the returned state bit for bit ``ref``'s
+    ([sharded]'s launch's reference run of the deck with the all-gather
+    exchange), the alive count near [run]'s, the frames' CELLS equal to
+    it, frame 0 byte-identical to [run]'s and frame 1 within
     HALO_FRAME_REL, the checkpoint reloaded here to the returned state."""
     from hakai_tpu_torch import run
     from hakai_tpu_torch.parallel.halo import (gather_state,
@@ -2572,6 +2690,7 @@ def halo_run(cut, smi_line):
     hm = partition(hcut, HALO_RANKS)
     back = gather_state(hm, load_halo_checkpoint(ck, hm))
     diff = state_diff(back, final)
+    ref_diff = state_diff(final, ref["state"])
     with open(os.path.join(HALO_RUN_DIR, "metrics.jsonl")) as f:
         recs = [json.loads(x) for x in f]
     us = timings["step_s"] / timings["steps"] * 1e6
@@ -2587,10 +2706,12 @@ def halo_run(cut, smi_line):
         f"{same1:.4f} of its lines byte-identical; energy_rel_error "
         f"{recs[-1]['energy_rel_error']:.3e} (halo metrics); shard-major "
         f"checkpoint {is_halo_checkpoint(ck)}, reloaded here, fields "
-        f"differing from the returned state: {diff} [{smi_line}]")
+        f"differing from the returned state: {diff}; {exchange_line(hm)}; "
+        f"fields differing from the reference run with the all-gather "
+        f"exchange: {ref_diff} [{smi_line}]")
     if (abs(alive - SHARD_RUN_ALIVE) > HALO_ALIVE_REL * SHARD_RUN_ALIVE
             or cells != [cut.n_element, alive] or not same0 or diff
-            or len(recs) != 1):
+            or ref_diff or len(recs) != 1):
         raise AssertionError("[halo-run] differs")
     return us
 
@@ -2761,11 +2882,17 @@ def _cli_pair(tag, deck, extra):
     return [o for o, _ in outs]
 
 
-def multihost_phase(smi_line):
+def multihost_phase(mh_model, ref, smi_line):
     """[multihost]: run A, [cli]'s deck in two CLI processes with a
-    checkpoint at each frame; run B, two new processes resumed from run A's
-    first checkpoint.  Returns run A's us/step."""
+    checkpoint at each frame, its first checkpoint (both processes' rows)
+    bit for bit ``ref``'s state ([sharded]'s launch's reference run of
+    ``mh_model``, the deck as the processes lower it, with the all-gather
+    exchange); run B, two new processes resumed from run A's first
+    checkpoint.  Returns run A's us/step."""
     import numpy as np
+    import torch
+    from hakai_tpu_torch.parallel.halo import (HaloState, gather_state,
+                                               partition)
     shutil.rmtree(MH_DIR, ignore_errors=True)
     os.makedirs(MH_DIR)
     deck = os.path.join(CLI_DIR, "bar_cut.inp")
@@ -2809,6 +2936,14 @@ def multihost_phase(smi_line):
     with open(os.path.join(MH_DIR, "b0", names[-1]), "rb") as fa, \
             open(os.path.join(a0, names[-1]), "rb") as fb:
         same_b = fa.read() == fb.read()
+    hm = partition(mh_model, 2)
+    parts = [np.load(os.path.join(d, f"ckpt_001.npz.p{k}.npz"))
+             for k, d in ((0, a0), (1, a1))]
+    ck = gather_state(hm, HaloState(**{
+        f.name: torch.as_tensor(parts[0][f.name] if f.name == "t" else
+                                np.concatenate([p[f.name] for p in parts]))
+        for f in dataclasses.fields(HaloState)}))
+    ref_diff = state_diff(ck, ref["state"])
     log(f"[multihost] [cli]'s deck ({CLI_STEPS} steps, mixed) as 2 CLI "
         f"processes x 1 gloo rank (--halo 2 --multihost 127.0.0.1:P,2,K), "
         f"both ranks on cuda:0 of one card: {timing} (process 0); "
@@ -2820,8 +2955,11 @@ def multihost_phase(smi_line):
         f"{int(final['element_flag'].sum())}; manifest and rows per "
         f"checkpoint {rows}; run B (resumed from ckpt_001 in two new "
         f"processes, {wall_b:.2f} s): frame {CLI_FRAMES} byte-identical to "
-        f"run A's: {same_b} [{smi_line}]")
-    if (not same0 or not same_b or cells[1:] != alive
+        f"run A's: {same_b}; partition No={hm.No} H={hm.H} El={hm.El}, "
+        f"{exchange_line(hm)}; run A's first checkpoint (step "
+        f"{int(ck.t)}), fields differing from the reference run with the "
+        f"all-gather exchange: {ref_diff} [{smi_line}]")
+    if (not same0 or not same_b or cells[1:] != alive or ref_diff
             or cells[-1] != int(final["element_flag"].sum())
             or rows != [[2], [0], [1]] * 2):
         raise AssertionError("[multihost] differs")
@@ -2926,13 +3064,50 @@ def sharded_contact(impact, jobs, starts, smi_line):
     return us
 
 
-def nccl_phase(bench, smi_line):
-    """The NCCL backend driven on the card: one rank, the bench bar,
-    bitwise equal to run_chunk; with one card, two NCCL ranks refused."""
+def nccl_rank(ctx, jobs):
+    """[nccl]'s rank: ``jobs`` through ``chunk_rank``, then, of each eager
+    job's model, one eager step under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a read back to the host
+    raises), after a first step that does what only the first does.
+    Returns (the records, the steps checked)."""
+    import torch
+    from hakai_tpu_torch.parallel.sharding import (_rank_setup, chunk_rank,
+                                                   sharded_run_chunk)
+    from hakai_tpu_torch.solver.explicit import eager_chunk
+    out = chunk_rank(ctx, jobs)
+    checked = 0
+    for job in jobs:
+        if not job.get("eager"):
+            continue
+        _, comm, lm, ls = _rank_setup(ctx, job["model"], job.get("state"))
+        ls = sharded_run_chunk(comm, lm, ls, 1, eager_chunk)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sharded_run_chunk(comm, lm, ls, 1, eager_chunk)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        checked += 1
+    return out, checked
+
+
+def nccl_phase(bench, gen, impact_cut, smi_line):
+    """One NCCL rank on the card, in one launch: the bench bar packed and
+    generic (NCCL_STEPS steps) and [contact]'s deck cut to
+    SHARD_CONTACT_STEPS (past its first contact and first deletion), each
+    through the rank's captured graphs (its all-gathers, and on the
+    contact deck the narrow phase's all-reduce, inside them) and through
+    its eager loop: both bit for bit one device's ``run_chunk``, launches
+    equal to steps, one eager step with no host sync; graph and eager
+    us/step, rank device busy, idle share and the NCCL kernels' time (the
+    profiler's), capture and instantiate seconds.  With one card, two NCCL
+    ranks are refused.  Returns the graph chunks' launches by the kernels
+    JSON's keys."""
     import torch
     from hakai_tpu_torch import init_state, run, run_chunk
     from hakai_tpu_torch.parallel.dist import launch
-    from hakai_tpu_torch.parallel.sharding import chunk_rank
+    from hakai_tpu_torch.solver.graph import GRAPH_STEPS
     refused = "not tried: the machine has a card per rank"
     if torch.cuda.device_count() < 2:
         try:
@@ -2941,27 +3116,80 @@ def nccl_phase(bench, smi_line):
             refused = f"refused: {e}"
         else:
             raise AssertionError("NCCL ran two ranks on one card")
+    decks = (("bench bar packed f32", bench, NCCL_STEPS,
+              {"element[float32]": "element_core_packed",
+               "assemble[hk_assemble_f32]": "assemble_internal_force"}),
+             ("bench bar generic f32", gen, NCCL_STEPS,
+              {"update[float32+triax]": "element_update",
+               "assemble[hk_assemble_f32]": "assemble_internal_force"}),
+             ("[contact]'s deck, mixed", impact_cut, SHARD_CONTACT_STEPS,
+              {"element[mixed+triax]": "element_core_packed",
+               "assemble[hk_assemble_f32_f64]": "assemble_internal_force",
+               "gather": "gather_cols", "narrow": "narrow_phase",
+               "scatter": "scatter_forces"}))
+    jobs = []
+    for _, m, n, _ in decks:
+        cpu = m.to("cpu")
+        jobs += [dict(model=cpu, chunks=[n], trace=NCCL_TRACE,
+                      warm=GRAPH_STEPS + n % GRAPH_STEPS),
+                 dict(model=cpu, chunks=[n], warm=SHARD_WARM,
+                      trace=NCCL_TRACE, eager=True)]
     t0 = time.perf_counter()
-    r = launch(chunk_rank, 1, "cuda", "nccl",
-               [dict(model=bench.to("cpu"), chunks=[NCCL_STEPS],
-                     warm=SHARD_WARM, trace=SHARD_TRACE)])[0]
+    res, checked = launch(nccl_rank, 1, "cuda", "nccl", jobs)
     sec = time.perf_counter() - t0
-    diff = state_diff(r["state"], run_chunk(bench, init_state(bench),
-                                            NCCL_STEPS))
-    us = r["seconds"][0] / NCCL_STEPS * 1e6
-    log(f"[nccl] one rank under nccl, bench bar, {NCCL_STEPS} steps after "
-        f"{SHARD_WARM} dropped ones (the communicator forms at the first "
-        f"collective): {us:.2f} us/step, all-gathers "
-        f"{r['collective_s'][0] / r['seconds'][0]:.4f} of the chunk (CUDA "
-        f"events); {SHARD_TRACE} traced steps: device busy "
-        f"{r['busy_us']:.2f} us/step, {r['kernels']:.1f} kernels/step, idle "
-        f"share {1.0 - r['busy_us'] / us:.4f}; host ops of the most self "
-        f"time (us/step, traced) {_top(r)}; {sec:.2f} s with the spawn; "
-        f"launches {r['launches']}; fields differing from "
-        f"run_chunk: {diff}; two NCCL ranks on one card {refused} "
+    counts, bad = {}, []
+    for i, (tag, m, n, keys) in enumerate(decks):
+        graph, eager = res[2 * i:2 * i + 2]
+        ref = run_chunk(m, init_state(m), n)
+        diffs = [state_diff(r["state"], ref) for r in (graph, eager)]
+        us = [r["seconds"][0] / n * 1e6 for r in (graph, eager)]
+        caps = next(iter(graph["captures"].values()))
+        main = caps[max(caps)]
+        alive = int(graph["state"].element_flag.sum())
+        cmax = float(graph["state"].contact_force.abs().max())
+        log(f"[nccl] one rank under nccl, {tag}, {n} steps: graph "
+            f"{us[0]:.2f} us/step, eager {us[1]:.2f} ({us[1] / us[0]:.3f}x) "
+            f"on the host clock; {NCCL_TRACE} traced steps: device busy "
+            f"graph {graph['busy_us']:.2f} us/step ({graph['kernels']:.1f} "
+            f"kernels), eager {eager['busy_us']:.2f} ("
+            f"{eager['kernels']:.1f}); idle share graph "
+            f"{1.0 - graph['busy_us'] / graph['wall_us']:.4f}, eager "
+            f"{1.0 - eager['busy_us'] / eager['wall_us']:.4f} (of the "
+            f"same steps untraced: graph {graph['wall_us']:.2f} us/step, "
+            f"eager {eager['wall_us']:.2f}); NCCL kernels graph "
+            f"{graph['nccl_us']:.2f} us/step, eager {eager['nccl_us']:.2f} "
+            f"(one rank's collectives are device copies, no kernel); NCCL "
+            f"ops' device ranges, eager {eager['nccl_ranges_us']:.2f} "
+            f"us/step = {eager['nccl_ranges_us'] / eager['busy_us']:.4f} "
+            f"of busy; captured lengths "
+            + ", ".join(f"{k}: {c:.3f} + {inst:.3f} s, {b} B"
+                        for k, (c, inst, b) in sorted(caps.items()))
+            + f" (capture + instantiate, pool); graph host ops of the most "
+            f"self time (us/step, traced) {_top(graph)}; launches graph "
+            f"{graph['launches']}, eager {eager['launches']}; {alive} "
+            f"alive, contact force max {cmax:.4e}; fields differing from "
+            f"one device's run_chunk: graph {diffs[0]}, eager {diffs[1]} "
+            f"[{smi_line}]")
+        for key, fn in keys.items():
+            counts[key] = counts.get(key, 0) + graph["launches"][fn]
+            want = n * (len(m.pairs) if key == "narrow" else 1)
+            if graph["launches"][fn] != want or eager["launches"][fn] != want:
+                bad.append(f"{tag} launches of {fn}")
+        if diffs[0] or diffs[1]:
+            bad.append(f"{tag} differs from run_chunk")
+        if main[0] <= 0:
+            bad.append(f"{tag} captured nothing")
+    contact_ok = (int(res[4]["state"].element_flag.sum())
+                  < impact_cut.n_element
+                  and float(res[4]["state"].contact_force.abs().max()) > 0)
+    log(f"[nccl] the launch ({len(jobs)} jobs) took {sec:.2f} s with the "
+        f"spawn; eager steps with no host sync (sync debug mode 'error'): "
+        f"{checked} of {len(decks)}; [contact]'s deck past its first contact"
+        f" and deletion: {contact_ok}; two NCCL ranks on one card {refused} "
         f"[{smi_line}]")
-    if diff or r["launches"]["element_core_packed"] != NCCL_STEPS:
-        raise AssertionError("[nccl] differs from run_chunk")
+    if bad or checked != len(decks) or not contact_ok:
+        raise AssertionError(f"[nccl] {bad}")
+    return counts
 
 
 def main() -> int:
@@ -3169,20 +3397,23 @@ def main() -> int:
     lap("[generic-cpu]")
     cli_phase(smi_line)
     lap("[cli]")
-    shard, starts, refs = sharded_phase(bench, gen, cut, impact_cut,
-                                        smi_line)
+    mh_model = multihost_model()
+    shard, shard_ref, starts, refs = sharded_phase(bench, gen, cut,
+                                                   impact_cut, mh_model,
+                                                   smi_line)
     lap("[sharded]")
-    launches_h = halo_phase(shard[5:], refs, cut, impact_cut, smi_line)
+    launches_h = halo_phase(shard[5:], shard_ref[:5], refs, cut,
+                            impact_cut, smi_line)
     lap("[halo]")
     sharded_run(cut, shard[2], starts["cut"], smi_line)
     lap("[sharded-run]")
     sharded_contact(impact_cut, shard[3:], starts, smi_line)
     lap("[sharded-contact]")
-    nccl_phase(bench, smi_line)
+    launches_n = nccl_phase(bench, gen, impact_cut, smi_line)
     lap("[nccl]")
-    halo_run(cut, smi_line)
+    halo_run(cut, shard_ref[-2], smi_line)
     lap("[halo-run]")
-    multihost_phase(smi_line)
+    multihost_phase(mh_model, shard_ref[-1], smi_line)
     lap("[multihost]")
 
     if any(k.split(".")[0] in ("jax", "jaxlib", "hakai_tpu")
@@ -3192,13 +3423,14 @@ def main() -> int:
     src = "hakai_tpu/ops/element_pallas.py"
 
     def entry(name, source, replaces, count, r):
-        # launches: the variant's launches in the six main-path runs and
-        # on [halo]'s rank 0
+        # launches: the variant's launches in the six main-path runs, on
+        # [halo]'s rank 0 and in [nccl]'s graph chunks
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(x.get(count, 0) for x in
                                 (launches1, launches2, launches3, launches4,
-                                 launches5, launches_g, launches_h)),
+                                 launches5, launches_g, launches_h,
+                                 launches_n)),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}

@@ -27,7 +27,10 @@ two ranks on one card under it raises, within a process and across the
 processes of a host (every rank posts its host and card to the store
 before the group forms).  ``"gloo"`` (the default on the CPU) also
 carries CUDA tensors, staged through host memory, and lets ranks share a
-card when it is asked for by name.  Nothing retries with another backend
+card when it is asked for by name.  NCCL's collectives are kernels on the
+card, so a rank's chunk, collectives included, replays captured CUDA
+graphs (``Rank.capturable``); gloo's go through the host, and its ranks
+step eagerly.  Nothing retries with another backend
 or moves to the CPU, a rank that fails fails its process, and a process
 whose peer dies fails in its next collective.
 """
@@ -70,6 +73,13 @@ class Rank(NamedTuple):
     local_rank: int = 0             # rank within its process
     local_group: Any = None         # the ranks of its process (None: one
     #                                 process, the launch's group is it)
+
+    @property
+    def capturable(self) -> bool:
+        """Whether the rank's collectives can be captured into a CUDA
+        graph: NCCL's are kernels on the rank's card; gloo's run on the
+        host, and a CPU rank has no graphs."""
+        return self.backend == "nccl" and self.device.type == "cuda"
 
 
 def _split_address(address: str) -> tuple[str, int]:

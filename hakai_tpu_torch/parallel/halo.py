@@ -20,9 +20,15 @@ of its elements reaches past its own rows.  Per step a rank:
 - sends the ghost rows' forces back to their owners
   (:meth:`HaloComm.return_ghosts`), which add them after their own sum.
 
-The JAX package's ring of ``ppermute``s is an all-gather here, of each
-rank's head and tail rows: the list form of ``ShardComm.all_gather`` that
-element-sharded runs use under gloo and NCCL.  A rank keeps one shard, where
+Each exchange is the JAX package's ring of two ``ppermute``s: a rank sends
+H rows to each neighbour and receives H rows from each (one batch of
+point-to-point sends and receives), into buffers it keeps; the ends of
+the ring get zeros, as JAX masks its wrap.  A rank's exchange traffic does
+not grow with the rank count.  Under gloo, whose sends take host memory,
+a rank on the card stages its rows through pinned host buffers.  Under
+NCCL a rank's chunk, exchanges and all-gathers included, replays captured
+CUDA graphs, as JAX's ``make_halo_step`` is one ``jit`` program per
+device; gloo ranks and the CPU step eagerly.  A rank keeps one shard, where
 the JAX package keeps a leading ``dp`` axis: :class:`HaloModel` and
 :class:`HaloState` hold either every shard, shard-major on the host (as
 :func:`partition`, :func:`partition_state` and the checkpoint files have
@@ -47,6 +53,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.lowering import LoweredModel
 from ..core.state import SimState
@@ -326,12 +333,14 @@ def partition(model: LoweredModel, n_shards: int) -> HaloModel:
         inc_mask=torch.as_tensor(inc_mask), coord_e=coord_e, **contact)
 
 
-def exchange_bytes(hm: HaloModel) -> int:
-    """Bytes one rank puts on the exchanges of one step: its head and tail
-    H rows of the window (3 channels in the packed loop, position and
+def exchange_bytes(hm: HaloModel, rank: int) -> int:
+    """Bytes rank ``rank`` sends, and as many it receives, on the exchanges
+    of one step: H rows to each of its neighbours (one at either end of
+    the ring) of the window (3 channels in the packed loop, position and
     increment in the generic step) and of the ghost forces (3)."""
     C = 3 if hm.coord_e is not None else 6
-    return (C + 3) * 2 * hm.H * hm.base.dtype.itemsize
+    neighbours = (rank > 0) + (rank < hm.n_shards - 1)
+    return (C + 3) * neighbours * hm.H * hm.base.dtype.itemsize
 
 
 def init_halo_state(hm: HaloModel) -> HaloState:
@@ -446,6 +455,9 @@ class HaloComm(ShardComm):
         super().__init__(self.hm.base, ctx)
         self.ctx = ctx
         self.rank = ctx.rank
+        # gloo's sends take host memory: a rank on the card stages them
+        self.staged = ctx.backend == "gloo" and ctx.device.type == "cuda"
+        self._ring_bufs = {}    # the ring's buffers by (shape, dtype)
         h = self.hm
         self.own = dataclasses.replace(
             h.base, N=h.No, coord=h.coord, diag_M=h.diag_M,
@@ -458,40 +470,67 @@ class HaloComm(ShardComm):
             vol_e=h.vol_e, coord_e=h.coord_e, inc_idx=h.inc_idx,
             inc_mask=h.inc_mask, plan_asm=None, pairs=())
         self.cforce = None      # the last step's contact force, own rows
+        #                         (a buffer, so that graph replays fill it)
         if h.cn_inv is not None:
             self.cn_local = h.cn_local.long()
             self.cn_inv = h.cn_inv.long()
             self.eg_inv = h.eg_inv.long()
 
-    def _rows(self, x):
-        """All-gather each rank's head and tail H rows of ``x`` (C, L):
-        (C, S, 2, H), [head, tail] per rank."""
-        H = self.hm.H
-        parts = self.all_gather(torch.cat([x[..., :H], x[..., -H:]], -1))
-        return parts.view(x.shape[0], self.world, 2, H)
+    def _ring(self, to_left, to_right):
+        """Send ``to_left`` (C, H) to rank d-1 and ``to_right`` to rank d+1;
+        returns (what rank d-1 sent to its right, what rank d+1 sent to its
+        left), zeros where there is no neighbour (JAX's masked ring wrap).
+        One batch of sends and receives, through buffers the comm keeps
+        (static under a capture); the results are views of them, read
+        before the next exchange."""
+        d, S = self.rank, self.world
+        key = (tuple(to_left.shape), to_left.dtype)
+        bufs = self._ring_bufs.get(key)
+        if bufs is None:
+            # [to left, to right, from left, from right], the receives
+            # zeros where no neighbour sends
+            dev = to_left.new_zeros((4,) + key[0])
+            host = (torch.zeros_like(dev, device="cpu", pin_memory=True)
+                    if self.staged else dev)
+            bufs = self._ring_bufs[key] = (dev, host)
+        dev, io = bufs
+        with self.timed(to_left):
+            dev[0].copy_(to_left)
+            dev[1].copy_(to_right)
+            if self.staged:
+                io[:2].copy_(dev[:2])
+            ops = []
+            for peer, send, recv in ((d - 1, io[0], io[2]),
+                                     (d + 1, io[1], io[3])):
+                if 0 <= peer < S:
+                    ops += [dist.P2POp(dist.isend, send, peer, self.group),
+                            dist.P2POp(dist.irecv, recv, peer, self.group)]
+            if ops:
+                for work in dist.batch_isend_irecv(ops):
+                    work.wait()
+            if self.staged:
+                dev[2:].copy_(io[2:])
+        return dev[2], dev[3]
 
     def exchange_window(self, x):
         """(C, No) owned rows -> (C, W) window: the left neighbour's tail
         and the right neighbour's head around them (zeros past shard 0 and
         shard S-1), JAX's ``_exchange_window``."""
-        d, S, H = self.rank, self.world, self.hm.H
-        parts = self._rows(x)
-        zero = x.new_zeros((x.shape[0], H))
-        from_left = parts[:, d - 1, 1] if d > 0 else zero
-        from_right = parts[:, d + 1, 0] if d < S - 1 else zero
+        H = self.hm.H
+        from_left, from_right = self._ring(x[..., :H], x[..., -H:])
         return torch.cat([from_left, x, from_right], dim=-1)
 
     def return_ghosts(self, fw):
         """(C, W) window forces -> (C, No) owned rows, the ghost rows' forces
         added by their owners after the owned sum: first what the right
         neighbour's head holds onto the tail, then what the left
-        neighbour's tail holds onto the head (JAX's ``_return_ghosts``)."""
-        d, S, H, No = self.rank, self.world, self.hm.H, self.hm.No
-        parts = self._rows(torch.cat([fw[..., :H], fw[..., H + No:]], -1))
+        neighbour's tail holds onto the head (JAX's ``_return_ghosts``;
+        zeros are added at the ends, as JAX adds its masked wrap)."""
+        H, No = self.hm.H, self.hm.No
+        from_left, from_right = self._ring(fw[..., :H], fw[..., H + No:])
         own = fw[..., H:H + No].clone()
-        zero = fw.new_zeros((fw.shape[0], H))
-        own[..., No - H:] += parts[:, d + 1, 0] if d < S - 1 else zero
-        own[..., :H] += parts[:, d - 1, 1] if d > 0 else zero
+        own[..., No - H:] += from_right
+        own[..., :H] += from_left
         return own
 
     def assemble(self, qe24, out_dtype):
@@ -523,8 +562,11 @@ class HaloComm(ShardComm):
         cf = contact_forces_pv(base, full[:3], full[3:],
                                self.global_flag(state.element_flag),
                                self.group)
-        self.cforce = cf[:, self.rank * No:(self.rank + 1) * No]
-        return self.cforce
+        own_cf = cf[:, self.rank * No:(self.rank + 1) * No]
+        if self.cforce is None:
+            self.cforce = torch.empty_like(own_cf)
+        self.cforce.copy_(own_cf)
+        return own_cf
 
     def stack(self, s: HaloState, local: bool = False) -> HaloState:
         """Every rank's row of ``s``, shard-major (a collective); with
@@ -536,7 +578,7 @@ class HaloComm(ShardComm):
 
         def lead(x):
             parts = [torch.empty_like(x) for _ in range(n)]
-            torch.distributed.all_gather(parts, x.contiguous(), group=group)
+            dist.all_gather(parts, x.contiguous(), group=group)
             return torch.stack(parts)
         return HaloState(
             t=s.t, element_flag=lead(s.element_flag.view(torch.uint8))
@@ -546,7 +588,7 @@ class HaloComm(ShardComm):
                if f.name not in ("t", "element_flag")})
 
     def all_reduce(self, x, op):
-        torch.distributed.all_reduce(x, op=op, group=self.group)
+        dist.all_reduce(x, op=op, group=self.group)
         return x
 
     def initial(self, hs: HaloState | None) -> HaloState:
@@ -600,27 +642,46 @@ def _halo_step_fast_packed(comm: HaloComm, s: HaloState, P, disp_w_prev):
         P_new, disp_w
 
 
+def _halo_steps(comm: HaloComm, loop: str, step, carry, n_steps: int):
+    """``carry`` after ``n_steps`` of ``step(lm, *carry)``: replayed from
+    the window model's captured graphs where the comm's collectives can be
+    captured (``solver.explicit.uses_graphs``), else stepped eagerly."""
+    from ..solver.explicit import uses_graphs
+    from ..solver.graph import chunk_graphs
+    lm = comm.lm
+    if uses_graphs(carry[0].disp.device, comm):
+        return chunk_graphs(lm, loop, step, comm.where).advance(
+            lm, carry[0], carry[1:], n_steps)
+    for _ in range(n_steps):
+        carry = step(lm, *carry)
+    return carry
+
+
 def halo_run_chunk(comm: HaloComm, s: HaloState, n_steps: int) -> HaloState:
     """``n_steps`` steps of a rank (the body of JAX's ``make_halo_step``):
     the packed loop when the partition keeps ``coord_e``, else the generic
     step; in the packed loop dead elements keep stale stress until the
     chunk's exit and, on fracture-free decks, the triaxiality is formed
-    there.  On erosion-free contact decks the whole life mask is gathered
-    once, for the chunk."""
+    there, and the window of the previous step's displacement is carried.
+    On erosion-free contact decks the whole life mask is gathered once,
+    for the chunk.  Under NCCL the steps replay captured graphs; the
+    packed loop's entry and exit run once a chunk, around them."""
     from ..solver.explicit import finish_packed, pack_gauss_state
     base = comm.model
     comm.flag = None
     if base.pairs and not base.fracture_enabled:
-        comm.flag = comm.global_flag(s.element_flag)
+        comm.hoist_flag(s.element_flag)
     try:
         if comm.lm.coord_e is None:
-            for _ in range(n_steps):
-                s = _halo_step(comm, s)
-            return s
+            return _halo_steps(comm, "halo generic",
+                               lambda lm, s: (_halo_step(comm, s),), (s,),
+                               n_steps)[0]
         P = pack_gauss_state(s)
         disp_w = comm.exchange_window(s.disp)
-        for _ in range(n_steps):
-            s, P, disp_w = _halo_step_fast_packed(comm, s, P, disp_w)
+        s, P, _ = _halo_steps(
+            comm, "halo packed",
+            lambda lm, *carry: _halo_step_fast_packed(comm, *carry),
+            (s, P, disp_w), n_steps)
         return finish_packed(comm.lm, s, P)
     finally:
         comm.flag = None
@@ -786,12 +847,12 @@ class HaloView:
 
     def alive(self) -> int:
         n = self.s.element_flag.sum().reshape(1).to(torch.float64)
-        return int(self.comm.all_reduce(n, torch.distributed.ReduceOp.SUM))
+        return int(self.comm.all_reduce(n, dist.ReduceOp.SUM))
 
     def finite(self) -> bool:
         bad = (~torch.isfinite(self.s.disp)).sum().reshape(1).double()
         return int(self.comm.all_reduce(
-            bad, torch.distributed.ReduceOp.SUM)) == 0
+            bad, dist.ReduceOp.SUM)) == 0
 
     def metrics(self) -> dict:
         from ..utils.metrics import halo_step_metrics
@@ -885,12 +946,13 @@ def halo_job(ctx: Rank, job: dict, measure) -> dict:
         cf = (comm.cforce.abs().max().reshape(1).double()
               if comm.cforce is not None
               else torch.zeros(1, dtype=torch.float64, device=s.disp.device))
-        return float(comm.all_reduce(cf, torch.distributed.ReduceOp.MAX))
+        return float(comm.all_reduce(cf, dist.ReduceOp.MAX))
 
     rec = measure(ctx, comm, s, job,
                   lambda x, n: halo_run_chunk(comm, x, n),
-                  lambda x: gather_state(hm, x, comm), contact_max, after)
+                  lambda x: gather_state(hm, x, comm), contact_max, comm.lm,
+                  after)
     rec["partition"] = dict(No=hm.No, H=hm.H, W=hm.W, El=hm.El,
                             packed=hm.coord_e is not None,
-                            exchange_bytes=exchange_bytes(hm))
+                            exchange_bytes=exchange_bytes(hm, ctx.rank))
     return rec

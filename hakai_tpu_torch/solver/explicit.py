@@ -18,11 +18,13 @@ element's stress and strain every step and reports its triaxiality from
 the trial stress.  ``run()`` drives chunks from the host and writes VTK
 frames, checkpoints and metrics between them, on one device or, with
 ``devices``, on element-sharded ranks (``parallel/sharding.py``), whose
-steps are these same functions given a ``comm``.  On one CUDA device a
-chunk replays captured CUDA graphs of its steps (``solver/graph.py``).
+steps are these same functions given a ``comm``.  On a CUDA device a
+chunk replays captured CUDA graphs of its steps (``solver/graph.py``),
+alone or on a rank whose collectives can be captured (NCCL).
 """
 from __future__ import annotations
 
+import functools
 import sys
 import time as _time
 
@@ -212,16 +214,27 @@ def run_chunk(model: LoweredModel, state: SimState, n_steps: int,
     from the final stress, on fracture decks it is the last step's (the
     erosion walk needs it every step).
 
-    On a CUDA device with no ``comm`` the steps replay captured CUDA
+    Where :func:`uses_graphs` says so the steps replay captured CUDA
     graphs (:func:`graph_chunk`), as the JAX package runs a chunk as one
-    compiled program; on the CPU, and on ranks, they run eagerly
+    compiled program, collectives included; else they run eagerly
     (:func:`eager_chunk`).  The two give the same bits.  With ``comm``,
     ``model`` and ``state`` are a rank's element shard (every per-element
     act of the chunk, its exit included, stays on the rank's elements).
     The state returned is the caller's: no later chunk changes it."""
-    if comm is None and state.disp.device.type == "cuda":
-        return graph_chunk(model, state, n_steps)
+    if uses_graphs(state.disp.device, comm):
+        return graph_chunk(model, state, n_steps, comm=comm)
     return eager_chunk(model, state, n_steps, comm)
+
+
+def uses_graphs(device, comm=None) -> bool:
+    """Whether a chunk on ``device`` replays captured CUDA graphs: on a
+    CUDA device, alone or on a rank whose collectives can be captured
+    (``comm.capturable``: NCCL's are kernels on the card).  Gloo ranks,
+    whose collectives run on the host, and the CPU, which has no graphs,
+    step eagerly: a consequence of the backend and device, not a
+    fallback."""
+    return torch.device(device).type == "cuda" and (
+        comm is None or comm.capturable)
 
 
 def eager_chunk(model: LoweredModel, state: SimState, n_steps: int,
@@ -237,21 +250,26 @@ def eager_chunk(model: LoweredModel, state: SimState, n_steps: int,
     return finish_packed(model, state, P)
 
 
-def _generic_step(model: LoweredModel, state: SimState):
-    return (step(model, state),)
+def _generic_step(model: LoweredModel, state: SimState, comm=None):
+    return (step(model, state, comm),)
 
 
 def graph_chunk(model: LoweredModel, state: SimState, n_steps: int,
-                k: int = GRAPH_STEPS) -> SimState:
-    """:func:`run_chunk` on one CUDA device: the chunk's steps replay the
+                k: int = GRAPH_STEPS, comm=None) -> SimState:
+    """:func:`run_chunk` on a CUDA device: the chunk's steps replay the
     model's captured graphs of ``k`` steps and of the remainder
     (:mod:`hakai_tpu_torch.solver.graph`); the packed loop's entry and
-    exit run eagerly, once a chunk, around them."""
+    exit run eagerly, once a chunk, around them.  With ``comm`` (a rank
+    whose collectives can be captured) the steps are the rank's, bound to
+    its comm, and ``model`` is its local view, which holds the graphs."""
+    where = comm.where if comm is not None else ""
     if model.coord_e is None:
-        return chunk_graphs(model, "generic", _generic_step).advance(
-            model, state, (), n_steps, k)[0]
-    state, P = chunk_graphs(model, "packed", step_fast_packed).advance(
-        model, state, (pack_gauss_state(state),), n_steps, k)
+        return chunk_graphs(model, "generic", functools.partial(
+            _generic_step, comm=comm), where).advance(
+                model, state, (), n_steps, k)[0]
+    state, P = chunk_graphs(model, "packed", functools.partial(
+        step_fast_packed, comm=comm), where).advance(
+            model, state, (pack_gauss_state(state),), n_steps, k)
     return finish_packed(model, state, P)
 
 

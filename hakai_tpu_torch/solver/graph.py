@@ -24,9 +24,16 @@ replays need no copy between them.  Launch counts: the kernel wrappers
 run only while a graph is captured; a replay adds each wrapper's
 captured launches to its count, so the counts say what ran on the card.
 
+A rank whose collectives can be captured (NCCL, ``Rank.capturable``)
+replays graphs of its own steps, collectives included, as the JAX
+package's multi-device chunk is one ``jit(shard_map(...))`` program per
+device: its step function is bound to its comm, and the graphs live on
+its local model view, a new object per launch.  Gloo ranks and the CPU
+run the eager loop (``solver/explicit.uses_graphs`` decides, from the
+backend and device alone).
+
 Nothing falls back: a failed warm-up, capture or replay raises, with a
-note naming the step.  Element-sharded and halo ranks and the CPU run
-the eager loop (``solver/explicit.run_chunk`` decides).
+note naming the rank, the step and the loop.
 """
 from __future__ import annotations
 
@@ -87,7 +94,8 @@ def _count_delta(before: dict, after: dict) -> dict:
 
 
 def leaves(carry) -> list:
-    """The tensors of a carry ``(SimState, *tensors)``, in field order."""
+    """The tensors of a carry ``(state, *tensors)`` (a :class:`SimState`,
+    or a halo rank's ``HaloState``), in field order."""
     state, *extra = carry
     return [getattr(state, f.name) for f in dataclasses.fields(state)] + \
         list(extra)
@@ -97,7 +105,8 @@ def rebuild(carry, tensors) -> tuple:
     """A carry shaped like ``carry`` from :func:`leaves`-ordered
     ``tensors``."""
     names = [f.name for f in dataclasses.fields(carry[0])]
-    return (SimState(**dict(zip(names, tensors))), *tensors[len(names):])
+    return (type(carry[0])(**dict(zip(names, tensors))),
+            *tensors[len(names):])
 
 
 def write_back(static: list, out: list) -> None:
@@ -128,18 +137,23 @@ class Captured(NamedTuple):
 
 class ChunkGraphs:
     """The captured graphs of one model's chunk loop (``loop``: "packed" or
-    "generic"), each length captured once, over one set of static buffers
-    and one memory pool.  ``step_fn(model, state, *extra)`` is one step of
-    the loop, returning ``(state, *extra)``.  The model holds this object
-    and passes itself to every call (no reference back to it, so the
-    graphs die with the model as soon as it is dropped).
+    "generic", or a halo rank's), each length captured once, over one set
+    of static buffers and one memory pool.  ``step_fn(model, state,
+    *extra)`` is one step of the loop, returning ``(state, *extra)``; on a
+    rank it is bound to the rank's comm, and ``where`` names the rank.
+    The model holds this object and passes itself to every call (no
+    reference back to it, so the graphs die with the model as soon as it
+    is dropped).
 
     The graphs share the pool safely: each replays alone, in stream
     order, and leaves nothing in the pool that a later replay reads (its
-    result is in the static buffers, which lie outside the pool)."""
+    result is in the static buffers, which lie outside the pool).  The
+    comm's buffers (gathered rows, ring buffers, the hoisted life mask)
+    are static too: kept by the comm, made outside any capture."""
 
-    def __init__(self, loop: str, step_fn):
+    def __init__(self, loop: str, step_fn, where: str = ""):
         self.loop, self.step_fn = loop, step_fn
+        self.what = f"the {loop} loop" + (f" on {where}" if where else "")
         self.static = None        # the carry the graphs read and write
         self.graphs: dict[int, Captured] = {}
         self.pool = None
@@ -180,7 +194,7 @@ class ChunkGraphs:
             except RuntimeError as e:
                 e.add_note(f"replaying steps {j * length + 1}-"
                            f"{(j + 1) * length} of the chunk ({length}-step "
-                           f"graph of the {self.loop} loop)")
+                           f"graph of {self.what})")
                 raise
         _add_counts(g.launches, times)
 
@@ -199,17 +213,19 @@ class ChunkGraphs:
         result dropped, as PyTorch's CUDA-graph recipe warms up.  It does
         outside any capture what a step does at first use: the kernel
         library's build and each kernel's first launch, the allocator's
-        first blocks, the narrow phase's
-        workspace (its counters are left zero by every call) and the
-        element kernel's shape-gradient table, a synchronous
-        ``cudaMemcpyToSymbol`` that no capture may hold.  That table is
-        global per device, so every model's graphs replay the one table:
-        sound while it is model-independent, as ``pusai_hexa(8)`` is."""
+        first blocks, the narrow phase's workspace (its counters are left
+        zero by every call) and the element kernel's shape-gradient table,
+        a synchronous ``cudaMemcpyToSymbol`` that no capture may hold; on a
+        rank also every collective of the step once (NCCL forms its
+        communicator at the first collective, which no capture may hold)
+        and the comm's buffers.  The table is global per device, so every
+        model's graphs replay the one table: sound while it is
+        model-independent, as ``pusai_hexa(8)`` is."""
         dev = model.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self._steps(model, 1, f"the warm-up of the {self.loop} loop")
+            self._steps(model, 1, f"the warm-up of {self.what}")
         torch.cuda.current_stream(dev).wait_stream(side)
         self.warm = True
 
@@ -232,7 +248,7 @@ class ChunkGraphs:
                 t0 = time.perf_counter()
                 with torch.cuda.graph(graph, pool=self.pool):
                     out = self._steps(model, length, f"the {length}-step "
-                                      f"capture of the {self.loop} loop")
+                                      f"capture of {self.what}")
                     write_back(leaves(self.static), leaves(out))
                     del out
                 t1 = time.perf_counter()
@@ -255,15 +271,17 @@ class _Cache(dict):
         return _Cache, ()
 
 
-def chunk_graphs(model: LoweredModel, loop: str, step_fn) -> ChunkGraphs:
+def chunk_graphs(model: LoweredModel, loop: str, step_fn,
+                 where: str = "") -> ChunkGraphs:
     """The model's graphs of ``loop``, kept in an attribute of the model
     object, not in a dataclass field: a model made by
     ``dataclasses.replace`` (or ``model.to``), whose tensors may differ,
-    starts with no graphs."""
+    starts with no graphs.  A rank's model is its local view, which
+    belongs to one comm (``where`` names the rank)."""
     cache = model.__dict__.get("_chunk_graphs")
     if cache is None:
         cache = _Cache()
         object.__setattr__(model, "_chunk_graphs", cache)
     if loop not in cache:
-        cache[loop] = ChunkGraphs(loop, step_fn)
+        cache[loop] = ChunkGraphs(loop, step_fn, where)
     return cache[loop]

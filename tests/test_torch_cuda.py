@@ -46,6 +46,18 @@ def port_fast_model(deck, cfg, device="cpu"):
         coord[:, elem] - coord[:, elem[0]][:, None, :]).to(m.edtype))
 
 
+def erosion_free_impact():
+    """The offset n=4 impact (its first contact within 100 steps) with its
+    ductile table taken out: a contact deck whose ranks hoist the life
+    mask once a chunk."""
+    from hakai_tpu_torch.pre.synthetic import impact_model, offset_instance
+    m = offset_instance(impact_model(n=4, v0=2e5, d_time=1e-8,
+                                     end_time=1e-6), 1, 0.013, 0.017)
+    for mt in m.materials:
+        mt.ductile, mt.fracture_flag = np.zeros((0, 3)), 0
+    return m
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -880,3 +892,49 @@ def test_graph_chunk_keeps_returned_states(cuda):
     whole = eager_chunk(m, s0, 3 * K + 12)
     assert all(torch.equal(getattr(s2, f.name), getattr(whole, f.name))
                for f in dataclasses.fields(s2))
+
+
+@pytest.mark.parametrize("case", ["packed", "generic", "contact"])
+def test_nccl_rank_graph_chunk_bitwise(cuda, case):
+    """One NCCL rank on the card, its chunk replaying captured graphs with
+    its collectives inside them (the qe all-gather; on the erosion-free
+    contact deck also the narrow phase's all-reduce and the life mask
+    hoisted into the comm's buffer): bit for bit the rank's eager chunk
+    and one device's run_chunk, in chunks of 2K + 5 and 7 steps, with the
+    element kernel's and the assembly's launches equal to the steps."""
+    from hakai_tpu_torch.parallel.dist import launch
+    from hakai_tpu_torch.parallel.sharding import chunk_rank
+    from hakai_tpu_torch.solver.graph import GRAPH_STEPS as K
+    if case == "packed":
+        m = lower(bar_model(8, 8, 32, d_time=5e-8, end_time=1e-4),
+                  SolverConfig(dtype="float32", energy_check=True),
+                  device="cpu")
+    elif case == "generic":
+        m = lower(bar_model(4, 4, 16, d_time=5e-8, end_time=1e-4,
+                            ductile=True),
+                  SolverConfig(dtype="mixed", energy_check=True),
+                  device="cpu")
+    else:
+        m = lower(erosion_free_impact(), SolverConfig(dtype="mixed"),
+                  device="cpu")
+    assert (m.coord_e is not None) == (case == "packed")
+    chunks = [2 * K + 5, 7] if case != "contact" else [2 * K + 36, 7]
+    graph, eager = launch(chunk_rank, 1, "cuda", "nccl", [
+        dict(model=m, chunks=chunks), dict(model=m, chunks=chunks,
+                                           eager=True)])
+    md = m.to(cuda)
+    ref = run_chunk(md, run_chunk(md, init_state(md), chunks[0]), chunks[1])
+    el = "element_core_packed" if case == "packed" else "element_update"
+    for rec in (graph, eager):
+        assert (rec["launches"][el],
+                rec["launches"]["assemble_internal_force"]) == \
+            (sum(chunks),) * 2
+        assert [f.name for f in dataclasses.fields(ref)
+                if not torch.equal(getattr(rec["state"], f.name),
+                                   getattr(ref, f.name).cpu())] == []
+    loop = "packed" if case == "packed" else "generic"
+    assert sorted(graph["captures"][loop]) == sorted(
+        {K, chunks[0] % K, chunks[1]})
+    assert eager["captures"] == {}
+    if case == "contact":
+        assert graph["contact_max"][-1] > 0

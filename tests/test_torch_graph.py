@@ -2,9 +2,9 @@
 on the CPU, where there are no graphs: the split of a chunk into replays,
 the cache of captured lengths, the copy-out contract and the launch
 counts, with each capture stood in for by an eager replay of the same
-steps over the same static buffers (``_EagerReplay``); and ``run_chunk``
-on the CPU, which stays eager, against the JAX package's ``run_chunk``
-over several chunks.  The graphs themselves run in the ``cuda`` tests of
+steps over the same static buffers (``rank_workers.EagerReplay``); and
+``run_chunk`` on the CPU, which stays eager, against the JAX package's
+``run_chunk`` over several chunks.  The graphs themselves run in the ``cuda`` tests of
 ``tests/test_torch_cuda.py`` and in ``chip_smoke.py``'s ``[graph]``
 phase, bit for bit against the eager loop."""
 import dataclasses
@@ -23,7 +23,8 @@ from hakai_tpu_torch.ops.element_cuda import element_core_packed
 from hakai_tpu_torch.pre import synthetic as tsyn
 from hakai_tpu_torch.solver import explicit, graph
 from hakai_tpu_torch.solver.graph import (GRAPH_STEPS, Captured, ChunkGraphs,
-                                          leaves, split, write_back)
+                                          split, write_back)
+from rank_workers import EagerReplay
 from test_torch_contact_run import _rel, tie_free_impact
 from test_torch_slice import STATE, _compare, carried, jax_fast_model
 from test_torch_cuda import port_fast_model
@@ -31,23 +32,10 @@ from test_torch_cuda import port_fast_model
 K = GRAPH_STEPS
 
 
-class _EagerReplay:
-    """Stands in for a captured graph on the CPU: a replay runs the
-    length's steps from the static buffers and writes their result back,
-    as the captured graph does on the card."""
-
-    def __init__(self, graphs: ChunkGraphs, model, length: int):
-        self.graphs, self.model, self.length = graphs, model, length
-
-    def replay(self):
-        out = self.graphs._steps(self.model, self.length, "a CPU replay")
-        write_back(leaves(self.graphs.static), leaves(out))
-
-
 @pytest.fixture
 def captures(monkeypatch):
     """Every capture as (model id, loop, length); each "graph" an
-    :class:`_EagerReplay` that launches ``length`` element kernels a
+    :class:`EagerReplay` that launches ``length`` element kernels a
     replay by the counts (the plain versions on the CPU count none)."""
     seen = []
 
@@ -56,7 +44,7 @@ def captures(monkeypatch):
         launches = {fn: (0, {k: 0 for k in getattr(fn, "launches_by", {})})
                     for fn in graph._COUNTED}
         launches[element_core_packed] = (length, {"float32": length})
-        return Captured(_EagerReplay(self, model, length), launches, 0.0,
+        return Captured(EagerReplay(self, model, length), launches, 0.0,
                         0.0, 0)
     monkeypatch.setattr(ChunkGraphs, "_capture", capture)
     return seen
