@@ -163,7 +163,18 @@ without its last line):
    traced (device busy, idle share), the capture and instantiate seconds
    and the graph pool's bytes; on [main] and [contact] the graph chunk
    timed in graphs of GRAPH_KS steps; and ``run(profile=...)`` capturing
-   under the profiler, its trace holding every step's element kernel.
+   under the profiler, its trace holding every step's element kernel;
+25. step-kernels (the kernels of the step's stages that XLA fuses on the
+   TPU: I, the central-difference update; E, the erosion walk; A, a
+   contact pair's activity masks and broad phase): I on [main]'s final
+   state and on [run]'s state one step before its first deletion, with
+   and without the energy balance and a contact force; E on the steps to
+   [run]'s and [generic]'s first deletion; A on [contact]'s state at its
+   first deletion, the masks recomputed and kept; each against its plain
+   version on the same inputs (bitwise; I's energy sums within
+   DWORK_TOL), timed cold beside its bound and plain version, with its
+   registers and resident blocks an SM.  Every main-path run above also
+   counts their launches.
 
 The line before the last is nvidia-smi's name and power limit; the one
 before that the per-kernel JSON record; the last line is
@@ -930,17 +941,21 @@ def trajectory():
 def _wrappers() -> dict:
     from hakai_tpu_torch.ops.assemble_cuda import (assemble_internal_force,
                                                    blocked_assemble)
+    from hakai_tpu_torch.ops.broad_cuda import broad
     from hakai_tpu_torch.ops.contact_cuda import narrow_phase, scatter_forces
     from hakai_tpu_torch.ops.element_cuda import (element_core_packed,
                                                   element_update)
+    from hakai_tpu_torch.ops.erosion_cuda import erosion_walk
     from hakai_tpu_torch.ops.gather_cuda import gather_cols
+    from hakai_tpu_torch.ops.integrate_cuda import central_difference
     from hakai_tpu_torch.ops.interleave_cuda import interleave
     from hakai_tpu_torch.ops.stream_cuda import stream_add1
     return {"element": element_core_packed, "update": element_update,
             "assemble": assemble_internal_force, "grouped": blocked_assemble,
             "gather": gather_cols,
             "narrow": narrow_phase, "scatter": scatter_forces,
-            "stream": stream_add1, "interleave": interleave}
+            "integrate": central_difference, "erosion": erosion_walk,
+            "broad": broad, "stream": stream_add1, "interleave": interleave}
 
 
 def reset_counts():
@@ -960,7 +975,8 @@ def read_counts() -> dict:
 
 
 def main_path(model, smi_line, tag="[main]",
-              counts=("element", "assemble", "element[float32]")):
+              counts=("element", "assemble", "element[float32]",
+                      "integrate[float32]")):
     """run_chunk on ``model`` from its initial state, slope-timed; every
     count named in ``counts`` must equal the steps run."""
     import torch
@@ -1036,7 +1052,8 @@ def trace(model, state, smi_line, tag, n=40, chunk=None):
     by_name, count = {}, {}
     ours = ("element_kernel", "assemble_kernel", "gather_cols_kernel",
             "narrow_bin", "narrow_scan", "narrow_sort", "narrow_probe",
-            "scatter_kernel")
+            "scatter_kernel", "integrate_kernel", "erosion_kernel",
+            "broad_activity", "broad_range", "broad_pairs")
     for e in dev:
         key = next((k for k in ours if k in e.name), "PyTorch ops")
         by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / n
@@ -1282,7 +1299,9 @@ def second_path(model, smi_line):
     log(f"\n[run] launches {launches} for {steps} steps")
     if (launches["element"] != steps or launches["assemble"] != steps
             or launches.get("element[mixed+triax]") != steps
-            or launches.get("assemble[hk_assemble_f32_f64]") != steps):
+            or launches.get("assemble[hk_assemble_f32_f64]") != steps
+            or launches.get("integrate[mixed]") != steps
+            or launches.get("erosion[float32]") != steps):
         raise AssertionError(f"kernel launches {launches} != steps {steps}")
     for f in ("disp", "velo", "Q", "stress", "eq_ps", "triax"):
         if not torch.isfinite(getattr(final, f)).all():
@@ -1417,7 +1436,9 @@ def contact_path(model, smi_line):
     log(f"\n[contact] launches {launches} for {steps} steps")
     want = {"element[mixed+triax]": steps,
             "assemble[hk_assemble_f32_f64]": steps, "gather": steps,
-            "narrow": n_pairs * steps, "scatter": steps}
+            "narrow": n_pairs * steps, "scatter": steps,
+            "integrate[mixed]": steps, "erosion[float32]": steps,
+            "broad[float32]": n_pairs * steps}
     if any(launches.get(k) != v for k, v in want.items()):
         raise AssertionError(f"kernel launches {launches} != {want}")
     for f in ("disp", "velo", "Q", "stress", "eq_ps", "triax",
@@ -1454,8 +1475,8 @@ def contact_path(model, smi_line):
     k = next(i for i, c in enumerate(cells) if c < model.n_element)
     s = (init_state(model) if k == 1 else load_checkpoint(
         os.path.join(CONTACT_DIR, f"ckpt_{k - 1:03d}.npz"), init_state(model)))
-    s = step_until(model, s, lambda s: int(s.element_flag.sum())
-                   < model.n_element, d_out)
+    s_del = s = step_until(model, s, lambda s: int(s.element_flag.sum())
+                           < model.n_element, d_out)
     first_del = int(s.t)
     if not ((k - 1) * d_out < first_del <= k * d_out
             and first_contact < first_del):
@@ -1479,7 +1500,7 @@ def contact_path(model, smi_line):
         f" step {steps}; repeat {CONTACT_REPEAT}-step chunks from ckpt_001 "
         f"bitwise equal; surviving block pairs per pair (count, overlap) "
         f"{blocks} [{smi_line}]")
-    return launches, final, us, s_kern
+    return launches, final, us, s_kern, s_del
 
 
 def _time_pair(fn, plain, reps=20, plain_reps=3, plain_repeats=REPEATS):
@@ -1851,6 +1872,268 @@ def contact_kernels(model, state, smi_line, n_launch, ref=None):
     return recs["float32"]
 
 
+# [step-kernels]: kernel I's energy sums against torch.sum of the plain
+# version, relative to the larger of the pair: the kernel sums the same
+# products in double in block order, torch.sum in the nodal type in its
+# own order
+DWORK_TOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+def _step_res(entry, *args) -> str:
+    from hakai_tpu_torch import _build
+    return _res(_build.resources(entry, *args))
+
+
+def check_integrate(model, state, tag, energy, contact, element_inputs, rng,
+                    smi_line):
+    """Kernel I against its plain version on ``state`` of ``model`` (its
+    config's energy balance set to ``energy``; with ``contact`` a random
+    contact force): the step counter, disp_new, velo and (with
+    ``element_inputs``) the element kernel's inputs bitwise, dwork within
+    DWORK_TOL; kernel and plain ms (cold L2), bound, resources."""
+    import torch
+    from hakai_tpu_torch.ops import integrate_cuda as ic
+    from hakai_tpu_torch.ops.integrate import central_difference_plain
+    m = dataclasses.replace(model, config=dataclasses.replace(
+        model.config, energy_check=energy))
+    ext = (torch.as_tensor(rng.normal(scale=1.0, size=(3, m.N)),
+                           device=m.device).to(m.dtype) if contact else None)
+    got = ic.central_difference(m, state, ext, element_inputs)
+    ref = central_difference_plain(m, state, ext, element_inputs)
+    names = ("t", "disp_new", "velo") + (("position", "d_disp")
+                                         if element_inputs else ())
+    differ = [k for k in names if not torch.equal(getattr(got, k),
+                                                  getattr(ref, k))]
+    kind = "float32" if m.dtype == torch.float32 else "float64"
+    err = relerr(got.dwork, ref.dwork) if energy else 0.0
+    if differ or not err <= DWORK_TOL[kind]:
+        raise AssertionError(f"[step-kernels] I {tag} differs from its plain "
+                             f"version in {differ}, dwork {err:.3e}")
+    rec = {"max_abs_err": (got.dwork - ref.dwork).abs().max().item()
+           if energy else 0.0}
+    rec["ms"], rec["plain_ms"] = _time_pair(
+        lambda: ic.central_difference(m, state, ext, element_inputs),
+        lambda: central_difference_plain(m, state, ext, element_inputs))
+    # the bytes the update needs: a node's mass and existence byte, Q, u,
+    # u_prev and the BC mask of each dof, a BC dof's amplitude id and
+    # value (read only where the mask is set), u_new and velo written; the
+    # contact force and the element inputs where asked
+    kb, eb, n = m.dtype.itemsize, m.edtype.itemsize, m.N
+    nbc = int(m.bcd_mask.sum())
+    moved = (n * (kb + 1) + 3 * n * (3 * kb + 1) + nbc * (kb + 4)
+             + 2 * 3 * n * kb + 3 * n * kb * bool(contact)
+             + 3 * n * (kb + 2 * eb) * bool(element_inputs))
+    flop = n * (6 + 3 * (11 + 2 * element_inputs + 9 * energy))
+    rec["bound_ms"], rec["bound_by"] = bound(moved, flop, kind)
+    rec["library_ms"] = None
+    which = {torch.float32: 0, torch.float64: 1}[m.dtype] + (
+        m.dtype != m.edtype)
+    log(f"[step-kernels] I {tag} energy={energy} contact={contact} element "
+        f"inputs={element_inputs}, N={n}: {', '.join(names)} bitwise the "
+        f"plain version; dwork rel err {err:.3e} (tol {DWORK_TOL[kind]:g}); "
+        f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {moved / 1e6:.2f} MB, "
+        f"{moved / n:.1f} B a node, {nbc} BC dofs), "
+        f"{rec['bound_ms'] / rec['ms']:.3f} of it; "
+        f"{_step_res('hk_integrate_resources', which)} "
+        f"[{smi_line}]")
+    return rec
+
+
+def check_erosion(model, eq, tri, flag, stress, strain, tag, smi_line):
+    """Kernel E against its plain version on the element kernel's outputs
+    of one step: the packed step's masked triaxiality (``stress`` None) or
+    the generic step's zeroed stress and strain, the flags and the carried
+    deletion flag bitwise; kernel and plain ms (cold L2), bound,
+    resources."""
+    import types
+
+    import torch
+    from hakai_tpu_torch.ops import erosion_cuda as ec
+    from hakai_tpu_torch.ops.erosion import erosion_delete_mask_plain
+    packed = stress is None
+    carry = types.SimpleNamespace(flags=torch.zeros(3, dtype=torch.int32,
+                                                    device=eq.device))
+
+    def plain():
+        t = torch.where(flag[None, :], tri, 0.0) if packed else tri
+        f, d = erosion_delete_mask_plain(model, eq, t, flag)
+        if packed:
+            return t, f, d
+        return (t, f, d, torch.where(f[None, None, :], stress, 0.0),
+                torch.where(f[None, :], strain, 0.0))
+    ref = plain()
+    work = [x.clone() for x in (tri, stress, strain) if x is not None]
+
+    def kernel():
+        return ec.erosion_walk(model, eq, work[0], flag, mask_triax=packed,
+                               stress=None if packed else work[1],
+                               strain=None if packed else work[2],
+                               carry=carry)
+    w = kernel()
+    got = (w.triax, w.element_flag, w.deleted) + (
+        () if packed else (w.stress, w.strain))
+    deleted = int(ref[2].sum())
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)) or \
+            carry.flags.tolist() != [0, 0, int(deleted > 0)] or not deleted:
+        raise AssertionError(f"[step-kernels] E {tag} differs from its plain "
+                             f"version (carry {carry.flags.tolist()}, "
+                             f"{deleted} deleted)")
+    rec = {"max_abs_err": 0.0}
+    rec["ms"], rec["plain_ms"] = _time_pair(kernel, plain)
+    eb, E = eq.element_size(), eq.shape[1]
+    dead = int((~ref[1]).sum()) if not packed else int((~flag).sum())
+    moved = E * (16 * eb + 7) + dead * eb * (54 if not packed else 8)
+    rec["bound_ms"], rec["bound_by"] = bound(moved, 25 * E, "float32"
+                                             if eb == 4 else "float64")
+    rec["library_ms"] = None
+    log(f"[step-kernels] E {tag}, E={E}: triax, flags{'' if packed else ', stress, strain'} and the "
+        f"carried deletion flag bitwise the plain version, {deleted} "
+        f"deleted this step; kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}: {moved / 1e6:.2f} MB), "
+        f"{rec['bound_ms'] / rec['ms']:.3f} of it; "
+        f"{_step_res('hk_erosion_resources', 0 if eb == 4 else 1)} "
+        f"[{smi_line}]")
+    return rec
+
+
+def step_kernels_run(bench, bench_state, mixed, run_first, smi_line):
+    """[step-kernels] on [main]'s and [run]'s models: kernel I on [main]'s
+    final state (float32) and on [run]'s state one step before its first
+    deletion (mixed), with and without the energy balance and a contact
+    force (the generic step's element inputs with the force); kernel E on
+    the packed step to [run]'s first deletion.  Returns the records of the
+    kernels JSON line: I float32 and mixed, E float32."""
+    import numpy as np
+    from hakai_tpu_torch import init_state, run_chunk
+    from hakai_tpu_torch.ops.element_cuda import element_core_packed
+    from hakai_tpu_torch.ops.integrate_cuda import central_difference
+    from hakai_tpu_torch.solver.explicit import pack_gauss_state
+    rng = np.random.default_rng(SEED + 16)
+    s = run_chunk(mixed, init_state(mixed), run_first - 1)
+    recs = {}
+    for tag, m, st in (("[main] float32", bench, bench_state),
+                       ("[run] mixed", mixed, s)):
+        for energy in (False, True):
+            for contact in (False, True):
+                r = check_integrate(m, st, tag, energy, contact, contact,
+                                    rng, smi_line)
+                # the kernels line's record: the path's own call ([main]
+                # without the energy balance, [run] with it)
+                if energy == (tag == "[run] mixed") and not contact:
+                    recs[tag] = r
+    u = central_difference(mixed, s)
+    P_new, _, tri = element_core_packed(mixed, pack_gauss_state(s),
+                                        s.element_flag, u.disp_new, s.disp,
+                                        want_triax=True)
+    recs["E"] = check_erosion(mixed, P_new[56:64], tri, s.element_flag,
+                              None, None, f"[run] packed, step {run_first}",
+                              smi_line)
+    return recs
+
+
+def step_kernels_generic(model, first, smi_line):
+    """[step-kernels] kernel E on the generic step to [generic]'s first
+    deletion (the element kernel's unpacked outputs of that step)."""
+    from hakai_tpu_torch import init_state, run_chunk
+    from hakai_tpu_torch.ops.element_cuda import element_update
+    from hakai_tpu_torch.ops.integrate_cuda import central_difference
+    s = run_chunk(model, init_state(model), first - 1)
+    u = central_difference(model, s, element_inputs=True)
+    res, tri = element_update(model, u.position, u.d_disp, s.stress,
+                              s.strain, s.eq_ps, s.yield_s, s.element_flag,
+                              want_triax=True)
+    return check_erosion(model, res.eq_ps, tri, s.element_flag, res.stress,
+                         res.strain, f"[generic] generic, step {first}",
+                         smi_line)
+
+
+def step_kernels_contact(model, state, smi_line):
+    """[step-kernels] kernel A on [contact]'s state at its first deletion
+    (past its first contact), every pair as a step calls it: the
+    BroadPhase bitwise the plain version recomputing the masks (no carry)
+    and keeping them (the carry's flag clear: the masks are read); both
+    timed (cold L2) beside the plain version, the bound of each from the
+    bytes it needs at this state, resources of the three launches."""
+    import torch
+    from hakai_tpu_torch.ops import broad_cuda as bc
+    from hakai_tpu_torch.ops.broad_cuda import broad_phase, pair_activity
+    from hakai_tpu_torch.ops.contact import contact_kinematics
+    from hakai_tpu_torch.ops.contact_cuda import pair_constants
+    edt = model.edtype
+    kin = contact_kinematics(model, (model.coord + state.disp).to(edt),
+                             state.velo.to(edt))
+    flag = state.element_flag
+    args = [(p, model.ckin_slices[i], pair_constants(model, p))
+            for i, p in enumerate(model.pairs)]
+    acts = [pair_activity(p, flag) for p, _, _ in args]
+    kept = [tuple(a.clone() for a in act) for act in acts]
+    clear = torch.zeros((), dtype=torch.int32, device=kin.device)
+    moved = {"recompute": 0, "carried": 0}
+    active = [0, 0]                    # active triangles, active nodes
+    for (p, ksl, c), act, k in zip(args, acts, kept):
+        ref = broad_phase(p, kin, ksl, act, c)
+        for how, got in (("recompute", bc.broad(p, kin, ksl, flag, c)),
+                         ("carried", bc.broad(p, kin, ksl, flag, c, k,
+                                              clear))):
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                raise AssertionError(f"[step-kernels] A ({how}) differs from"
+                                     f" its plain version")
+        if not all(torch.equal(a, b) for a, b in zip(k, act)):
+            raise AssertionError("[step-kernels] A rewrote carried masks")
+        # the bytes the function needs at this state: the three vertices of
+        # an active triangle and the position of an active node (an
+        # inactive one is out whatever its position, and no box takes it),
+        # the outputs, and the masks read (kept) or the activity inputs
+        # read and the masks written (recomputed): the twins of a face
+        # that is not initially exposed, the life mask of the elements
+        # that the owners and those twins name
+        F2, Ci, Cj = (p.tri_nodes.shape[1], p.cand_nodes.shape[0],
+                      p.jnode_nodes.shape[0])
+        n_act = [int(a.sum()) for a in act]
+        active[0] += n_act[0]
+        active[1] += n_act[1] + n_act[2]
+        out = F2 + Ci + p.tri_chunks * p.n_chunks + 3 * edt.itemsize + 1
+        base = (9 * n_act[0] + 3 * n_act[1] + 3 * n_act[2]) * edt.itemsize \
+            + out
+        moved["carried"] += base + F2 + Ci + Cj
+        tw = p.tri_twin[~p.tri_init]
+        cw = p.cand_twin[~p.cand_init].flatten()
+        jw = p.jnode_twin[~p.jnode_init].flatten()
+        named = torch.cat([p.tri_elem, tw, cw, jw])
+        moved["recompute"] += base + (
+            torch.unique(named[named >= 0]).numel() + 5 * F2
+            + 4 * tw.numel() + Ci + 4 * cw.numel() + Cj + 4 * jw.numel()
+            + F2 + Ci + Cj)
+    rec = {"max_abs_err": 0.0, "library_ms": None}
+    rec["ms"], rec["plain_ms"] = _time_pair(
+        lambda: [bc.broad(p, kin, ksl, flag, c, k, clear)
+                 for (p, ksl, c), k in zip(args, kept)],
+        lambda: [broad_phase(p, kin, ksl, pair_activity(p, flag), c)
+                 for p, ksl, c in args])
+    ms_re = time_ms(lambda: [bc.broad(p, kin, ksl, flag, c)
+                             for p, ksl, c in args])
+    rec["bound_ms"], rec["bound_by"] = bound(moved["carried"], 0, "float32")
+    bound_re = bound(moved["recompute"], 0, "float32")[0]
+    log(f"[step-kernels] A [contact] at step {int(state.t)} (past first "
+        f"contact and first deletion), {len(args)} pairs (2F, Ci, Cj, block "
+        f"grid: {[(p.tri_nodes.shape[1], p.cand_nodes.shape[0], p.jnode_nodes.shape[0], p.tri_chunks, p.n_chunks) for p, _, _ in args]}): "
+        f"BroadPhase bitwise the plain version, recomputing and keeping the "
+        f"masks; {active[0]} active triangles, {active[1]} active nodes; a "
+        f"step's calls: kernel {rec['ms']:.4f} ms with the masks "
+        f"kept (bound {rec['bound_ms']:.4f} ms, {moved['carried'] / 1e6:.2f}"
+        f" MB, {rec['bound_ms'] / rec['ms']:.3f} of it), {ms_re:.4f} ms "
+        f"recomputing them (bound {bound_re:.4f} ms, "
+        f"{moved['recompute'] / 1e6:.2f} MB, {bound_re / ms_re:.3f} of it), "
+        f"plain {rec['plain_ms']:.4f} ms; "
+        + "; ".join(f"{k} {_step_res('hk_broad_resources', 0, i)}"
+                    for i, k in enumerate(("broad_activity", "broad_range",
+                                           "broad_pairs")))
+        + f" [{smi_line}]")
+    return rec
+
+
 def contact_cpu():
     """The tie-free impact (cube off the slab's grid lines; the ductile
     table of the JAX package's multi-host impact test), n=CONTACT_CPU_N,
@@ -1941,7 +2224,8 @@ def generic_run(smi_line, run_first, run_alive):
     steps = model.time_num
     log(f"\n[generic] launches {launches} for {steps} steps")
     want = {"update": steps, "update[float32+triax]": steps,
-            "assemble[hk_assemble_f32_f64]": steps, "element": 0}
+            "assemble[hk_assemble_f32_f64]": steps, "element": 0,
+            "integrate[mixed]": steps, "erosion[float32]": steps}
     if any(launches.get(k, 0) != v for k, v in want.items()):
         raise AssertionError(f"kernel launches {launches} != {want}")
     for f in ("disp", "velo", "Q", "stress", "eq_ps", "triax"):
@@ -1978,7 +2262,7 @@ def generic_run(smi_line, run_first, run_alive):
         f"first deletion at step {first} (packed [run]: {run_first}); "
         f"alive by step {[(t, by_step[t], run_alive[t]) for t in common]} "
         f"(generic, packed); {alive} alive at step {steps} [{smi_line}]")
-    return model, launches, final, us
+    return model, launches, final, us, first
 
 
 def generic_cpu():
@@ -2587,9 +2871,11 @@ def halo_phase(res, ref_res, refs, cut, impact, smi_line):
             f"rank 0 launches {r['launches']}; normwise from one device: "
             + " ".join(f"{k} {v:.3e}" for k, v in errs.items())
             + f" (tol {HALO_TOL}) [{smi_line}]")
-        want = {kernel: n, "assemble_internal_force": n}
+        want = {kernel: n, "assemble_internal_force": n,
+                "central_difference": n}
         if any(r["launches"][k] != v for k, v in want.items()):
             raise AssertionError(f"[halo] launches {r['launches']}")
+        count("integrate[float32]", r["launches"]["central_difference"])
         bad = {k: v for k, v in errs.items() if not v <= HALO_TOL[k]}
         if bad or p["packed"] != (tag == "packed f32"):
             raise AssertionError(f"[halo] {tag} parts from one device: {bad}")
@@ -2612,7 +2898,10 @@ def halo_phase(res, ref_res, refs, cut, impact, smi_line):
         count("element[mixed+triax]", L["element_core_packed"])
         count("assemble[hk_assemble_f32_f64]", L["assemble_internal_force"])
         for k, name in (("gather", "gather_cols"), ("narrow", "narrow_phase"),
-                        ("scatter", "scatter_forces")):
+                        ("scatter", "scatter_forces"),
+                        ("integrate[mixed]", "central_difference"),
+                        ("erosion[float32]", "erosion_walk"),
+                        ("broad[float32]", "broad")):
             count(k, L[name])
     return counts
 
@@ -3118,15 +3407,20 @@ def nccl_phase(bench, gen, impact_cut, smi_line):
             raise AssertionError("NCCL ran two ranks on one card")
     decks = (("bench bar packed f32", bench, NCCL_STEPS,
               {"element[float32]": "element_core_packed",
-               "assemble[hk_assemble_f32]": "assemble_internal_force"}),
+               "assemble[hk_assemble_f32]": "assemble_internal_force",
+               "integrate[float32]": "central_difference"}),
              ("bench bar generic f32", gen, NCCL_STEPS,
               {"update[float32+triax]": "element_update",
-               "assemble[hk_assemble_f32]": "assemble_internal_force"}),
+               "assemble[hk_assemble_f32]": "assemble_internal_force",
+               "integrate[float32]": "central_difference"}),
              ("[contact]'s deck, mixed", impact_cut, SHARD_CONTACT_STEPS,
               {"element[mixed+triax]": "element_core_packed",
                "assemble[hk_assemble_f32_f64]": "assemble_internal_force",
                "gather": "gather_cols", "narrow": "narrow_phase",
-               "scatter": "scatter_forces"}))
+               "scatter": "scatter_forces",
+               "integrate[mixed]": "central_difference",
+               "erosion[float32]": "erosion_walk",
+               "broad[float32]": "broad"}))
     jobs = []
     for _, m, n, _ in decks:
         cpu = m.to("cpu")
@@ -3172,7 +3466,8 @@ def nccl_phase(bench, gen, impact_cut, smi_line):
             f"[{smi_line}]")
         for key, fn in keys.items():
             counts[key] = counts.get(key, 0) + graph["launches"][fn]
-            want = n * (len(m.pairs) if key == "narrow" else 1)
+            want = n * (len(m.pairs) if key in ("narrow", "broad[float32]")
+                        else 1)
             if graph["launches"][fn] != want or eager["launches"][fn] != want:
                 bad.append(f"{tag} launches of {fn}")
         if diffs[0] or diffs[1]:
@@ -3307,7 +3602,8 @@ def main() -> int:
     lap("[main], its [trace] and [grouped-asm]'s run")
     graphs = {"[main]": graph_path(
         "[main]", bench, N2, {"element": 1, "assemble": 1,
-                              "element[float32]": 1}, smi_line, GRAPH_KS)}
+                              "element[float32]": 1,
+                              "integrate[float32]": 1}, smi_line, GRAPH_KS)}
     graph_profile(cut_to(bench, GRAPH_PROFILE_STEPS, output_num=1,
                          checkpoint_every=0, metrics_path=None), smi_line)
     lap("[graph] of [main]")
@@ -3326,15 +3622,20 @@ def main() -> int:
     lap("[run] and its [trace]")
     graphs["[run]"] = graph_path(
         "[run]", mixed, GRAPH_RUN_CHUNK, {"element[mixed+triax]": 1,
-                                          "assemble[hk_assemble_f32_f64]": 1},
+                                          "assemble[hk_assemble_f32_f64]": 1,
+                                          "integrate[mixed]": 1,
+                                          "erosion[float32]": 1},
         smi_line, deletes=True)
     lap("[graph] of [run]")
+    step_recs = step_kernels_run(bench, final, mixed, run_first, smi_line)
+    lap("[step-kernels] I and E of [run]")
     host_io_phase(mixed, final2, smi_line)
     del mixed, final2
     lap("[host-io]")
 
     impact = contact_model(smi_line)
-    launches3, final3, contact_us, s_kern = contact_path(impact, smi_line)
+    launches3, final3, contact_us, s_kern, s_del = contact_path(impact,
+                                                                smi_line)
     busy3, wall3, per3 = trace(impact, s_kern, smi_line, "contact impact",
                                n=20)
     log(f"[trace] contact impact: device idle share {1.0 - busy3 / wall3:.4f}"
@@ -3342,16 +3643,19 @@ def main() -> int:
         f" averaged {contact_us:.2f} us/step over its 5,000 steps)")
     crec = contact_kernels(impact, s_kern, smi_line, sum(
         v for k, v in per3.items() if k.startswith("narrow_")), ref)
+    step_recs["A"] = step_kernels_contact(impact, s_del, smi_line)
     graphs["[contact]"] = graph_path(
         "[contact]", impact, REF_CONTACT_CHUNK, {
             "element[mixed+triax]": 1, "assemble[hk_assemble_f32_f64]": 1,
-            "gather": 1, "narrow": len(impact.pairs), "scatter": 1},
+            "gather": 1, "narrow": len(impact.pairs), "scatter": 1,
+            "integrate[mixed]": 1, "erosion[float32]": 1,
+            "broad[float32]": len(impact.pairs)},
         smi_line, GRAPH_KS, deletes=True, contact=True)
     impact_cut = cut_to(impact, SHARD_CONTACT_STEPS, output_num=1,
                         checkpoint_every=0, out_dir=SHARD_CONTACT_DIR,
                         metrics_path=None)
-    del impact, final3, s_kern
-    lap("[contact], its [trace] and [contact-kernels]")
+    del impact, final3, s_kern, s_del
+    lap("[contact], its [trace], [contact-kernels] and [step-kernels] A")
     contact_cpu()
     lap("[contact-cpu]")
 
@@ -3367,7 +3671,8 @@ def main() -> int:
         raise AssertionError("the gather_mode=xla bar carries coord_e")
     launches4, final4, gen_us = main_path(
         gen, smi_line, "[generic]", ("update", "assemble",
-                                     "update[float32+triax]"))
+                                     "update[float32+triax]",
+                                     "integrate[float32]"))
     busy4 = trace(gen, final4, smi_line, "generic float32 elastic")[0]
     log(f"[trace] generic float32 elastic: device idle share "
         f"{1.0 - busy4 / gen_us:.4f} of the median untraced step "
@@ -3375,8 +3680,9 @@ def main() -> int:
     del final4
     graphs["[generic] f32"] = graph_path(
         "[generic] f32", gen, N2, {"update": 1, "assemble": 1,
-                                   "update[float32+triax]": 1}, smi_line)
-    gen_mixed, launches5, final5, gen_run_us = generic_run(
+                                   "update[float32+triax]": 1,
+                                   "integrate[float32]": 1}, smi_line)
+    gen_mixed, launches5, final5, gen_run_us, gen_first = generic_run(
         smi_line, run_first, run_alive)
     busy5 = trace(gen_mixed, final5, smi_line, "generic mixed ductile")[0]
     log(f"[trace] generic mixed ductile: device idle share "
@@ -3384,10 +3690,12 @@ def main() -> int:
         f"{gen_run_us:.2f} us)")
     graphs["[generic] mixed"] = graph_path(
         "[generic] mixed", gen_mixed, GENERIC_STEPS, {
-            "update[float32+triax]": 1, "assemble[hk_assemble_f32_f64]": 1},
+            "update[float32+triax]": 1, "assemble[hk_assemble_f32_f64]": 1,
+            "integrate[mixed]": 1, "erosion[float32]": 1},
         smi_line, deletes=True)
+    step_kernels_generic(gen_mixed, gen_first, smi_line)
     del gen_mixed, final5
-    lap("[generic] and its [trace]s, [graph] of both")
+    lap("[generic] and its [trace]s, [graph] of both, [step-kernels] E")
     log("[graph] summary (us a step; eager -> graph): " + "; ".join(
         f"{tag} step {r['eager_us']:.2f} -> {r['graph_us']:.2f}, busy "
         f"{r['eager']['busy']:.2f} -> {r['graph']['busy']:.2f}, capture "
@@ -3485,6 +3793,24 @@ def main() -> int:
         entry("scatter_forces[float32->float64]", cu,
               f"{gp}:413 and :361 (scatter-as-gather, "
               "hakai_tpu/ops/contact.py:375)", "scatter", crec[2]),
+        entry("central_difference[float32]",
+              "hakai_tpu_torch/csrc/integrate.cu",
+              "hakai_tpu/solver/explicit.py:78 (_integrate, with apply_bc "
+              ":59 and amplitude_values :34; an XLA fusion, no TPU kernel)",
+              "integrate[float32]", step_recs["[main] float32"]),
+        entry("central_difference[mixed]",
+              "hakai_tpu_torch/csrc/integrate.cu",
+              "hakai_tpu/solver/explicit.py:78 (_integrate, with apply_bc "
+              ":59 and amplitude_values :34; an XLA fusion, no TPU kernel)",
+              "integrate[mixed]", step_recs["[run] mixed"]),
+        entry("erosion_walk[float32]", "hakai_tpu_torch/csrc/erosion.cu",
+              "hakai_tpu/ops/erosion.py:29 (erosion_delete_mask; erode :61)"
+              f" and {src}:607 (_fracture_epilogue's mask; an XLA fusion, "
+              "no TPU kernel)", "erosion[float32]", step_recs["E"]),
+        entry("broad[float32]", "hakai_tpu_torch/csrc/broad.cu",
+              "hakai_tpu/ops/contact.py:45 (pair_activity) and :106 "
+              "(_pair_force's broad phase, :160-236; an XLA fusion, no TPU "
+              "kernel)", "broad[float32]", step_recs["A"]),
         dict(entry("stream_add1[float32]", "hakai_tpu_torch/csrc/stream.cu",
                    "benchmarks/dma_microbench.py:35 (copy_kernel; "
                    "pallas_call :42)", "stream", dma_rec),

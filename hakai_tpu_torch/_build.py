@@ -40,9 +40,10 @@ HOST_SOURCE = CSRC / "host_io.cpp"
 HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-Wall")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-# per-source flags: the contact source keeps every multiply and add
-# separately rounded, in the association order of its plain version
-SOURCE_FLAGS = {"contact.cu": ("-fmad=false",)}
+# per-source flags: these sources keep every multiply and add separately
+# rounded, in the association order of their plain versions
+SOURCE_FLAGS = {name: ("-fmad=false",) for name in
+                ("contact.cu", "integrate.cu", "erosion.cu", "broad.cu")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -98,6 +99,28 @@ _SIGNATURES = {
     # W, builds, n_tiles, mode, off (8 ints, host), out (as
     # hk_element_resources)
     "hk_interleave_resources": (_I, _I, _I, _I, _P, _P),
+    # kernel I: t_in, t_out, dt, diag_M, damping, Q, disp, dpre, ext,
+    # bcd_mask, bcd_amp, bcd_value, amp_time, amp_value, amp_n, A, L,
+    # node_exists, coord, N, disp_new, velo, pos_e, du_e, partial, ticket,
+    # dwork, stream
+    **{f"hk_integrate_{v}": (_P,) * 4 + (ctypes.c_double,) + (_P,) * 10
+       + (_I, _I, _P, _P, _I) + (_P,) * 8 for v in ("f32", "f64", "mixed")},
+    # instantiation (0 f32, 1 f64, 2 mixed), out (as hk_element_resources)
+    "hk_integrate_resources": (_I, _P),
+    # kernel E: eq_ps, triax, mask_triax, flag, mat_id, knots, knot_n, M,
+    # K, E, new_flag, deleted, stress, strain, carry, stream
+    **{f"hk_erosion_{v}": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I)
+       + (_P,) * 6 for v in ("f32", "f64")},
+    "hk_erosion_resources": (_I, _P),
+    # kernel A: kin, R, q0, q1, q2, ci, cj, F2, Ci, Cj, flag, tri_init,
+    # tri_twin, tri_elem, cand_init, cand_twin, VT, jnode_init, jnode_twin,
+    # VTj, tri_a, ni_a, nj_a, changed, TB, nb, tri_chunks, n_chunks, pad,
+    # tri_in, node_in, all_min, pair_ok, overlap, box, cbox, iws, stream
+    **{f"hk_broad_{v}": (_P,) + (_I,) * 9 + (_P,) * 6 + (_I, _P, _P, _I)
+       + (_P,) * 4 + (_I,) * 4 + (ctypes.c_double,) + (_P,) * 9
+       for v in ("f32", "f64")},
+    # instantiation (0 f32, 1 f64), launch (0-2), out
+    "hk_broad_resources": (_I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -212,6 +235,16 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.hk_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def resources(entry: str, *args) -> dict:
+    """Resident blocks an SM, registers, static shared, local (spill) and
+    dynamic shared bytes of a kernel, from its C entry ``entry`` (one of the
+    ``hk_*_resources``) given the arguments before its out array."""
+    lib = library()
+    out = (ctypes.c_int * 5)()
+    check(lib, getattr(lib, entry)(*args, out), entry)
+    return dict(zip(("blocks", "registers", "smem", "local", "dyn"), out))
 
 
 def check_inputs(device, spec: dict) -> None:

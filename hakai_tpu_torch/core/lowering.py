@@ -182,6 +182,9 @@ class LoweredModel:
     hard_strain: torch.Tensor       # (M, W) table strains
     hard_slope: torch.Tensor        # (M, W-1) segment slopes
     hard_n: torch.Tensor            # (M,) int32 table rows
+    # ductile (fracture) tables for the erosion kernel, from du_tables:
+    du_knots: torch.Tensor          # (M, K, 2) float64 rows, zero padded
+    du_n: torch.Tensor              # (M,) int32 table rows
 
     # ---- boundary/initial conditions ----
     bcd_mask: torch.Tensor          # (3, N) bool prescribed dofs
@@ -272,11 +275,29 @@ def _hardening_tables(pl_tables):
     return strain, slope, rows
 
 
+def _ductile_tables(du_tables):
+    """(knots (M, K, 2) float64, rows (M,) int32) from the static tables:
+    each material's (fracture strain, triaxiality) rows as the host holds
+    them, zero padded to the longest table."""
+    M = max(len(du_tables), 1)
+    K = max(max((len(t) for t in du_tables), default=0), 1)
+    knots = np.zeros((M, K, 2))
+    rows = np.zeros(M, np.int32)
+    for m, tab in enumerate(du_tables):
+        rows[m] = len(tab)
+        if len(tab):
+            knots[m, :len(tab)] = np.asarray(tab, np.float64)
+    return knots, rows
+
+
 def model_from_numpy(fields: dict, static: dict, device) -> LoweredModel:
     """Build a :class:`LoweredModel` on ``device`` from NumPy arrays.
 
     ``fields`` maps field names to arrays; float arrays take the nodal or
     the element dtype of ``static["config"].dtype`` (see ``_NODAL_FIELDS``).
+    The hardening and ductile tables are formed from ``static``'s
+    ``pl_tables`` and ``du_tables`` (the ductile knots stay float64, as the
+    host holds them).
     ``coord_e`` is kept as given, None when absent (the JAX lowering builds
     it only with window plans; without it ``run_chunk`` takes the generic
     ``step()``, as the JAX package does).  ``static`` holds the metadata fields (n_node, ..., config,
@@ -324,6 +345,9 @@ def model_from_numpy(fields: dict, static: dict, device) -> LoweredModel:
     kw["hard_strain"] = tensor("hard_strain", strain)
     kw["hard_slope"] = tensor("hard_slope", slope)
     kw["hard_n"] = torch.as_tensor(rows, device=device)
+    knots, rows = _ductile_tables(static["du_tables"])
+    kw["du_knots"] = torch.as_tensor(knots, device=device)
+    kw["du_n"] = torch.as_tensor(rows, device=device)
     kw["dt_t"] = tensor("dt_t", np.float64(static["dt"]))
     if isinstance(fields.get("plan_asm"), AssemblePlan):
         kw["plan_asm"] = fields["plan_asm"].to(device)

@@ -1,0 +1,196 @@
+"""Kernel A (``csrc/broad.cu``): contact activity and the broad phase of one
+directional pair, the counterpart of the XLA fusion of the JAX step's
+``pair_activity`` and ``_pair_force`` prologue
+(``hakai_tpu/ops/contact.py:45-59``, ``:160-236``), with its plain
+versions :func:`pair_activity` and :func:`broad_phase`.
+
+:func:`broad` is the step's entry: for tensors on the CPU it runs the plain
+versions, for CUDA tensors it launches the kernel (three launches) on the
+current stream, or raises.  With carried masks (``ops/activity.py``) it
+recomputes them only when the carry's flag says that the previous step
+deleted an element, and else reads them; the decision is taken on the
+device (on the CPU by ``torch.where``).
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from ..core.lowering import ContactPair
+from .contact_cuda import BroadPhase, PairConstants, kin_views
+
+_ENTRIES = {torch.float32: ("hk_broad_f32", "float32"),
+            torch.float64: ("hk_broad_f64", "float64")}
+_ITEMS = 1024                  # kItems in csrc/broad.cu
+# (Ci, Cj, tri_chunks, n_chunks, dtype, device) -> (boxes, int32 words):
+# the kernel's workspace, allocated once per shapes outside any capture
+# (calls run in stream order, so pairs of equal shapes share it); its ORs
+# start zero and each call leaves them so
+_WORKSPACES: dict = {}
+
+
+def _node_active(flag, init, twins):
+    tw_dead = (twins >= 0) & ~flag[twins.clamp_min(0)]
+    return init | tw_dead.any(dim=1)
+
+
+def pair_activity(pair: ContactPair, flag):
+    """(tri_active, ni_active, nj_active) masks over the static inventory
+    (the reference's surface appends, add_surface_triangle
+    HAKAI_j.jl:2167-2245, as mask flips); None on fracture-free pairs,
+    whose inventory was culled at lowering."""
+    if pair.static_activity:
+        return None
+    twin_dead = (pair.tri_twin >= 0) & ~flag[pair.tri_twin.clamp_min(0)]
+    tri_active = (pair.tri_init | twin_dead) & flag[pair.tri_elem]
+    return (tri_active, _node_active(flag, pair.cand_init, pair.cand_twin),
+            _node_active(flag, pair.jnode_init, pair.jnode_twin))
+
+
+def _masked_minmax(x, valid):
+    if valid is None:
+        return x.amin(dim=-1), x.amax(dim=-1)
+    return (torch.where(valid, x, float("inf")).amin(dim=-1),
+            torch.where(valid, x, float("-inf")).amax(dim=-1))
+
+
+def _pad_last(x, n, fill):
+    if x.shape[-1] == n:
+        return x
+    return torch.cat([x, x.new_full(x.shape[:-1] + (n - x.shape[-1],), fill)],
+                     dim=-1)
+
+
+def broad_phase(pair: ContactPair, kin, ksl, activity,
+                consts: PairConstants) -> BroadPhase:
+    """``_pair_force``'s prologue (contact.py:160-236): the AABBs of the
+    two active node sets, their overlap, the range cull of triangles and
+    nodes, and the (tri_chunks, n_chunks) block pairs whose q0-based and
+    node boxes, padded by 2*ddiv, overlap."""
+    q0, q1, q2, _, pos_i, _, pos_jn = kin_views(kin, ksl)
+    tri_a, ni_a, nj_a = activity if activity is not None else (None,) * 3
+    min_i, max_i = _masked_minmax(pos_i, ni_a)
+    min_j, max_j = _masked_minmax(pos_jn, nj_a)
+    range_min, range_max = torch.maximum(min_i, min_j), \
+        torch.minimum(max_i, max_j)
+    overlap = (range_min <= range_max).all()
+    if tri_a is not None:
+        overlap = overlap & tri_a.any() & ni_a.any()
+    lo, hi = range_min[:, None], range_max[:, None]
+    tri_in = ~(((q0 < lo) & (q1 < lo) & (q2 < lo)).any(dim=0)
+               | ((q0 > hi) & (q1 > hi) & (q2 > hi)).any(dim=0))
+    node_in = ((pos_i >= lo) & (pos_i <= hi)).all(dim=0)
+    if tri_a is not None:
+        tri_in = tri_in & tri_a
+        node_in = node_in & ni_a
+    tc, nc, TB, nb = pair.tri_chunks, pair.n_chunks, pair.tb, pair.nb
+    tin_p = _pad_last(tri_in, pair.Tp, False)
+    nin_p = _pad_last(node_in, pair.Cp, False)
+    q0_p, pos_p = _pad_last(q0, pair.Tp, 0.0), _pad_last(pos_i, pair.Cp, 0.0)
+    inf = float("inf")
+    bmin_t = torch.where(tin_p, q0_p, inf).view(3, tc, TB).amin(dim=2)
+    bmax_t = torch.where(tin_p, q0_p, -inf).view(3, tc, TB).amax(dim=2)
+    bmin_n = torch.where(nin_p, pos_p, inf).view(3, nc, nb).amin(dim=2)
+    bmax_n = torch.where(nin_p, pos_p, -inf).view(3, nc, nb).amax(dim=2)
+    pad = 2.0 * consts.ddiv
+    pair_ok = ((bmin_t[:, :, None] - pad <= bmax_n[:, None, :])
+               & (bmin_n[:, None, :] - pad <= bmax_t[:, :, None])).all(dim=0)
+    pair_ok &= (tin_p.view(tc, TB).any(dim=1)[:, None]
+                & nin_p.view(nc, nb).any(dim=1)[None, :])
+    return BroadPhase(tri_in, node_in, torch.minimum(min_i, min_j),
+                      pair_ok, overlap)
+
+
+def _workspace(pair: ContactPair, Ci: int, Cj: int, dtype, device):
+    key = (Ci, Cj, pair.tri_chunks, pair.n_chunks, dtype, device)
+    if key not in _WORKSPACES:
+        nbox = -(-Ci // _ITEMS) + -(-Cj // _ITEMS)
+        chunks = pair.tri_chunks + pair.n_chunks
+        _WORKSPACES[key] = (
+            torch.empty(6 * (nbox + chunks), dtype=dtype, device=device),
+            torch.zeros(2 + chunks, dtype=torch.int32, device=device), nbox)
+    return _WORKSPACES[key]
+
+
+def broad(pair: ContactPair, kin, ksl, flag, consts: PairConstants,
+          masks=None, changed=None) -> BroadPhase:
+    """One pair's :class:`BroadPhase` from the merged (6, R) kinematics
+    ``kin`` (its slices ``ksl``) and the (E,) life mask ``flag``.  On a pair
+    whose masks depend on ``flag``, ``masks`` (tri, i node, j node bool
+    buffers) and ``changed`` (a 0-d int32 device flag) carry them: they are
+    recomputed into ``masks`` when ``changed`` is set and read otherwise;
+    without ``masks`` they are recomputed every call."""
+    dev = kin.device
+    if dev.type == "cpu":
+        act = pair_activity(pair, flag)
+        if act is not None and masks is not None:
+            act = tuple(torch.where(changed != 0, a, k)
+                        for a, k in zip(act, masks))
+            for k, a in zip(masks, act):
+                k.copy_(a)
+        return broad_phase(pair, kin, ksl, act, consts)
+    if dev.type != "cuda":
+        raise ValueError(f"no broad-phase kernel for device {dev}")
+    dt = kin.dtype
+    if dt not in _ENTRIES:
+        raise TypeError(f"no broad-phase kernel for {dt}")
+    (a0, b0), (a1, _), (a2, _), (cs, ce), (js, je) = ksl
+    F2, Ci, Cj, R = b0 - a0, ce - cs, je - js, kin.shape[1]
+    tc, nc = pair.tri_chunks, pair.n_chunks
+    dyn = not pair.static_activity
+    spec = {"kin": (kin, (6, R), dt)}
+    if dyn:
+        if masks is None:
+            masks = tuple(torch.empty(n, dtype=torch.bool, device=dev)
+                          for n in (F2, Ci, Cj))
+            changed = None
+        VT, VTj = pair.cand_twin.shape[1], pair.jnode_twin.shape[1]
+        spec.update({
+            "flag": (flag, (flag.shape[0],), torch.bool),
+            "tri_init": (pair.tri_init, (F2,), torch.bool),
+            "tri_twin": (pair.tri_twin, (F2,), torch.int32),
+            "tri_elem": (pair.tri_elem, (F2,), torch.int32),
+            "cand_init": (pair.cand_init, (Ci,), torch.bool),
+            "cand_twin": (pair.cand_twin, (Ci, VT), torch.int32),
+            "jnode_init": (pair.jnode_init, (Cj,), torch.bool),
+            "jnode_twin": (pair.jnode_twin, (Cj, VTj), torch.int32),
+            "tri_active": (masks[0], (F2,), torch.bool),
+            "ni_active": (masks[1], (Ci,), torch.bool),
+            "nj_active": (masks[2], (Cj,), torch.bool)})
+        if changed is not None:
+            spec["changed"] = (changed, (), torch.int32)
+    _build.check_inputs(dev, spec)
+    lib = _build.library()
+    entry, variant = _ENTRIES[dt]
+    boxes, iws, nbox = _workspace(pair, Ci, Cj, dt, dev)
+    tri_in = torch.empty(F2, dtype=torch.bool, device=dev)
+    node_in = torch.empty(Ci, dtype=torch.bool, device=dev)
+    all_min = torch.empty(3, dtype=dt, device=dev)
+    pair_ok = torch.empty((tc, nc), dtype=torch.bool, device=dev)
+    overlap = torch.empty((), dtype=torch.bool, device=dev)
+
+    def ptr(x):
+        return x.data_ptr() if dyn and x is not None else None
+    with torch.cuda.device(dev):
+        err = getattr(lib, entry)(
+            kin.data_ptr(), R, a0, a1, a2, cs, js, F2, Ci, Cj, ptr(flag),
+            ptr(pair.tri_init), ptr(pair.tri_twin), ptr(pair.tri_elem),
+            ptr(pair.cand_init), ptr(pair.cand_twin),
+            pair.cand_twin.shape[1], ptr(pair.jnode_init),
+            ptr(pair.jnode_twin), pair.jnode_twin.shape[1],
+            *(ptr(m) for m in (masks or (None,) * 3)), ptr(changed),
+            pair.tb, pair.nb, tc, nc, 2.0 * consts.ddiv, tri_in.data_ptr(),
+            node_in.data_ptr(), all_min.data_ptr(), pair_ok.data_ptr(),
+            overlap.data_ptr(), boxes.data_ptr(),
+            boxes[6 * nbox:].data_ptr(), iws.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "broad-phase kernel")
+    broad.launches += 1
+    broad.launches_by[variant] += 1
+    return BroadPhase(tri_in, node_in, all_min, pair_ok, overlap)
+
+
+# one launch = one pair's broad_activity, broad_range and broad_pairs
+broad.launches = 0
+# launches by instantiation: "float32", "float64"
+broad.launches_by = {v: 0 for _, v in _ENTRIES.values()}

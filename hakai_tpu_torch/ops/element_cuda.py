@@ -29,7 +29,7 @@ from ..core.lowering import LoweredModel
 from .element import (ElementResult, element_core_packed_plain,
                       element_core_plain, gather_element_nodes,
                       neg_jacobian_count, triax_stress)
-from .erosion import erosion_delete_mask
+from .erosion_cuda import erosion_walk
 from .shape import pusai_hexa
 
 # (nodal dtype, element dtype) -> (C entry, variant name)
@@ -204,21 +204,25 @@ element_update.launches_by = {v + t: 0 for _, v in _UPDATE_ENTRIES.values()
                               for t in ("", "+triax")}
 
 
-def packed_element_step(model: LoweredModel, P, flag, disp, disp_prev):
+def packed_element_step(model: LoweredModel, P, flag, disp, disp_prev,
+                        carry=None):
     """The packed element update plus the fracture bookkeeping of one
     chunk-loop step: ``(P_new, qe, triax, flag)``.
 
     On fracture decks the kernel also returns the triaxiality of the final
-    stress; it is masked by the pre-erosion ``flag`` (a dead element's
-    stale stress counts as zero) and the erosion table is walked on the new
-    eq_ps, giving the post-erosion flag.  ``triax`` is None on
-    fracture-free decks (the chunk loop forms it once at its exit)."""
+    stress, and the erosion walk (kernel E on the card) masks it by the
+    pre-erosion ``flag`` (a dead element's stale stress counts as zero) and
+    walks the table on the new eq_ps, giving the post-erosion flag (and,
+    with a chunk's activity ``carry``, whether any element died).
+    ``triax`` is None on fracture-free decks (the chunk loop forms it once
+    at its exit)."""
     _element_kernel(model)
     out = element_core_packed(model, P, flag, disp, disp_prev,
                               want_triax=model.fracture_enabled)
     P_new, qe = out[0], out[1]
     triax = None
     if model.fracture_enabled:
-        triax = torch.where(flag[None, :], out[2], 0.0)
-        flag, _ = erosion_delete_mask(model, P_new[56:64], triax, flag)
+        w = erosion_walk(model, P_new[56:64], out[2], flag, mask_triax=True,
+                         carry=carry)
+        triax, flag = w.triax, w.element_flag
     return P_new, qe, triax, flag

@@ -1,5 +1,7 @@
-"""Ductile-damage element erosion in plain PyTorch (mirrors
-``hakai_tpu/ops/erosion.py``, which is XLA and no Pallas kernel there).
+"""Ductile-damage element erosion (mirrors ``hakai_tpu/ops/erosion.py``,
+which is XLA and no Pallas kernel there): the plain versions and the
+entries the steps call, which run kernel E (``ops/erosion_cuda.py``) on
+the card and the plain versions on the CPU.
 
 Per element: average the equivalent plastic strain and the triaxiality over
 the 8 Gauss points; interpolate the fracture strain from the material's
@@ -64,7 +66,8 @@ def element_means(eq_ps, triax):
     return _gp_mean(eq_ps), _gp_mean(triax)
 
 
-def erosion_delete_mask(model: LoweredModel, eq_ps, triax, element_flag):
+def erosion_delete_mask_plain(model: LoweredModel, eq_ps, triax,
+                              element_flag):
     """(new_flag, delete) per element: the ductile-table walk without any
     state zeroing.  An alive element is deleted when its mean triaxiality
     is >= 0 and its mean eq_ps reaches :func:`fracture_strain`."""
@@ -74,13 +77,25 @@ def erosion_delete_mask(model: LoweredModel, eq_ps, triax, element_flag):
     return element_flag & ~delete, delete
 
 
+def erosion_delete_mask(model: LoweredModel, eq_ps, triax, element_flag):
+    """:func:`erosion_delete_mask_plain` through kernel E on the card (on
+    the CPU the plain version): the counterpart of the JAX package's
+    ``erosion_delete_mask``, kept for the parity test that holds the two
+    packages' walks against each other (``tests/test_torch_erosion.py``);
+    the steps call :func:`erode` or the walk itself."""
+    from .erosion_cuda import erosion_walk
+    w = erosion_walk(model, eq_ps, triax, element_flag)
+    return w.element_flag, w.deleted
+
+
 def erode(model: LoweredModel, stress, strain, eq_ps, triax,
-          element_flag) -> ErosionResult:
+          element_flag, carry=None) -> ErosionResult:
     """The table walk plus the zeroing of every dead element's stress and
     strain (the generic step's form; the chunk loop defers the zeroing to
-    its exit)."""
-    new_flag, delete = erosion_delete_mask(model, eq_ps, triax, element_flag)
-    return ErosionResult(new_flag,
-                         torch.where(new_flag[None, None, :], stress, 0.0),
-                         torch.where(new_flag[None, :], strain, 0.0),
-                         delete)
+    its exit), through kernel E on the card, which zeroes them in place,
+    and plain on the CPU; with a chunk's activity ``carry``, whether any
+    element died is left in ``carry.flags[2]``."""
+    from .erosion_cuda import erosion_walk
+    w = erosion_walk(model, eq_ps, triax, element_flag, stress=stress,
+                     strain=strain, carry=carry)
+    return ErosionResult(w.element_flag, w.stress, w.strain, w.deleted)

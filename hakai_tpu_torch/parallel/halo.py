@@ -565,8 +565,8 @@ class HaloComm(ShardComm):
         own_cf = cf[:, self.rank * No:(self.rank + 1) * No]
         if self.cforce is None:
             self.cforce = torch.empty_like(own_cf)
-        self.cforce.copy_(own_cf)
-        return own_cf
+        # the kept copy is contiguous, as kernel I reads it
+        return self.cforce.copy_(own_cf)
 
     def stack(self, s: HaloState, local: bool = False) -> HaloState:
         """Every rank's row of ``s``, shard-major (a collective); with
@@ -606,9 +606,9 @@ def _halo_step(comm: HaloComm, s: HaloState) -> HaloState:
     elements (dead elements' stress and strain zeroed every step)."""
     from ..solver.explicit import _integrate
     lm, edt = comm.lm, comm.lm.edtype
-    t, disp_new, velo, _, dwork = _integrate(comm.own, s, comm)
-    w = comm.exchange_window(torch.cat([comm.own.coord + disp_new,
-                                        disp_new - s.disp]))
+    u, _ = _integrate(comm.own, s, comm)
+    w = comm.exchange_window(torch.cat([comm.own.coord + u.disp_new,
+                                        u.disp_new - s.disp]))
     res, triax = element_update(lm, w[:3].to(edt), w[3:].to(edt), s.stress,
                                 s.strain, s.eq_ps, s.yield_s, s.element_flag,
                                 want_triax=True)
@@ -617,10 +617,10 @@ def _halo_step(comm: HaloComm, s: HaloState) -> HaloState:
     if lm.fracture_enabled:
         er = erode(lm, stress, strain, res.eq_ps, triax, flag)
         flag, stress, strain = er.element_flag, er.stress, er.strain
-    return s.replace(t=t, disp=disp_new, disp_pre=s.disp, velo=velo, Q=Q,
-                     stress=stress, strain=strain, eq_ps=res.eq_ps,
+    return s.replace(t=u.t, disp=u.disp_new, disp_pre=s.disp, velo=u.velo,
+                     Q=Q, stress=stress, strain=strain, eq_ps=res.eq_ps,
                      yield_s=res.yield_s, triax=triax, element_flag=flag,
-                     work=s.work if dwork is None else s.work + dwork)
+                     work=s.work if u.dwork is None else s.work + u.dwork)
 
 
 def _halo_step_fast_packed(comm: HaloComm, s: HaloState, P, disp_w_prev):
@@ -630,15 +630,15 @@ def _halo_step_fast_packed(comm: HaloComm, s: HaloState, P, disp_w_prev):
     the windows.  Returns (state, P, the window)."""
     from ..solver.explicit import _integrate
     lm = comm.lm
-    t, disp_new, velo, _, dwork = _integrate(comm.own, s, comm)
-    disp_w = comm.exchange_window(disp_new)
+    u, _ = _integrate(comm.own, s, comm)
+    disp_w = comm.exchange_window(u.disp_new)
     P_new, qe, triax, flag = packed_element_step(lm, P, s.element_flag,
                                                  disp_w, disp_w_prev)
     Q = comm.assemble(qe, lm.dtype)
-    return s.replace(t=t, disp=disp_new, disp_pre=s.disp, velo=velo, Q=Q,
-                     triax=s.triax if triax is None else triax,
+    return s.replace(t=u.t, disp=u.disp_new, disp_pre=s.disp, velo=u.velo,
+                     Q=Q, triax=s.triax if triax is None else triax,
                      element_flag=flag,
-                     work=s.work if dwork is None else s.work + dwork), \
+                     work=s.work if u.dwork is None else s.work + u.dwork), \
         P_new, disp_w
 
 

@@ -233,14 +233,8 @@ def run_sharded(model: LoweredModel, state: SimState | None, devices: int,
 
 def _launch_counts() -> dict:
     """The kernel wrappers' launch counts in this process."""
-    from ..ops.contact_cuda import narrow_phase, scatter_forces
-    from ..ops.element_cuda import element_core_packed, element_update
-    from ..ops.gather_cuda import gather_cols
-    from ..ops.assemble_cuda import blocked_assemble
-    return {f.__name__: f.launches
-            for f in (element_core_packed, element_update,
-                      assemble_internal_force, blocked_assemble, gather_cols,
-                      narrow_phase, scatter_forces)}
+    from ..solver.graph import _COUNTED
+    return {f.__name__: f.launches for f in _COUNTED}
 
 
 def chunk_rank(ctx: Rank, jobs: list) -> list | None:

@@ -2,13 +2,16 @@
 ``step()``, the packed chunk loop and ``run()`` of
 ``hakai_tpu/solver/explicit.py``).
 
-A step is five things: on contact decks the contact force (activity
-masks and broad phase in plain PyTorch, then the gather, narrow-phase and
-scatter kernels), the central-difference update with amplitude-scaled
-boundary conditions (plain PyTorch), the fused element kernel, the
-assembly kernel, and on fracture decks the erosion table walk (plain
-PyTorch).  The step counter and the current time stay on the
-device: nothing in a chunk reads a value back to the host.
+A step is five things: on contact decks the contact force (kernel A's
+activity masks and broad phase, then the gather, narrow-phase and scatter
+kernels), the central-difference update with amplitude-scaled boundary
+conditions (kernel I), the fused element kernel, the assembly kernel, and
+on fracture decks the erosion walk (kernel E).  On the CPU each kernel's
+plain version runs.  The step counter and the current time stay on the
+device: nothing in a chunk reads a value back to the host.  A
+single-device chunk carries the contact activity masks from step to step,
+recomputing them after a deletion (``ops/activity.py``), as the JAX chunk
+loop does.
 
 ``run_chunk`` picks the loop as the JAX package does: the packed loop on
 models that carry ``coord_e`` (the lowering forms it on meshes of 2,048
@@ -35,89 +38,42 @@ from ..core.lowering import LoweredModel
 from ..core.state import SimState, init_state
 from ..io.vtk import write_pvd, write_vtk
 from ..ops.assemble_cuda import assemble_internal_force
+from ..ops.activity import chunk_carry
 from ..ops.contact import contact_forces
 from ..ops.element import triax_components
 from ..ops.element_cuda import element_update, packed_element_step
 from ..ops.erosion import erode
+from ..ops.integrate_cuda import central_difference
 from ..utils.checkpoint import save_checkpoint
 from ..utils.metrics import MetricsWriter, energy_guard, step_metrics
 from .graph import GRAPH_STEPS, chunk_graphs
 from .output import node_fields
 
 
-def amplitude_values(model: LoweredModel, current_time):
-    """Piecewise-linear amplitude interpolation, one value per table.  The
-    first segment holding ``current_time`` wins; outside every segment the
-    first segment is extrapolated."""
-    T, V, n = model.amp_time, model.amp_value, model.amp_n
-    t0, t1 = T[:, 0], T[:, 1]
-    v0, v1 = V[:, 0], V[:, 1]
-    found = torch.zeros(T.shape[0], dtype=torch.bool, device=T.device)
-    for j in range(T.shape[1] - 1):
-        inside = ((current_time >= T[:, j]) & (current_time <= T[:, j + 1])
-                  & (j < n - 1) & ~found)
-        t0 = torch.where(inside, T[:, j], t0)
-        t1 = torch.where(inside, T[:, j + 1], t1)
-        v0 = torch.where(inside, V[:, j], v0)
-        v1 = torch.where(inside, V[:, j + 1], v1)
-        found = found | inside
-    return v0 + (v1 - v0) * (current_time - t0) / (t1 - t0)
-
-
-def apply_bc(model: LoweredModel, disp_new, current_time):
-    """Prescribed displacements: disp_new[dof] = value * amplitude (BC
-    entries were deduplicated last-wins at lowering)."""
-    ampv = amplitude_values(model, current_time)
-    fac = torch.ones_like(disp_new)
-    for a in range(ampv.shape[0]):
-        fac = torch.where(model.bcd_amp == a, ampv[a], fac)
-    return torch.where(model.bcd_mask, model.bcd_value * fac, disp_new)
-
-
-def _integrate(model: LoweredModel, state: SimState, comm=None):
-    """Contact + central difference + BCs.  Returns (t, disp_new, velo,
-    cforce, dwork); cforce is the step's contact force (None on decks
-    without contact) and dwork the [dW_ext, dW_int] increment
-    pair, or None unless ``config.energy_check``.  Time and a1 = M/dt^2 are
-    formed in the model dtype, as the JAX step forms them.
+def _integrate(model: LoweredModel, state: SimState, comm=None,
+               carry=None, element_inputs: bool = False):
+    """Contact + central difference + BCs.  Returns (update, cforce): the
+    :class:`~hakai_tpu_torch.ops.integrate.Update` (t, disp_new, velo,
+    dwork, the [dW_ext, dW_int] increment pair or None unless
+    ``config.energy_check``, and with ``element_inputs`` the element
+    kernel's position and d_disp in the element dtype) and the step's
+    contact force (None on decks without contact).  The update is kernel I
+    on the card (``ops/integrate_cuda.py``), its plain version on the CPU.
 
     ``comm`` (a :class:`~hakai_tpu_torch.parallel.sharding.ShardComm` or
     :class:`~hakai_tpu_torch.parallel.halo.HaloComm`) makes this a rank's
     step: its ``contact`` reads the life mask of every rank's elements and
-    deals the narrow phase out over the ranks.  On a halo rank ``model``
-    and ``state`` hold the rank's own node rows.
-
-    The contact activity masks are formed every step from the step's life
-    mask: they are pure functions of it, so this gives the bits the JAX
-    chunk loop carries (it recomputes them only after a deletion) with no
-    read back to the host."""
-    dt = model.dt_t
-    t = state.t + 1
-    current_time = t.to(model.dtype) * dt
-    a1 = model.diag_M / dt**2
-    a2 = model.diag_M * model.config.damping_C / (2.0 * dt)
-    cforce = external = None
+    deals the narrow phase out over the ranks, recomputing the activity
+    masks every step.  On a halo rank ``model`` and ``state`` hold the
+    rank's own node rows.  On one device ``carry``, a chunk's
+    :class:`~hakai_tpu_torch.ops.activity.ActivityCarry`, holds the masks
+    from step to step, as the JAX chunk loop carries them; without one
+    every step recomputes them."""
+    cforce = None
     if model.pairs:
-        cforce = external = (contact_forces(model, state) if comm is None
-                             else comm.contact(model, state))
-    force = -state.Q if external is None else external - state.Q
-    numer = (force + a1 * (2.0 * state.disp - state.disp_pre)
-             + a2 * state.disp_pre)
-    disp_new = numer / (a1 + a2)
-    disp_new = apply_bc(model, disp_new, current_time)
-    disp_new = torch.where(model.node_exists, disp_new, 0.0)
-    velo = (disp_new - state.disp) / dt
-    dwork = None
-    if model.config.energy_check:
-        # discrete energy balance: with du_mid = (u_new - u_prev)/2,
-        # dKE = (F_ext + F_c - Q) . du_mid exactly in real arithmetic, F_c
-        # the constraint force realizing the prescribed motion at BC dofs
-        du_mid = 0.5 * (disp_new - state.disp_pre)
-        f_c = torch.where(model.bcd_mask, (a1 + a2) * disp_new - numer, 0.0)
-        w_ext = f_c if external is None else external + f_c
-        dwork = torch.stack([torch.sum(w_ext * du_mid),
-                             torch.sum(state.Q * du_mid)])
-    return t, disp_new, velo, cforce, dwork
+        cforce = (contact_forces(model, state, carry=carry)
+                  if comm is None else comm.contact(model, state))
+    return central_difference(model, state, cforce, element_inputs), cforce
 
 
 def _assemble(model: LoweredModel, qe24, comm):
@@ -127,44 +83,44 @@ def _assemble(model: LoweredModel, qe24, comm):
     return comm.assemble(qe24, model.dtype)
 
 
-def _finish(model: LoweredModel, state: SimState, t, disp_new, velo, cforce,
-            res, triax, comm=None) -> SimState:
-    """Assembly, erosion and the state swap of the generic step.  ``triax``
-    is the element kernel's, of the final stress; on fracture decks
-    ``erode`` walks the table on it and zeroes every dead element's stress
-    and strain."""
+def _finish(model: LoweredModel, state: SimState, u, cforce, res, triax,
+            comm=None, carry=None) -> SimState:
+    """Assembly, erosion and the state swap of the generic step after the
+    update ``u``.  ``triax`` is the element kernel's, of the final stress;
+    on fracture decks ``erode`` walks the table on it and zeroes every dead
+    element's stress and strain (and sets ``carry``'s deletion flag)."""
     Q = _assemble(model, res.Qe.reshape(24, model.E), comm)
     flag = state.element_flag
     stress, strain = res.stress, res.strain
     if model.fracture_enabled:
-        er = erode(model, stress, strain, res.eq_ps, triax, flag)
+        er = erode(model, stress, strain, res.eq_ps, triax, flag, carry)
         flag, stress, strain = er.element_flag, er.stress, er.strain
     return state.replace(
-        t=t, disp=disp_new, disp_pre=state.disp, velo=velo, Q=Q,
+        t=u.t, disp=u.disp_new, disp_pre=state.disp, velo=u.velo, Q=Q,
         stress=stress, strain=strain, eq_ps=res.eq_ps, yield_s=res.yield_s,
         triax=triax, element_flag=flag,
-        contact_force=state.contact_force if cforce is None else cforce)
+        contact_force=state.contact_force if cforce is None else cforce,
+        work=state.work if u.dwork is None else state.work + u.dwork)
 
 
-def step(model: LoweredModel, state: SimState, comm=None) -> SimState:
+def step(model: LoweredModel, state: SimState, comm=None,
+         carry=None) -> SimState:
     """One generic step on the unpacked state.  The new position
     ``coord + disp`` and the increment ``disp_new - disp`` are formed in the
     nodal dtype and cast to the element dtype before the element kernel
     gathers them (in mixed mode its math, centring included, is float32).
     With ``comm``, ``model`` and ``state`` are a rank's element shard
-    (:mod:`hakai_tpu_torch.parallel.sharding`)."""
-    t, disp_new, velo, cforce, dwork = _integrate(model, state, comm)
-    edt = model.edtype
+    (:mod:`hakai_tpu_torch.parallel.sharding`); ``carry`` is a
+    single-device chunk's activity carry (see :func:`_integrate`)."""
+    u, cforce = _integrate(model, state, comm, carry, element_inputs=True)
     res, triax = element_update(
-        model, (model.coord + disp_new).to(edt),
-        (disp_new - state.disp).to(edt), state.stress, state.strain,
+        model, u.position, u.d_disp, state.stress, state.strain,
         state.eq_ps, state.yield_s, state.element_flag, want_triax=True)
-    out = _finish(model, state, t, disp_new, velo, cforce, res, triax, comm)
-    return out.replace(work=state.work if dwork is None
-                       else state.work + dwork)
+    return _finish(model, state, u, cforce, res, triax, comm, carry)
 
 
-def step_fast_packed(model: LoweredModel, state: SimState, P, comm=None):
+def step_fast_packed(model: LoweredModel, state: SimState, P, comm=None,
+                     carry=None):
     """One step on the packed Gauss state ``P`` (72, E): returns the new
     state (its stress fields stale until :func:`unpack_gauss_state`) and
     the new P.
@@ -177,14 +133,14 @@ def step_fast_packed(model: LoweredModel, state: SimState, P, comm=None):
     force sum is stored as float64.  On fracture decks the triaxiality is
     the kernel's, masked by the pre-erosion flag, and the flag is the
     post-erosion one; dead elements keep stale stress in ``P`` until the
-    chunk exit."""
-    t, disp_new, velo, cforce, dwork = _integrate(model, state, comm)
+    chunk exit.  ``comm`` and ``carry`` as for :func:`step`."""
+    u, cforce = _integrate(model, state, comm, carry)
     P_new, qe, triax, flag = packed_element_step(
-        model, P, state.element_flag, disp_new, state.disp)
+        model, P, state.element_flag, u.disp_new, state.disp, carry)
     Q = _assemble(model, qe, comm)
-    work = state.work if dwork is None else state.work + dwork
+    work = state.work if u.dwork is None else state.work + u.dwork
     return state.replace(
-        t=t, disp=disp_new, disp_pre=state.disp, velo=velo, Q=Q,
+        t=u.t, disp=u.disp_new, disp_pre=state.disp, velo=u.velo, Q=Q,
         triax=state.triax if triax is None else triax, element_flag=flag,
         contact_force=state.contact_force if cforce is None else cforce,
         work=work), P_new
@@ -240,18 +196,20 @@ def uses_graphs(device, comm=None) -> bool:
 def eager_chunk(model: LoweredModel, state: SimState, n_steps: int,
                 comm=None) -> SimState:
     """:func:`run_chunk`'s loop with every op launched from the host."""
+    carry = chunk_carry(model, comm)
     if model.coord_e is None:
         for _ in range(n_steps):
-            state = step(model, state, comm)
+            state = step(model, state, comm, carry)
         return state
     P = pack_gauss_state(state)
     for _ in range(n_steps):
-        state, P = step_fast_packed(model, state, P, comm)
+        state, P = step_fast_packed(model, state, P, comm, carry)
     return finish_packed(model, state, P)
 
 
-def _generic_step(model: LoweredModel, state: SimState, comm=None):
-    return (step(model, state, comm),)
+def _generic_step(model: LoweredModel, state: SimState, comm=None,
+                  carry=None):
+    return (step(model, state, comm, carry),)
 
 
 def graph_chunk(model: LoweredModel, state: SimState, n_steps: int,
@@ -263,12 +221,13 @@ def graph_chunk(model: LoweredModel, state: SimState, n_steps: int,
     whose collectives can be captured) the steps are the rank's, bound to
     its comm, and ``model`` is its local view, which holds the graphs."""
     where = comm.where if comm is not None else ""
+    carry = chunk_carry(model, comm)
     if model.coord_e is None:
         return chunk_graphs(model, "generic", functools.partial(
-            _generic_step, comm=comm), where).advance(
+            _generic_step, comm=comm, carry=carry), where).advance(
                 model, state, (), n_steps, k)[0]
     state, P = chunk_graphs(model, "packed", functools.partial(
-        step_fast_packed, comm=comm), where).advance(
+        step_fast_packed, comm=comm, carry=carry), where).advance(
             model, state, (pack_gauss_state(state),), n_steps, k)
     return finish_packed(model, state, P)
 

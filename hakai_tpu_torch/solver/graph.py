@@ -46,9 +46,12 @@ import torch
 from ..core.lowering import LoweredModel
 from ..core.state import SimState
 from ..ops.assemble_cuda import assemble_internal_force, blocked_assemble
+from ..ops.broad_cuda import broad
 from ..ops.contact_cuda import narrow_phase, scatter_forces
 from ..ops.element_cuda import element_core_packed, element_update
+from ..ops.erosion_cuda import erosion_walk
 from ..ops.gather_cuda import gather_cols
+from ..ops.integrate_cuda import central_difference
 
 # steps a replay advances (K): chosen on the H100 from the step times of
 # K = 1, 8 and 32 on [main] and [contact] (PERF.md, section 5)
@@ -57,7 +60,8 @@ GRAPH_STEPS = 32
 # the kernel wrappers a step can launch, each with a ``launches`` count
 # and, some, counts by instantiation (``launches_by``)
 _COUNTED = (element_core_packed, element_update, assemble_internal_force,
-            blocked_assemble, gather_cols, narrow_phase, scatter_forces)
+            blocked_assemble, gather_cols, narrow_phase, scatter_forces,
+            central_difference, erosion_walk, broad)
 
 
 def split(n_steps: int, k: int = GRAPH_STEPS) -> tuple[int, int]:
@@ -213,8 +217,9 @@ class ChunkGraphs:
         result dropped, as PyTorch's CUDA-graph recipe warms up.  It does
         outside any capture what a step does at first use: the kernel
         library's build and each kernel's first launch, the allocator's
-        first blocks, the narrow phase's workspace (its counters are left
-        zero by every call) and the element kernel's shape-gradient table,
+        first blocks, the workspaces of the narrow phase, the broad phase
+        and the energy sums (their counters are left zero by every call)
+        and the element kernel's shape-gradient table,
         a synchronous ``cudaMemcpyToSymbol`` that no capture may hold; on a
         rank also every collective of the step once (NCCL forms its
         communicator at the first collective, which no capture may hold)

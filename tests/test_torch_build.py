@@ -12,16 +12,20 @@ def test_build_command_targets_hopper_and_every_source():
     the shared library."""
     compiles, link, objs = _build.build_commands("nvcc", Path("out.so"))
     cu = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert cu == ["assemble.cu", "contact.cu", "element.cu", "gather.cu",
-                  "interleave.cu", "stream.cu"]
+    assert cu == ["assemble.cu", "broad.cu", "contact.cu", "element.cu",
+                  "erosion.cu", "gather.cu", "integrate.cu", "interleave.cu",
+                  "stream.cu"]
     assert len(compiles) == len(cu) == len(objs)
     for cmd in compiles:
         assert cmd[0] == "nvcc" and "-c" in cmd
         assert "arch=compute_90a,code=sm_90a" in cmd and "-fPIC" in cmd
-        # the contact source alone keeps every operation separately
-        # rounded, in the association order of its plain version
+        # the contact, integrate, erosion and broad-phase sources keep
+        # every operation separately rounded, in the association order of
+        # their plain versions
         src = Path(cmd[cmd.index("-c") + 1]).name
-        assert ("-fmad=false" in cmd) == (src == "contact.cu")
+        assert ("-fmad=false" in cmd) == (src in ("contact.cu",
+                                                  "integrate.cu",
+                                                  "erosion.cu", "broad.cu"))
     assert sorted(Path(c[c.index("-c") + 1]).name for c in compiles) == cu
     assert link[0] == "nvcc" and "-shared" in link
     assert link[-2:] == ["-o", "out.so"]

@@ -938,3 +938,231 @@ def test_nccl_rank_graph_chunk_bitwise(cuda, case):
     assert eager["captures"] == {}
     if case == "contact":
         assert graph["contact_max"][-1] > 0
+
+
+# ---- the step's stages: kernels I, E and A (csrc/integrate.cu,
+# erosion.cu, broad.cu) against their plain versions ----
+
+# dwork against torch.sum of the plain version: the kernel sums the
+# products in double in another order (relative to the larger entry)
+DWORK_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# the erosion tables of tests/test_torch_erosion.py: two tables of several
+# segments (one vertical), one material without a table
+DU_TABLES = (((1.0, 0.0), (0.3, 0.3)),
+             (),
+             ((1.2, -0.5), (0.8, 0.0), (0.8, 0.0), (0.4, 0.5)))
+
+
+def _amp_bar(dtype, device, energy=True):
+    """The 4x4x16 bar with a 5-knot amplitude (a dip in it) and damping."""
+    bar = bar_model(4, 4, 16, d_time=5e-8, end_time=1e-4)
+    bar.amplitudes[0].time = np.array([0.0, 2e-6, 5e-6, 8e-6, 1e-5])
+    bar.amplitudes[0].value = np.array([0.0, 0.4, 0.3, 0.9, 1.0])
+    return lower(bar, SolverConfig(dtype=dtype, energy_check=energy,
+                                   damping_C=2.0e3), device=device)
+
+
+@pytest.mark.parametrize("contact", [False, True])
+@pytest.mark.parametrize("energy", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "mixed"])
+def test_integrate_kernel_matches_plain(cuda, dtype, energy, contact):
+    """Kernel I against its plain version on the card, at steps in every
+    amplitude segment and past the table: the step counter, disp_new,
+    velo and the element-dtype inputs bitwise; dwork within DWORK_TOL."""
+    from hakai_tpu_torch.ops.integrate import central_difference_plain
+    from hakai_tpu_torch.ops.integrate_cuda import central_difference
+    m = _amp_bar(dtype, cuda, energy)
+    rng = np.random.default_rng(3)
+
+    def rand(scale):
+        return torch.as_tensor(rng.normal(scale=scale, size=(3, m.N)),
+                               device=cuda).to(m.dtype)
+    s0 = init_state(m).replace(disp=rand(1e-3), disp_pre=rand(1e-3),
+                               Q=rand(1e2))
+    ext = rand(1e2) if contact else None
+    for t in (0, 50, 120, 170, 400):
+        s = s0.replace(t=torch.tensor(t, dtype=torch.int32, device=cuda))
+        before = central_difference.launches
+        got = central_difference(m, s, ext, element_inputs=True)
+        assert central_difference.launches == before + 1
+        ref = central_difference_plain(m, s, ext, element_inputs=True)
+        for name in ("t", "disp_new", "velo", "position", "d_disp"):
+            assert torch.equal(getattr(got, name), getattr(ref, name)), name
+        if energy:
+            assert _rel(got.dwork, ref.dwork) <= DWORK_TOL[m.dtype]
+            again = central_difference(m, s, ext)
+            assert torch.equal(again.dwork, got.dwork)
+            assert again.position is None
+        else:
+            assert got.dwork is None
+
+
+def _erosion_inputs(E, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    eq = rng.uniform(0.0, 1.4, (8, E))
+    tri = rng.uniform(-0.7, 0.8, (8, E))
+    for i, knot in enumerate((0.0, 0.3, -0.5, 0.5)):
+        tri[:, i::16] = knot
+        eq[:, i + 4::16] = eq[0, i + 4::16]
+    flag = rng.uniform(size=E) > 0.1
+    mat = rng.integers(0, len(DU_TABLES), E).astype(np.int32)
+    stress = rng.normal(size=(6, 8, E))
+    strain = rng.normal(size=(6, E))
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(a, device=device).to(dt).contiguous()
+    return (t(eq), t(tri), t(flag, torch.bool), t(mat, torch.int32),
+            t(stress), t(strain))
+
+
+@pytest.mark.parametrize("step", ["packed", "generic"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_erosion_kernel_matches_plain(cuda, dtype, step):
+    """Kernel E against its plain version on the card, every output
+    bitwise: the masked triaxiality (packed step), the zeroed stress and
+    strain (generic step), the flags and the carried deletion flag; a
+    walk that deletes nothing clears the flag."""
+    from types import SimpleNamespace
+
+    from hakai_tpu_torch.core.lowering import _ductile_tables
+    from hakai_tpu_torch.ops.erosion import erosion_delete_mask_plain
+    from hakai_tpu_torch.ops.erosion_cuda import erosion_walk
+    E = 5003
+    eq, tri, flag, mat, stress, strain = _erosion_inputs(E, dtype, cuda, 9)
+    knots, rows = _ductile_tables(DU_TABLES)
+    m = SimpleNamespace(du_tables=DU_TABLES, mat_id=mat,
+                        du_knots=torch.as_tensor(knots, device=cuda),
+                        du_n=torch.as_tensor(rows, device=cuda))
+    carry = SimpleNamespace(flags=torch.zeros(3, dtype=torch.int32,
+                                              device=cuda))
+    packed = step == "packed"
+    tri_ref = torch.where(flag[None, :], tri, 0.0) if packed else tri
+    flag_ref, del_ref = erosion_delete_mask_plain(m, eq, tri_ref, flag)
+    tri_in = tri.clone()
+    before = erosion_walk.launches
+    got = erosion_walk(m, eq, tri_in, flag, mask_triax=packed,
+                       stress=None if packed else stress.clone(),
+                       strain=None if packed else strain.clone(),
+                       carry=carry)
+    assert erosion_walk.launches == before + 1
+    assert torch.equal(got.element_flag, flag_ref)
+    assert torch.equal(got.deleted, del_ref)
+    assert torch.equal(got.triax, tri_ref)
+    if not packed:
+        keep = flag_ref[None, :]
+        assert torch.equal(got.stress, torch.where(keep[None], stress, 0.0))
+        assert torch.equal(got.strain, torch.where(keep, strain, 0.0))
+    assert del_ref.any() and int(carry.flags[2]) == 1
+    assert carry.flags[:2].tolist() == [0, 0]
+    erosion_walk(m, eq, tri.clone(), torch.zeros_like(flag), carry=carry)
+    assert carry.flags.tolist() == [0, 0, 0]
+
+
+@pytest.mark.parametrize("dtype", ["mixed", "float64"])
+def test_broad_kernel_matches_plain(cuda, dtype):
+    """Kernel A against its plain version on the n=4 impact past first
+    contact with a dozen elements deleted, each pair: the BroadPhase
+    bitwise, recomputing the masks (no carry, and a carry whose flag is
+    set, which it fills) and keeping them (flag clear: the carried masks
+    are read, not recomputed, even where the life mask has changed)."""
+    from hakai_tpu_torch.ops.broad_cuda import broad, broad_phase
+    from hakai_tpu_torch.ops.contact import (contact_activity,
+                                             contact_kinematics)
+    from hakai_tpu_torch.ops.contact_cuda import pair_constants
+    m, s = _impact(dtype, cuda, 90)
+    flag = s.element_flag.clone()
+    alive = torch.nonzero(flag).reshape(-1)
+    flag[alive[-12:]] = False
+    kin = contact_kinematics(m, (m.coord + s.disp).to(m.edtype),
+                             s.velo.to(m.edtype))
+    acts = contact_activity(m, flag)
+    stale = contact_activity(m, s.element_flag)
+    overlaps = 0
+    for i, p in enumerate(m.pairs):
+        ksl, c = m.ckin_slices[i], pair_constants(m, p)
+        ref = broad_phase(p, kin, ksl, acts[i], c)
+        before = broad.launches
+        got = broad(p, kin, ksl, flag, c)
+        assert broad.launches == before + 1
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        masks = tuple(torch.zeros_like(a) for a in acts[i])
+        changed = torch.ones((), dtype=torch.int32, device=cuda)
+        got = broad(p, kin, ksl, flag, c, masks, changed)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        assert all(torch.equal(a, b) for a, b in zip(masks, acts[i]))
+        kept = tuple(a.clone() for a in stale[i])
+        changed.zero_()
+        got = broad(p, kin, ksl, flag, c, kept, changed)
+        assert all(torch.equal(a, b) for a, b in zip(kept, stale[i]))
+        ref = broad_phase(p, kin, ksl, stale[i], c)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        overlaps += int(ref.overlap) + int(ref.pair_ok.sum())
+    assert overlaps > 0
+
+
+def test_graph_chunk_carries_activity_bitwise(cuda):
+    """The n=4 impact in float64 with its ductile table of 0.02/0.01 (the
+    tests' tie-free impact), steps 60-120 (through first contact, near
+    step 63) through graphs and the eager loop (both carrying the masks)
+    and stepped outside any chunk (recomputing them every step): every
+    field bitwise, with deletions and contact in the chunk; kernels I, E
+    and A launched a step."""
+    from hakai_tpu_torch.ops.broad_cuda import broad
+    from hakai_tpu_torch.ops.erosion_cuda import erosion_walk
+    from hakai_tpu_torch.ops.integrate_cuda import central_difference
+    from hakai_tpu_torch.pre.synthetic import impact_model, offset_instance
+    from hakai_tpu_torch.solver.explicit import step
+    deck = offset_instance(impact_model(n=4, v0=8.0e4, d_time=1e-8,
+                                        end_time=1e-5), 1, 0.013, 0.017)
+    deck.materials[0].ductile = np.array([[0.02, 0.0, 30.0],
+                                          [0.01, 0.3, 30.0]])
+    m = lower(deck, SolverConfig(dtype="float64", energy_check=True),
+              device=cuda)
+    s0 = run_chunk(m, init_state(m), 60)
+    n = 60
+    counts = [f.launches for f in (central_difference, erosion_walk, broad)]
+    got = _graph_vs_eager(m, s0, n, k=8)
+    assert [f.launches - c for f, c in zip(
+        (central_difference, erosion_walk, broad), counts)] == \
+        [2 * n, 2 * n, 2 * n * len(m.pairs)]
+    s, fired = s0, False
+    for _ in range(n):
+        s = step(m, s)
+        fired |= bool(s.contact_force.abs().max() > 0)
+    assert all(torch.equal(getattr(got, f.name), getattr(s, f.name))
+               for f in dataclasses.fields(s))
+    assert int(got.element_flag.sum()) < int(s0.element_flag.sum())
+    assert fired
+
+
+def test_step_stage_wrappers_refuse(cuda):
+    """On the card kernels I, E and A raise on a dtype they do not take,
+    and on inputs of the wrong device: no wrapper falls back to its plain
+    version."""
+    from types import SimpleNamespace
+
+    from hakai_tpu_torch.ops.broad_cuda import broad
+    from hakai_tpu_torch.ops.contact import contact_kinematics
+    from hakai_tpu_torch.ops.contact_cuda import pair_constants
+    from hakai_tpu_torch.ops.erosion_cuda import erosion_walk
+    from hakai_tpu_torch.ops.integrate_cuda import central_difference
+    m = _amp_bar("float32", cuda)
+    s = init_state(m)
+    half = dataclasses.replace(m, coord=m.coord.half())
+    with pytest.raises(TypeError):
+        central_difference(half, s)
+    with pytest.raises(ValueError):
+        central_difference(dataclasses.replace(m, diag_M=m.diag_M.cpu()), s)
+    eq = torch.zeros((8, 64), dtype=torch.float16, device=cuda)
+    em = SimpleNamespace(mat_id=torch.zeros(64, dtype=torch.int32,
+                                            device=cuda))
+    flag = torch.ones(64, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        erosion_walk(em, eq, eq.clone(), flag)
+    mi, si = _impact("float64", cuda, 0)
+    kin = contact_kinematics(mi, mi.coord + si.disp, si.velo)
+    p, c = mi.pairs[0], pair_constants(mi, mi.pairs[0])
+    with pytest.raises(TypeError):
+        broad(p, kin.half(), mi.ckin_slices[0], si.element_flag, c)
+    with pytest.raises(ValueError):
+        broad(p, kin, mi.ckin_slices[0], si.element_flag.cpu(), c)

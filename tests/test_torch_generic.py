@@ -250,9 +250,9 @@ def test_dispatch_rule(monkeypatch, shape, gather_mode):
             np.array(jm.coord_e)))
     calls = []
 
-    def counted(m, s, comm=None):
+    def counted(m, s, comm=None, carry=None):
         calls.append(int(s.t))
-        return step(m, s, comm)
+        return step(m, s, comm, carry)
     step = texplicit.step
     monkeypatch.setattr(texplicit, "step", counted)
     run_chunk(tm, init_state(tm), 2)
