@@ -23,8 +23,11 @@ and returns the final state; process 0 alone writes frames, metrics,
 ``collection.pvd`` and ``final.ckpt.npz``, while a halo run's checkpoints
 are one file a process plus process 0's manifest.
 
-``--timings`` also prints which host-IO path parsed the deck and wrote the
-frames: the path of the C++ helper's shared library.
+``--timings`` also prints the run's graph captures (count and host
+seconds), graph replays, the host loop's own seconds and its reads of
+device values (``solver/explicit.run_loop``'s counters), and which
+host-IO path parsed the deck and wrote the frames: the path of the C++
+helper's shared library.
 """
 from __future__ import annotations
 
@@ -212,7 +215,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="capture a torch.profiler trace of the run's loop "
                          "(on --devices/--halo ranks, rank 0's) into "
-                         "DIR/trace.json (Chrome trace format)")
+                         "DIR/trace.json (Chrome trace format), its hakai.* "
+                         "spans naming the chunks, graph captures and "
+                         "replays, guards and frames")
     ap.add_argument("--element-kernel", default="auto",
                     choices=["auto", "xla", "pallas", "pallas_mxu"],
                     help="the JAX package's element-math backends; on the "
@@ -230,8 +235,10 @@ def _parser() -> argparse.ArgumentParser:
                          "on the GPU, gloo on the CPU)")
     ap.add_argument("--timings", action="store_true",
                     help="print the host seconds of the parse, the "
-                         "lowering, the step chunks and the frame output, "
-                         "and the host-IO helper's library")
+                         "lowering, the step chunks and the frame output; "
+                         "the graph captures and their seconds, the graph "
+                         "replays, the host loop's seconds and its host "
+                         "syncs; and the host-IO helper's library")
     return ap
 
 
@@ -337,6 +344,11 @@ def main(argv=None):
               f"steps {timings['step_s']:.3f} s for {timings['steps']} "
               f"steps, frames {timings['frame_s']:.3f} s for "
               f"{timings['frames']} frames")
+        print(f"timings: capture {timings['capture_s']:.3f} s for "
+              f"{timings['captures']} graphs, {timings['replays']} replays, "
+              f"host loop {timings['loop_s']:.3f} s, "
+              f"{timings['host_syncs']} host syncs in {timings['chunks']} "
+              "chunks")
         from ._build import HOST_INFO, host_library
         host_library()                  # loaded by the parse already
         print(f"host-io: C++ helper {HOST_INFO['path']}")

@@ -651,7 +651,7 @@ def _halo_steps(comm: HaloComm, loop: str, step, carry, n_steps: int):
     lm = comm.lm
     if uses_graphs(carry[0].disp.device, comm):
         return chunk_graphs(lm, loop, step, comm.where).advance(
-            lm, carry[0], carry[1:], n_steps)
+            lm, carry[0], n_steps, enter=lambda s: carry[1:])
     for _ in range(n_steps):
         carry = step(lm, *carry)
     return carry

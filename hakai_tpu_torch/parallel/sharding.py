@@ -39,6 +39,7 @@ import torch.distributed as dist
 from ..core.lowering import LoweredModel
 from ..core.state import SimState, init_state
 from ..ops.assemble_cuda import assemble_internal_force
+from ..solver.graph import launch_counts
 from .dist import Rank, check_same, launch
 
 # element-axis (last-dim sharded) fields of LoweredModel; vol_e too, which
@@ -231,12 +232,6 @@ def run_sharded(model: LoweredModel, state: SimState | None, devices: int,
                   write_output, profile)
 
 
-def _launch_counts() -> dict:
-    """The kernel wrappers' launch counts in this process."""
-    from ..solver.graph import _COUNTED
-    return {f.__name__: f.launches for f in _COUNTED}
-
-
 def chunk_rank(ctx: Rank, jobs: list) -> list | None:
     """A worker that runs sharded chunks and measures them.  Each job is a
     dict: ``model`` (whole, on the CPU), ``state`` (whole, or None for the
@@ -292,7 +287,7 @@ def _measured(ctx: Rank, comm, ls, job: dict, run, gather, contact_max,
         run(ls, job["warm"])
     cuda = ctx.device.type == "cuda"
     timed = cuda and not comm.capturable
-    before = _launch_counts()
+    before = launch_counts()
     rec = {"alive": [], "contact_max": [], "seconds": [], "collective_s": []}
     for n in job["chunks"]:
         comm.events = []
@@ -311,7 +306,8 @@ def _measured(ctx: Rank, comm, ls, job: dict, run, gather, contact_max,
         rec["contact_max"].append(contact_max(ls, g))
         if after is not None:
             ls = after(ls, g)
-    rec["launches"] = {k: v - before[k] for k, v in _launch_counts().items()}
+    rec["launches"] = {f.__name__: n - before[f][0]
+                       for f, (n, _) in launch_counts().items()}
     rec["state"] = g.to("cpu")
     rec["captures"] = captures(model)
     if job.get("trace"):

@@ -46,7 +46,8 @@ from ..ops.erosion import erode
 from ..ops.integrate_cuda import central_difference
 from ..utils.checkpoint import save_checkpoint
 from ..utils.metrics import MetricsWriter, energy_guard, step_metrics
-from .graph import GRAPH_STEPS, chunk_graphs
+from ..utils.profiling import IDS, simulation, span
+from .graph import GRAPH_STEPS, chunk_graphs, totals
 from .output import node_fields
 
 
@@ -225,11 +226,12 @@ def graph_chunk(model: LoweredModel, state: SimState, n_steps: int,
     if model.coord_e is None:
         return chunk_graphs(model, "generic", functools.partial(
             _generic_step, comm=comm, carry=carry), where).advance(
-                model, state, (), n_steps, k)[0]
-    state, P = chunk_graphs(model, "packed", functools.partial(
+                model, state, n_steps, k)[0]
+    return chunk_graphs(model, "packed", functools.partial(
         step_fast_packed, comm=comm, carry=carry), where).advance(
-            model, state, (pack_gauss_state(state),), n_steps, k)
-    return finish_packed(model, state, P)
+            model, state, n_steps, k,
+            enter=lambda s: (pack_gauss_state(s),),
+            leave=functools.partial(finish_packed, model))
 
 
 def finish_packed(model: LoweredModel, state, P):
@@ -307,9 +309,10 @@ def run(model: LoweredModel, state: SimState | None = None,
     process gets the final state, and only process 0 writes (as the JAX
     package's ``proc0`` gate).  With ``profile``, a torch.profiler
     trace of the run's loop (on ranks, rank 0's) goes to
-    ``<profile>/trace.json``.  With a ``timings`` dict, fills in the host
-    seconds spent in step chunks (each ends in a device sync) and in frame
-    output.  Returns the final state."""
+    ``<profile>/trace.json``, its ``hakai.*`` spans
+    (``utils/profiling.py``) naming what the host did.  With a ``timings``
+    dict, fills in :func:`run_loop`'s counters (on ranks, this process's
+    local rank 0's).  Returns the final state."""
     from ..utils.profiling import trace
     if (halo or 1) > 1:
         from ..parallel.halo import run_halo
@@ -324,9 +327,11 @@ def run(model: LoweredModel, state: SimState | None = None,
                                    profile)
     else:
         from ..parallel.dist import process_index
-        with trace(profile):
-            model = model.to(device)
-            state = init_state(model) if state is None else state.to(device)
+        with trace(profile), simulation(), span("hakai.run"):
+            with span("hakai.run.enter"):
+                model = model.to(device)
+                state = init_state(model) if state is None \
+                    else state.to(device)
             return run_loop(model, state, lambda s, n: run_chunk(model, s, n),
                             LoopView(model, lambda s: s,
                                      process_index() == 0),
@@ -379,6 +384,7 @@ class LoopView:
         return self.sv
 
 
+@simulation()
 def run_loop(model: LoweredModel, state, chunk, hooks, verbose: bool = True,
              write_output: bool = True,
              timings: dict | None = None) -> SimState:
@@ -388,7 +394,21 @@ def run_loop(model: LoweredModel, state, chunk, hooks, verbose: bool = True,
     frames and checkpoints from it between chunks, every rank at the same
     points; only ``hooks.root`` writes files and console lines.  ``model``
     is the whole model.  Returns ``hooks.final()``, the whole final
-    state."""
+    state.
+
+    With ``timings``, fills in: ``step_s``, host seconds of the ``chunks``
+    calls of ``chunk`` (each up to the device sync that reads the step
+    count) over ``steps`` steps; ``frame_s`` over ``frames`` (the root's);
+    ``loop_s``, the loop's other host seconds (guards, metrics, progress,
+    checkpoints); ``host_syncs``, the device values read to the host
+    outside frames and checkpoints; ``captures`` and ``capture_s``, the
+    graphs captured in the call and their host seconds of warm-up,
+    capture and instantiation, and ``replays``, graph replays
+    (``solver/graph.totals``).  Its stretches are spans: ``hakai.chunk``
+    (the sync in it ``hakai.chunk.sync``), ``hakai.guard.alive``,
+    ``.finite`` and ``.energy``, ``hakai.metrics``, ``hakai.frame`` (with
+    ``.gather``, ``.map`` and ``.write``), ``hakai.checkpoint`` and
+    ``hakai.pvd``, each with the run and the chunk it follows."""
     cfg = model.config
     root = hooks.root
     verbose = verbose and root
@@ -396,45 +416,64 @@ def run_loop(model: LoweredModel, state, chunk, hooks, verbose: bool = True,
     d_out = max(time_num // cfg.output_num, 1)
     n_frames = time_num // d_out if time_num else 0
     metrics = MetricsWriter(cfg.metrics_path if root else None)
-    clock = {"step_s": 0.0, "frame_s": 0.0, "frames": 0, "steps": 0}
+    clock = {"step_s": 0.0, "frame_s": 0.0, "frames": 0, "steps": 0,
+             "chunks": 0, "host_syncs": 0}
+    t_loop, framing, graphs = _time.perf_counter(), 0.0, totals()
+
+    def read(name, value):
+        """``value()``, a device value read to the host, in span ``name``."""
+        clock["host_syncs"] += 1
+        with span(name):
+            return value()
 
     def frame(index):
+        nonlocal framing
         t0 = _time.perf_counter()
-        data = hooks.frame_data()
-        if not root:
-            return
-        di_, ve_, fl_, nd = data
-        co, el, fl, di, ve, nd_o = _deck_order_frame(model, di_, ve_, fl_,
-                                                     nd)
-        write_vtk(index, cfg.out_dir, co, el, fl, di, ve, nd_o,
-                  model.n_node, model.n_element)
-        clock["frame_s"] += _time.perf_counter() - t0
-        clock["frames"] += 1
+        with span("hakai.frame", frame=index):
+            with span("hakai.frame.gather"):
+                data = hooks.frame_data()
+            if root:
+                di_, ve_, fl_, nd = data
+                with span("hakai.frame.map"):
+                    co, el, fl, di, ve, nd_o = _deck_order_frame(
+                        model, di_, ve_, fl_, nd)
+                with span("hakai.frame.write"):
+                    write_vtk(index, cfg.out_dir, co, el, fl, di, ve, nd_o,
+                              model.n_node, model.n_element)
+        dt = _time.perf_counter() - t0
+        framing += dt
+        if root:
+            clock["frame_s"] += dt
+            clock["frames"] += 1
 
     hooks.update(state)
+    done = int(state.t)
+    clock["host_syncs"] += 1
     frame_times = []
     if write_output:
         frame(0)
-        frame_times.append((0, float(int(state.t)) * model.dt))
+        frame_times.append((0, float(done) * model.dt))
 
     t0 = _time.time()
-    alive_prev = hooks.alive()
-    done = int(state.t)
+    alive_prev = read("hakai.guard.alive", hooks.alive)
     i_out = done // d_out + 1
     while done < time_num:
         n = min(d_out, time_num - done)
+        IDS["chunk"] = clock["chunks"]
         tc = _time.perf_counter()
-        state = chunk(state, n)
-        int(state.t)                                  # syncs the device
+        with span("hakai.chunk", steps=n):
+            state = chunk(state, n)
+            read("hakai.chunk.sync", lambda: int(state.t))  # device sync
         clock["step_s"] += _time.perf_counter() - tc
         clock["steps"] += n
+        clock["chunks"] += 1
         done += n
         hooks.update(state)
-        alive = hooks.alive()
-        if cfg.check_nan and not hooks.finite():
+        alive = read("hakai.guard.alive", hooks.alive)
+        if cfg.check_nan and not read("hakai.guard.finite", hooks.finite):
             raise FloatingPointError(f"NaN/Inf in displacement at step {done}")
         if cfg.energy_check and cfg.energy_abort_rel > 0:
-            rel = hooks.energy_rel()
+            rel = read("hakai.guard.energy", hooks.energy_rel)
             if rel > cfg.energy_abort_rel:
                 raise FloatingPointError(
                     f"energy balance diverged at step {done}: "
@@ -449,21 +488,28 @@ def run_loop(model: LoweredModel, state, chunk, hooks, verbose: bool = True,
                              f"{model.end_time:.4e}     ")
             sys.stdout.flush()
         if cfg.metrics_path is not None:
-            vals = hooks.metrics()
-            if root:
-                metrics.record_raw(vals, model, done, _time.time() - t0)
+            with span("hakai.metrics"):
+                vals = hooks.metrics()
+                if root:
+                    metrics.record_raw(vals, model, done, _time.time() - t0)
+                    clock["host_syncs"] += len(vals)
         if write_output and done % d_out == 0 and i_out <= n_frames:
             frame(i_out)
             frame_times.append((i_out, done * model.dt))
             if cfg.checkpoint_every and i_out % cfg.checkpoint_every == 0:
-                hooks.save(cfg.checkpoint_path
-                           or f"{cfg.out_dir}/ckpt_{i_out:03d}.npz")
+                with span("hakai.checkpoint"):
+                    hooks.save(cfg.checkpoint_path
+                               or f"{cfg.out_dir}/ckpt_{i_out:03d}.npz")
             i_out += 1
     metrics.close()
     if write_output and frame_times and root:
-        write_pvd(cfg.out_dir, frame_times)
+        with span("hakai.pvd"):
+            write_pvd(cfg.out_dir, frame_times)
     if verbose:
         print(f"\nwall: {_time.time() - t0:.2f}s for {time_num} steps")
     if timings is not None:
+        clock["loop_s"] = (_time.perf_counter() - t_loop - clock["step_s"]
+                           - framing)
+        clock.update({k: v - graphs[k] for k, v in totals().items()})
         timings.update(clock)
     return hooks.final()

@@ -14,15 +14,22 @@ chunk of n steps copies its input into those buffers, replays the
 remaining ``n % GRAPH_STEPS`` steps once, and copies the buffers out.
 Each length is captured the first time it appears, as ``jit`` compiles
 once per static ``n_steps``; the graphs of one model and loop live in a
-:class:`ChunkGraphs` held by the model object, and die with it.
+:class:`ChunkGraphs` held by the model object, and die with it.  The
+process's captures, their host seconds and its replays add up in
+:func:`totals`; a chunk's copy-in, captures, replays and copy-out are the
+spans ``hakai.chunk.load``, ``hakai.graph.capture`` (with
+``hakai.graph.warm_up`` and ``hakai.graph.instantiate``),
+``hakai.graph.replay`` and ``hakai.chunk.unload``
+(``utils/profiling.py``).
 
 A replay runs the captured kernels with the captured launch shapes in
 the captured order, so a chunk's state equals the eager loop's
 (``solver/explicit.eager_chunk``) bit for bit.  Each graph ends by
 writing its last step's state into the static buffers, so consecutive
-replays need no copy between them.  Launch counts: the kernel wrappers
-run only while a graph is captured; a replay adds each wrapper's
-captured launches to its count, so the counts say what ran on the card.
+replays need no copy between them.  Launch counts
+(:func:`launch_counts`): the kernel wrappers run only while a graph is
+captured; a replay adds each wrapper's captured launches to its count,
+so the counts say what ran on the card.
 
 A rank whose collectives can be captured (NCCL, ``Rank.capturable``)
 replays graphs of its own steps, collectives included, as the JAX
@@ -52,6 +59,7 @@ from ..ops.element_cuda import element_core_packed, element_update
 from ..ops.erosion_cuda import erosion_walk
 from ..ops.gather_cuda import gather_cols
 from ..ops.integrate_cuda import central_difference
+from ..utils.profiling import span
 
 # steps a replay advances (K): chosen on the H100 from the step times of
 # K = 1, 8 and 32 on [main] and [contact] (PERF.md, section 5)
@@ -63,6 +71,10 @@ _COUNTED = (element_core_packed, element_update, assemble_internal_force,
             blocked_assemble, gather_cols, narrow_phase, scatter_forces,
             central_difference, erosion_walk, broad)
 
+# graphs captured in this process, the host seconds of their warm-up,
+# capture and instantiation, and graph replays (read through totals())
+_TOTALS = {"captures": 0, "capture_s": 0.0, "replays": 0}
+
 
 def split(n_steps: int, k: int = GRAPH_STEPS) -> tuple[int, int]:
     """(replays of the k-step graph, steps of the remainder graph) of an
@@ -72,9 +84,18 @@ def split(n_steps: int, k: int = GRAPH_STEPS) -> tuple[int, int]:
     return divmod(n_steps, k)
 
 
-def _counts() -> dict:
+def launch_counts() -> dict:
+    """The kernel wrappers' launches in this process: per wrapper
+    function, (launches, launches by instantiation)."""
     return {fn: (fn.launches, dict(getattr(fn, "launches_by", {})))
             for fn in _COUNTED}
+
+
+def totals() -> dict:
+    """This process's graph captures (``captures``, ``capture_s``: host
+    seconds of warm-up, capture and instantiation) and graph replays
+    (``replays``) so far."""
+    return dict(_TOTALS)
 
 
 def _set_counts(counts: dict) -> None:
@@ -163,17 +184,26 @@ class ChunkGraphs:
         self.pool = None
         self.warm = False
 
-    def advance(self, model: LoweredModel, state: SimState, extra: tuple,
-                n_steps: int, k: int = GRAPH_STEPS) -> tuple:
-        """``(state, *extra)`` after ``n_steps`` steps: ``split(n_steps,
-        k)`` replays of the k-step graph, then the remainder's; a copy of
-        the static buffers, which the next chunk overwrites."""
+    def advance(self, model: LoweredModel, state: SimState, n_steps: int,
+                k: int = GRAPH_STEPS, enter=None, leave=None):
+        """The carry ``(state, *extra)`` after ``n_steps`` steps:
+        ``split(n_steps, k)`` replays of the k-step graph, then the
+        remainder's.  ``enter(state)`` gives ``extra`` (default: none); the
+        carry returned is a copy of the static buffers, which the next
+        chunk overwrites, or with ``leave`` what ``leave(*carry)``
+        returns.  The copy in with ``enter`` is the span
+        ``hakai.chunk.load``, the copy out with ``leave``
+        ``hakai.chunk.unload``."""
         q, r = split(n_steps, k)
-        self._load((state, *extra))
+        with span("hakai.chunk.load"):
+            self._load((state, *(enter(state) if enter else ())))
         for length, times in ((k, q), (r, 1)):
             if length and times:
                 self._replay(model, length, times)
-        return rebuild(self.static, [x.clone() for x in leaves(self.static)])
+        with span("hakai.chunk.unload"):
+            out = rebuild(self.static,
+                          [x.clone() for x in leaves(self.static)])
+            return leave(*out) if leave else out
 
     def _load(self, carry) -> None:
         """Copy ``carry`` into the static buffers (made at first use)."""
@@ -191,15 +221,21 @@ class ChunkGraphs:
     def _replay(self, model: LoweredModel, length: int, times: int) -> None:
         g = self.graphs.get(length)
         if g is None:
-            g = self.graphs[length] = self._capture(model, length)
-        for j in range(times):
-            try:
-                g.graph.replay()
-            except RuntimeError as e:
-                e.add_note(f"replaying steps {j * length + 1}-"
-                           f"{(j + 1) * length} of the chunk ({length}-step "
-                           f"graph of {self.what})")
-                raise
+            t0 = time.perf_counter()
+            with span("hakai.graph.capture", steps=length):
+                g = self.graphs[length] = self._capture(model, length)
+            _TOTALS["captures"] += 1
+            _TOTALS["capture_s"] += time.perf_counter() - t0
+        with span("hakai.graph.replay", steps=length, times=times):
+            for j in range(times):
+                try:
+                    g.graph.replay()
+                except RuntimeError as e:
+                    e.add_note(f"replaying steps {j * length + 1}-"
+                               f"{(j + 1) * length} of the chunk ({length}-"
+                               f"step graph of {self.what})")
+                    raise
+        _TOTALS["replays"] += times
         _add_counts(g.launches, times)
 
     def _steps(self, model: LoweredModel, length: int, what: str):
@@ -238,18 +274,19 @@ class ChunkGraphs:
         """Capture ``length`` steps from the static buffers back into them.
         The wrappers' counts are restored afterwards: neither the warm-up
         nor the capture launches a kernel of the chunk."""
-        before = _counts()
+        before = launch_counts()
         try:
             with torch.cuda.device(model.device):
                 if not self.warm:
-                    self._warm_up(model)
+                    with span("hakai.graph.warm_up"):
+                        self._warm_up(model)
                 torch.cuda.synchronize()
                 torch.cuda.empty_cache()
                 reserved = torch.cuda.memory_reserved()
                 if self.pool is None:
                     self.pool = torch.cuda.graph_pool_handle()
                 graph = torch.cuda.CUDAGraph(keep_graph=True)
-                mark = _counts()
+                mark = launch_counts()
                 t0 = time.perf_counter()
                 with torch.cuda.graph(graph, pool=self.pool):
                     out = self._steps(model, length, f"the {length}-step "
@@ -257,9 +294,10 @@ class ChunkGraphs:
                     write_back(leaves(self.static), leaves(out))
                     del out
                 t1 = time.perf_counter()
-                launches = _count_delta(mark, _counts())
-                graph.instantiate()
-                torch.cuda.synchronize()
+                launches = _count_delta(mark, launch_counts())
+                with span("hakai.graph.instantiate"):
+                    graph.instantiate()
+                    torch.cuda.synchronize()
                 t2 = time.perf_counter()
                 pool = torch.cuda.memory_reserved() - reserved
         finally:

@@ -150,7 +150,6 @@ class MetricsWriter:
 
     def __init__(self, path: str | None):
         self._f: IO | None = open(path, "a") if path else None
-        self.history: list[dict] = []
 
     def record_raw(self, values: dict, model: LoweredModel, step: int,
                    wall_s: float) -> dict:
@@ -160,7 +159,6 @@ class MetricsWriter:
         rec["step"] = step
         rec["time"] = step * model.dt
         rec["wall_s"] = wall_s
-        self.history.append(rec)
         if self._f:
             self._f.write(json.dumps(rec) + "\n")
             self._f.flush()

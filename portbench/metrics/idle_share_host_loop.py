@@ -1,0 +1,12 @@
+"""Share of the traced simulation's window in which the device is idle
+inside the program's ``hakai.run`` span but outside its ``hakai.chunk``,
+``hakai.frame`` and ``hakai.run.enter`` spans: the host loop between
+chunks (guards, metrics, checkpoints), by interval intersection
+(``portbench/idle.py``).  None without device intervals or without the
+program's spans."""
+from portbench import idle
+
+
+def read(ctx):
+    split = idle.split(ctx["trace"])
+    return None if split is None else split["host_loop"]

@@ -1166,3 +1166,65 @@ def test_step_stage_wrappers_refuse(cuda):
         broad(p, kin.half(), mi.ckin_slices[0], si.element_flag, c)
     with pytest.raises(ValueError):
         broad(p, kin, mi.ckin_slices[0], si.element_flag.cpu(), c)
+
+
+# ---- the host loop's counters and spans around captured graphs ----
+
+def test_run_counts_captures_and_replays(cuda, monkeypatch):
+    """``run()`` on the card, twice with one model: each run captures
+    each graph length once (its model is its own), replays ``chunks x
+    (q + (r > 0))`` times, and counts in ``capture_s`` at least its
+    ``Captured`` records' capture and instantiation seconds.  Under the
+    profiler every ``cudaGraphLaunch`` lies in a ``hakai.graph.replay``
+    span and every ``cudaGraphInstantiate`` in a ``hakai.graph.capture``,
+    and no ``hakai.*`` span starts while a stream is captured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hakai_tpu_torch import run
+    from hakai_tpu_torch.solver.graph import GRAPH_STEPS as K, ChunkGraphs
+    made, capture = [], ChunkGraphs._capture
+
+    def recording(self, model, length):
+        made.append((length, capture(self, model, length)))
+        return made[-1][1]
+    monkeypatch.setattr(ChunkGraphs, "_capture", recording)
+    n = 2 * K + 5
+    m = lower(bar_model(8, 8, 32, d_time=5e-8,
+                        end_time=(3 * n + 0.5) * 5e-8),
+              SolverConfig(dtype="float32", energy_check=True,
+                           energy_abort_rel=0.1, output_num=3),
+              device="cpu")
+    assert m.coord_e is not None and m.time_num == 3 * n
+    for _ in range(2):
+        made.clear()
+        tm = {}
+        run(m, verbose=False, write_output=False, device=cuda, timings=tm)
+        assert sorted(length for length, _ in made) == [5, K]
+        assert (tm["captures"], tm["replays"], tm["chunks"]) == (2, 9, 3)
+        assert tm["capture_s"] >= sum(c.capture_s + c.instantiate_s
+                                      for _, c in made)
+        assert tm["host_syncs"] == 2 + 3 * 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        run(m, verbose=False, write_output=False, device=cuda)
+    host = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in p.profiler.kineto_results.events()
+            if e.device_type() != torch.autograd.DeviceType.CUDA]
+
+    def within(prefix, holder):
+        held = [(a, b) for n_, a, b in host if n_ == holder]
+        evs = [(a, b) for n_, a, b in host if n_.startswith(prefix)]
+        return len(evs), [e for e in evs
+                          if not any(c <= e[0] and e[1] <= d
+                                     for c, d in held)]
+    launches, stray = within("cudaGraphLaunch", "hakai.graph.replay")
+    assert launches == 9 and stray == []
+    made_, stray = within("cudaGraphInstantiate", "hakai.graph.capture")
+    assert made_ == 2 and stray == []
+    begins = sorted(a for n_, a, _ in host
+                    if n_.startswith("cudaStreamBeginCapture"))
+    ends = sorted(b for n_, _, b in host
+                  if n_.startswith("cudaStreamEndCapture"))
+    assert len(begins) == len(ends) == 2
+    assert [n_ for n_, a, _ in host if n_.startswith("hakai.") and any(
+        s < a < e for s, e in zip(begins, ends))] == []
