@@ -54,10 +54,17 @@ without its last line):
 9. contact-kernels: the gather, narrow-phase and scatter kernels against
    their plain versions on that deck's state 25 steps after the first
    contact, in float32 (times and bounds) and float64, the narrow phase
-   (cell-binned: a spatial hash of each side, probed in the 27 cells
-   around each item) with every node's and triangle's accept count, timed
-   in both types beside PR 7's block-loop kernel, and its CUDA launches a
-   step counted by the profiler; its time as each of 2 ranks calls it
+   (cell-binned: a spatial hash of each side, by ddiv cells or by finer
+   cells sized to the radius cull, probed in the 27 cells around each
+   item) with every node's and triangle's accept count, timed in both
+   types beside the reference N (given the reference design) and PR 7's
+   block-loop kernel, and its CUDA launches a step counted by the
+   profiler; its two hashes per pair, f32 and f64, on the deck during
+   approach and in contact and on the self-contact plates: the rule each
+   call took, the candidates an item visits and their hit share on the
+   fine hash and on the 27-cell sweep, and (given the reference design)
+   forces and counts bitwise the reference N's; its time as each of 2
+   ranks calls it
    under [sharded-contact]'s deal, the ranks' forces summed bitwise one
    device's; its time when built with FMA contraction; the scatter's
    resources and share of bound; given the reference design, the scatter
@@ -270,6 +277,11 @@ MARGIN = 1e-5
 # values each, written once
 NARROW_OPS = {"item": 9, "geometry": 140, "cell": 19, "dist": 24,
               "accept": 48}
+# [contact-kernels]' fine-hash check: the impact during approach and in
+# contact (steps of run_chunk from its initial state), and the
+# self-contact plates in contact
+FINE_APPROACH, FINE_CONTACT = 200, 600
+FINE_SELF_N, FINE_SELF_DT, FINE_SELF_STEPS = 16, 1e-8, 135
 # PR 7's block-loop narrow kernel at [contact-kernels]'s state, float32
 # (PERF.md, PR 7 call 3), printed beside the cell-binned kernel's time
 NARROW_PR7_MS = 2.4551
@@ -482,20 +494,17 @@ def build_reference():
     out = _build._run_all(cmds) + _build._run_all(
         [[nvcc, "-shared", *objs, "-o", so]])
     lib = ctypes.CDLL(so)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    # the element, assembly and interleave entries take the shipped ones'
-    # arguments; the reference S takes the CSR: src, ld, ptr, mid, col, N,
-    # out, stream
+    # the element, assembly, interleave, narrow-phase and scatter entries
+    # take the shipped ones' arguments
     sigs = {n: _build._SIGNATURES[n] for n in _build._SIGNATURES
             if n.startswith(("hk_element", "hk_assemble",
                              "hk_blocked_assemble", "hk_set_pusai",
-                             "hk_interleave_f32"))}
-    sigs.update({n: (P, I, P, P, P, I, P, P) for n in
-                 ("hk_scatter_f32", "hk_scatter_f64", "hk_scatter_f32_f64")})
+                             "hk_interleave_f32", "hk_narrow",
+                             "hk_scatter_f"))}
     for n, argtypes in sigs.items():
         getattr(lib, n).argtypes = list(argtypes)
         getattr(lib, n).restype = ctypes.c_int
-    lib.hk_error_string.argtypes = [I]
+    lib.hk_error_string.argtypes = [ctypes.c_int]
     lib.hk_error_string.restype = ctypes.c_char_p
     table = np.ascontiguousarray(pusai_hexa(8), np.float64)
     if lib.hk_set_pusai(table.ctypes.data) != 0:
@@ -510,8 +519,8 @@ def build_reference():
 
 class _Reference:
     """The port's library with its element, assembly and interleave entries
-    taken from the reference build (the reference S takes the CSR: see
-    reference_scatter)."""
+    taken from the reference build (reference_scatter swaps in the
+    reference S)."""
 
     def __init__(self, new, old):
         self.new, self.old = new, old
@@ -535,18 +544,60 @@ def reference(ref):
 
 
 def ref_scatter(ref, model, force, out_dtype):
-    """The reference S (the parent commit's kernel, over the CSR) on
-    ``force``: its (3, N) output."""
+    """The reference S (the parent commit's kernel, over the lowering's
+    ``fs_sorted``) on ``force``: its (3, N) output."""
     import torch
     from hakai_tpu_torch import _build
     from hakai_tpu_torch.ops.contact_cuda import _SCATTER
     out = torch.empty((3, model.N), dtype=out_dtype, device=force.device)
     err = getattr(ref, _SCATTER[(force.dtype, out_dtype)])(
         force.data_ptr(), model.fs_width, model.fs_ptr.data_ptr(),
-        model.fs_mid.data_ptr(), model.fs_col.data_ptr(), model.N,
-        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        model.fs_mid.data_ptr(), model.fs_sorted.data_ptr(), model.fs_nb,
+        model.fs_bits, model.fs_emax, model.N, out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
     _build.check(ref, err, "reference scatter kernel")
     return out
+
+
+# (triangles, nodes, dtype) -> the reference N's workspace
+_REF_NARROW_WS: dict = {}
+
+
+def ref_narrow(ref, pair, kin, ksl, bp, consts, force, offsets):
+    """The reference N (the parent commit's kernel: the 27-cell sweep of
+    the ddiv hash) on one pair, into ``force``, with a workspace of its own
+    layout (its header holds 4 words); its (Cp + Tp,) int32 accepted
+    counts."""
+    import torch
+    from hakai_tpu_torch import _build
+    from hakai_tpu_torch.ops.contact_cuda import _NARROW, narrow_buckets
+    F2, Ci = pair.tri_nodes.shape[1], pair.cand_nodes.shape[0]
+    B, items = narrow_buckets(F2, Ci), F2 + Ci
+    key = (F2, Ci, kin.dtype)
+    if key not in _REF_NARROW_WS:
+        tiles = max(1, 2 * B // 1024)
+        _REF_NARROW_WS[key] = (
+            torch.zeros(4 * B + 8 + -(-tiles // 4) * 4 + -(-items // 4) * 4
+                        + 8 * items, dtype=torch.int32, device=kin.device),
+            torch.empty(28 * F2 + 8 * Ci + 4 * items, dtype=kin.dtype,
+                        device=kin.device))
+    iws, fws = _REF_NARROW_WS[key]
+    cnt = torch.empty(pair.Cp + pair.Tp, dtype=torch.int32,
+                      device=kin.device)
+    (t0, _), (t1, _), (t2, _), (cs, _), _ = ksl
+    err = getattr(ref, _NARROW[kin.dtype])(
+        kin.data_ptr(), kin.shape[1], t0, t1, t2, cs, F2, Ci, pair.tb,
+        pair.nb, pair.tri_chunks, pair.n_chunks, bp.tri_in.data_ptr(),
+        bp.node_in.data_ptr(), bp.pair_ok.data_ptr(), bp.pair_ok.data_ptr(),
+        None, None, bp.overlap.data_ptr(), bp.all_min.data_ptr(),
+        pair.cand_mass.data_ptr(), pair.cand_nodes.data_ptr(),
+        pair.tri_enodes.data_ptr() if pair.is_self else None,
+        consts.young, consts.kc, consts.Cr, consts.myu, consts.d_lim,
+        consts.ddiv, force.data_ptr(), force.shape[1], *offsets,
+        cnt.data_ptr(), iws.data_ptr(), fws.data_ptr(), B,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(ref, err, "reference narrow-phase kernel")
+    return cnt
 
 
 @contextlib.contextmanager
@@ -1051,9 +1102,9 @@ def trace(model, state, smi_line, tag, n=40, chunk=None):
     busy = sum(e.time_range.elapsed_us() for e in dev) / n
     by_name, count = {}, {}
     ours = ("element_kernel", "assemble_kernel", "gather_cols_kernel",
-            "narrow_bin", "narrow_scan", "narrow_sort", "narrow_probe",
-            "scatter_kernel", "integrate_kernel", "erosion_kernel",
-            "broad_activity", "broad_range", "broad_pairs")
+            "narrow_bin", "narrow_hash", "narrow_scan", "narrow_sort",
+            "narrow_probe", "scatter_kernel", "integrate_kernel",
+            "erosion_kernel", "broad_activity", "broad_range", "broad_pairs")
     for e in dev:
         key = next((k for k in ours if k in e.name), "PyTorch ops")
         by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / n
@@ -1581,7 +1632,7 @@ def check_narrow(model, kin, acts, kind):
         off_i, off_t = model.fs_offsets[i]
         cols = ((off_i, p.Cp), (off_t, p.Tp))
         per_node, per_tri = narrow_phase(p, kin, ksl, bp, consts, force,
-                                         (off_i, off_t), count=True)
+                                         (off_i, off_t), count=True)[:2]
         narrow_phase(p, kin, ksl, bp, consts, again, (off_i, off_t))
         fi, ft, info = narrow_phase_plain(p, kin, ksl, bp, consts,
                                           record=True)
@@ -1639,6 +1690,103 @@ def check_narrow(model, kin, acts, kind):
         raise AssertionError("no contact pair accepted: contact not active")
     return args, force, stages, {"max_abs_err": max_abs, "rel": worst,
                                  "differ": n_diff}
+
+
+def fine_hash_check(tag, model, state, ref, smi_line, want_fine=None):
+    """Kernel N's two hashes on one state, f32 and f64, per pair: the
+    call's rule (the fine hash or the ddiv cells, with R and ddiv), the
+    candidates each item visits and the share that passes the radius cull
+    on the hash it took (the kernel's counters, equal to its plain twin's)
+    and on the 27-cell sweep of the ddiv hash (the twin's), the same pairs
+    past the cull on both; forces and both sides' accepted counts bitwise
+    the reference N's (the parent's 27-cell sweep), given REF_DIR.
+    ``want_fine``: the rule every pair must take, or None."""
+    import torch
+    from hakai_tpu_torch.ops.contact import (broad_phase, contact_activity,
+                                             contact_kinematics)
+    from hakai_tpu_torch.ops.contact_cuda import (narrow_phase,
+                                                  pair_constants,
+                                                  probe_counts_plain)
+    acts = contact_activity(model, state.element_flag)
+    edt = model.edtype
+    for kind, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        pos = (model.coord + state.disp).to(edt).to(dt)
+        kin = contact_kinematics(model, pos, state.velo.to(edt).to(dt))
+        new = torch.full((3, model.fs_width), float("nan"), dtype=dt,
+                         device=kin.device)
+        old = torch.full_like(new, float("nan"))
+        for i, p in enumerate(model.pairs):
+            p = dataclasses.replace(p, cand_mass=p.cand_mass.to(dt))
+            ksl, c = model.ckin_slices[i], pair_constants(model, p)
+            bp = broad_phase(p, kin, ksl, acts[i], c)
+            o = model.fs_offsets[i]
+            cnt = narrow_phase(p, kin, ksl, bp, c, new, o, count=True)
+            visits, near, rule = probe_counts_plain(p, kin, ksl, bp, c)
+            v_old, n_old, _ = probe_counts_plain(p, kin, ksl, bp, c,
+                                                 fine=False)
+            torch.cuda.synchronize()
+            if not (torch.equal(cnt.visits, visits)
+                    and torch.equal(cnt.near, near)
+                    and bool(cnt.fine) == bool(rule.on)):
+                raise AssertionError(f"narrow phase {tag} {kind} pair {i}: "
+                                     "the kernel's counters differ from its "
+                                     "plain twin's")
+            if not torch.equal(near, n_old):
+                raise AssertionError(f"narrow phase {tag} {kind} pair {i}: "
+                                     "the two hashes pass other pairs "
+                                     "through the radius cull")
+            if want_fine is not None and bool(cnt.fine) != want_fine:
+                raise AssertionError(f"narrow phase {tag} {kind} pair {i}: "
+                                     f"fine hash {bool(cnt.fine)}, want "
+                                     f"{want_fine}")
+            cols = ((o[0], p.Cp), (o[1], p.Tp))
+            if ref is not None:
+                ref_cnt = ref_narrow(ref, p, kin, ksl, bp, c, old, o)
+                torch.cuda.synchronize()
+                if not (all(torch.equal(new[:, a:a + n], old[:, a:a + n])
+                            for a, n in cols)
+                        and torch.equal(torch.cat([cnt.node, cnt.tri]),
+                                        ref_cnt)):
+                    raise AssertionError(f"narrow phase {tag} {kind} pair "
+                                         f"{i}: not bitwise the reference "
+                                         "N's 27-cell sweep")
+                vs = "forces and both sides' counts bitwise the reference N"
+            else:
+                vs = "no reference N (REF_DIR) to hold it against"
+            items = int((bp.tri_in & bp.overlap).sum()
+                        + (bp.node_in & bp.overlap).sum())
+            vis, vis_old, nr = (int(visits.sum()), int(v_old.sum()),
+                                int(near.sum()))
+            log(f"[contact-kernels] fine hash {tag} {kind} pair {i} (nodes of"
+                f" {p.i_instance}, triangles of {p.j_instance}): "
+                f"{'fine hash' if bool(cnt.fine) else '27 ddiv cells'} (R "
+                f"{float(rule.reach):.6g}, ddiv {c.ddiv:.6g}); {items} "
+                f"in-range items, {int(cnt.node.sum())} accepted; visits an "
+                f"item {vis / max(items, 1):.2f} (hit share "
+                f"{nr / max(vis, 1):.4f}), the 27-cell sweep "
+                f"{vis_old / max(items, 1):.2f} ({nr / max(vis_old, 1):.4f});"
+                f" {nr} past the radius cull on both; {vs} [{smi_line}]")
+
+
+def fine_hash_phase(impact, ref, smi_line):
+    """The fine hash on the impact during approach (step FINE_APPROACH: the
+    ddiv hash, nothing in range) and contact (step FINE_CONTACT: the fine
+    hash on both pairs), and on the self-contact plates in contact (the
+    ddiv hash): fine_hash_check on each."""
+    from hakai_tpu_torch import SolverConfig, init_state, lower, run_chunk
+    from hakai_tpu_torch.pre.synthetic import self_contact_model
+    s = run_chunk(impact, init_state(impact), FINE_APPROACH)
+    fine_hash_check(f"step {FINE_APPROACH}", impact, s, ref, smi_line,
+                    want_fine=False)
+    s = run_chunk(impact, s, FINE_CONTACT - FINE_APPROACH)
+    fine_hash_check(f"step {FINE_CONTACT}", impact, s, ref, smi_line,
+                    want_fine=True)
+    plates = lower(self_contact_model(n=FINE_SELF_N, d_time=FINE_SELF_DT),
+                   SolverConfig(dtype="float64"), device="cuda")
+    s = run_chunk(plates, init_state(plates), FINE_SELF_STEPS)
+    fine_hash_check(f"self-contact plates n={FINE_SELF_N} step "
+                    f"{FINE_SELF_STEPS}", plates, s, ref, smi_line,
+                    want_fine=False)
 
 
 def fmad_cost(args, kin, force):
@@ -1827,6 +1975,11 @@ def contact_kernels(model, state, smi_line, n_launch, ref=None):
             step_calls, lambda: [narrow_phase_plain(p, kin, ksl, bp, c)
                                  for p, ksl, bp, c, _ in args], reps=10,
             plain_reps=1, plain_repeats=1)   # one call of 3-5 s: one batch
+        ref_out = torch.empty_like(force)
+        if ref is not None:
+            rec_n["ref_ms"] = time_ms(lambda: [
+                ref_narrow(ref, p, kin, ksl, bp, c, ref_out, o)
+                for p, ksl, bp, c, o in args], reps=10)
         st = stages
         flop = (NARROW_OPS["item"] * (st["tri_in"] + st["node_in"])
                 + NARROW_OPS["geometry"] * st["tri_in"]
@@ -1845,12 +1998,15 @@ def contact_kernels(model, state, smi_line, n_launch, ref=None):
         log(f"[contact-kernels] narrow {kind}: {st['blocks']} block pairs, "
             f"{st['tested']:.4e} pairs in them, {st['cell']} within one cell"
             f", {st['dist']} past the radius cull, {st['accept']} accepted; "
-            f"kernel {rec_n['ms']:.4f} ms (PR 7's block-loop kernel, float32:"
-            f" {NARROW_PR7_MS} ms), plain {rec_n['plain_ms']:.4f} ms, bound "
+            f"kernel {rec_n['ms']:.4f} ms (the reference N: "
+            f"{rec_n.get('ref_ms', float('nan')):.4f} ms; PR 7's block-loop "
+            f"kernel, float32: {NARROW_PR7_MS} ms), plain "
+            f"{rec_n['plain_ms']:.4f} ms, bound "
             f"{rec_n['bound_ms']:.4f} ms ({rec_n['bound_by']}: "
             f"{flop / 1e9:.4f} GFLOP needed, {moved / 1e6:.1f} MB); "
             f"{n_launch:.1f} CUDA launches a step (the trace's narrow_bin, "
-            f"narrow_scan, narrow_sort, narrow_probe) for {len(args)} "
+            f"narrow_hash, narrow_scan, narrow_sort, narrow_probe) for "
+            f"{len(args)} "
             f"wrapper calls [{smi_line}]")
         if kind == "float64":
             break
@@ -1868,6 +2024,7 @@ def contact_kernels(model, state, smi_line, n_launch, ref=None):
             f"against {rec_n['ms']:.4f} ms before and {ms_after:.4f} ms after"
             f" it for the shipped -fmad=false build; forces differ by "
             f"{err_fma:.3e} normwise [{smi_line}]")
+    fine_hash_phase(model, ref, smi_line)
     reference_contact_chunk(model, ref)
     return recs["float32"]
 

@@ -18,48 +18,96 @@
 //
 // What bounds N on an H100: the JAX blocking asks for (surviving block
 // pairs) x TB x nb tests, 3.6e9 at the contact deck's kernel state, of
-// which only the pairs within one grid cell of each other (5.3e6) can pass
-// the cell test; reading each in-range item once and writing each force
+// which only the pairs within one grid cell of each other can pass the
+// cell test; reading each in-range item once and writing each force
 // column once (21 MB in float32) takes ~0.006 ms at 3.35 TB/s.  So N
-// visits only the pairs within one cell: the reference's own uniform grid
-// (HAKAI_j.jl:2331-2363), as a spatial hash on the device.  Per pair and
-// call, four launches on one stream and no read back to the host:
+// visits only the pairs that a spatial hash on the device puts near each
+// other, and its time is set by how many candidates each item's warp
+// visits, not by bytes.  The grid cell is ddiv, ddiv_scale times the
+// model's largest element edge: on a deck whose largest element is much
+// larger than the contact surfaces' (the impact's slab is 0.2 mm thick,
+// its cube's elements 0.0125 mm) the 27 cells around an item hold
+// thousands of the other side's items, of which the radius cull passes a
+// few.  So each call bins by a second, finer cell when the radius cull
+// allows it (the fine hash), and by ddiv's cell when not.
+//
+// The fine cell h is 17/16 of R, the largest circumradius (rmax) of the
+// call's in-range triangles, found on the device.  A pair passes the
+// radius cull only if the node lies within rmax <= R of the triangle's
+// centroid, so its centroid's fine cell and the node's lie within one
+// fine cell of each other on each axis: the 27 fine cells around an item
+// hold every candidate that the cull can pass, and skipping the rest is
+// exact.  (The rounding: a pass of fl(sqrt(fl(|p - c|^2))) < rmax bounds
+// each axis's |p - c| by rmax (1 + 4u); the fine coordinate
+// fl(fl(x - lo) * fl(1 / h)) is (x - lo) / h within 3.1u of its size, and
+// E, the largest |x - lo| of the call's items, is held to E / h <= 2^15;
+// so two coordinates of a passing pair differ by less than 16/17 (1 + 5u)
+// + 2^16 * 3.1u < 0.96 < 1, and their floors by at most one.)  The fine
+// hash keys triangles by their centroid and nodes by their position;
+// every candidate it yields still goes through every test of the ddiv
+// sweep: the +-1 ddiv-cell test (each item record keeps its ddiv cell),
+// the block-pair mask, the own-element exclusion, the radius cull, the
+// solve and its accept window.  (The tests are pure predicates, so their
+// conjunction is one whatever order evaluates it: the probe takes the
+// radius cull, which reads only the cull values already in registers,
+// before it reads the mask's byte and the own element's ids.)  A call
+// keeps the 27 ddiv cells when the fine cell would not be at least 2x
+// finer than ddiv (2 h > ddiv: uniform meshes, where ddiv is 1.1 element
+// edges and a triangle's reach ~0.75 of one, self pairs at
+// ddiv_scale_self 0.6, and a call whose in-range triangles include a
+// large one, as the impact's slab side faces once its elements erode), or
+// when E / h > 2^15 (the rounding argument would not hold), or R or E is
+// not finite; the device decides, with no read to the host.  The fine and
+// the ddiv hash share one workspace: one of them is built a call.
+//
+// Per pair and call, five launches on one stream and no read back to the
+// host:
 //   1. narrow_bin, a thread per force column: zeros for a slot out of range
 //      (most of a fracture deck's face inventory); for an in-range item its
-//      cell (cell_of), a triangle's geometry (centroid, circumradius,
+//      ddiv cell (cell_of), a triangle's geometry (centroid, circumradius,
 //      normal, penalty stiffness, the solve's adjugate rows) into the
 //      workspace once, a node's position, mass and velocity beside it, its
-//      slot in its bucket (atomicAdd on the bucket's count) of its side's
-//      hash (triangles by q0's cell, nodes by their position's cell; B
-//      buckets each, B a power of two set by the shapes), and its place in
-//      a list of the in-range items (under a rank's share, only those of
-//      the blocks it sums: list_nodes, list_tris);
-//   2. narrow_scan, a block per 1,024 buckets: the buckets' starts (an
-//      exclusive sum of the counts, each block's offset the sum of the
-//      earlier blocks' counts, which narrow_bin also keeps);
-//   3. narrow_sort, a thread per item: the item, its cell and what the
-//      radius cull reads of it (centroid and circumradius, or position and
-//      mass) at its bucket's start plus its slot: a counting sort, so a
-//      bucket's items lie side by side;
-//   4. narrow_probe, a persistent grid of warps over the list of in-range
-//      items: a node's lanes stride through the triangle hash's buckets of
-//      the 27 cells around its own, a triangle's through the node hash's,
-//      and take only the items whose cell is the probed cell, so hash
-//      collisions drop out and a bucket that two probed cells share is not
-//      visited twice.  (A warp an item: a cell holds hundreds of surface
-//      items when ddiv is ten element sizes, too many for one thread.)  A
-//      candidate must lie in a block pair (k / TB, n / nb) of the side's
-//      mask (pair_ok, or a rank's share under deal_block_pairs): on one
-//      device a pair within one cell always does, the block boxes being
-//      padded by 2 ddiv, but the test keeps the result free of that
-//      argument and dealt ranks exact.  Then today's tests in today's
-//      order: the own-element exclusion, the radius cull, the solve and
-//      the accept window.
+//      place in the work list of in-range items, and R and E raised to its
+//      circumradius and its distance from the grid origin (integer
+//      atomicMax on the float's bits, after a plain read that skips most);
+//      an item of a block that a rank does not sum (list_nodes, list_tris)
+//      has its column written zero here and is hashed but not probed;
+//   2. narrow_hash, a thread per in-range item: the call's rule (fine or
+//      ddiv cells, from R and E, as every later kernel reads it from the
+//      header that block 0 writes), the item's cell in it, and its slot in
+//      its bucket (atomicAdd on the bucket's count) of its side's hash
+//      (triangles by q0's ddiv cell or their centroid's fine cell, nodes
+//      by their position's; B buckets each, B a power of two set by the
+//      shapes);
+//   3. narrow_scan, at most a block an SM, 1,024 buckets a step: the
+//      call's buckets' starts (an exclusive sum of the counts, each step's
+//      offset the sum of the earlier steps' counts, which narrow_hash also
+//      keeps); R and E zeroed for the next call.  A call takes the least
+//      power of two of buckets a side, 64 to B, not below its in-range
+//      items, so the scan reads few buckets where few items are in range;
+//   4. narrow_sort, a thread per in-range item: the item, its ddiv cell
+//      and what the radius cull reads of it (centroid and circumradius, or
+//      position and mass) at its bucket's start plus its slot: a counting
+//      sort, so a bucket's items lie side by side;
+//   5. narrow_probe, a persistent grid of warps over the work list: a
+//      node's lanes read the bucket ranges of the triangle hash's 27 cells
+//      around its own at once and stride over them laid end to end, a
+//      triangle's over the node hash's (hundreds of items a cell on the
+//      ddiv hash, a few on the fine hash), and take only the items whose
+//      cell is the probed cell, so hash collisions drop out and a bucket
+//      that two probed cells share is not visited twice; an item whose
+//      other side's hash is empty writes zeros.  A candidate must lie in a
+//      block pair (k / TB, n / nb) of the side's mask (pair_ok, or a
+//      rank's share under deal_block_pairs): on one device a pair within
+//      one cell always does, the block boxes being padded by 2 ddiv, but
+//      the test keeps the result free of that argument and dealt ranks
+//      exact.
 //
-// Determinism: no float atomics (the counts are integers, and a bucket's
-// order changes no sum).  An item sums its accepted pairs in increasing
-// order of the other side's index: each lane keeps the kList smallest it
-// accepted and has not summed, sorted in registers; the warp merges the
+// Determinism: no float atomics (the counts are integers, R and E maxima,
+// and a bucket's order changes no sum).  An item sums its accepted pairs
+// in increasing order of the other side's index, whichever hash listed
+// them: each lane keeps the kList smallest it accepted and has not summed,
+// with their pair forces, sorted in registers; the warp merges the
 // lanes' lists by repeated warp minima and sums them, as far as the
 // smallest kList-th entry of a lane that held more, and sweeps the 27
 // cells again from there while any lane held more, so no pair is dropped
@@ -69,12 +117,16 @@
 // blk / 3): the association of hakai_tpu's loop, which adds a whole
 // block's sum per block pair.  Both sides call the same device functions
 // on the same workspace, so they agree on every accept decision and every
-// per-pair force.  The source is compiled without FMA contraction
-// (-fmad=false, set in _build.py) and writes every operation in the
-// association order of the plain PyTorch version (ops/contact.py), so
-// kernel and plain version take bitwise equal accept decisions on equal
-// inputs.  Every force column of the pair is written each call, zeros
-// included; on request each item also writes its count of accepted pairs.
+// per-pair force; both hashes accept the same pairs, so a call's forces
+// and counts are bitwise the same on either.  The source is compiled
+// without FMA contraction (-fmad=false, set in _build.py) and writes
+// every operation in the association order of the plain PyTorch version
+// (ops/contact.py), so kernel and plain version take bitwise equal accept
+// decisions on equal inputs.  Every force column of the pair is written
+// each call, zeros included; on request each item also writes its count of
+// accepted pairs, of the candidates its warp visited (those of its probed
+// cells) and of those that passed the radius cull, and the call's rule
+// stays in the workspace's header.
 //
 // S is bound by device-memory bytes: its table (4 bytes an entry), the
 // force buffer and the output, 41 MB at the contact deck's kernel state
@@ -97,9 +149,18 @@ namespace {
 constexpr int kThreads = 128;   // threads per CTA of the narrow-phase kernels
 constexpr int kScan = 1024;     // threads (and buckets) of a narrow_scan block
 constexpr int kList = 2;        // accepted pairs a lane sorts a sweep
+constexpr int kBatch = 2;       // strides of a sweep whose reads overlap
 constexpr int kGeo = 28;        // workspace values per triangle
 constexpr int kNode = 8;        // workspace values per node
+constexpr int kHeader = 16;     // int32 words of the work list's header
 constexpr unsigned kWarp = 0xffffffffu;
+
+// the header (int32 words): [0] the work list's counter, [1] its final
+// count, [2] the call's rule (1: the fine hash), [3] the call's buckets a
+// side less one (its mask), [4, 6) R and [6, 8) E as the bits of the
+// element type (raised by narrow_bin, zeroed by narrow_scan), [8, 10)
+// 1 / h (rule, mask and 1 / h written by narrow_hash)
+constexpr int kRule = 2, kMask = 3, kReach = 4, kExtent = 6, kInv = 8;
 
 // one triangle, as the tests read it; its workspace row holds, in fours,
 // ctr|rmax, q0|kpen, vj|-, nrm|-, im[0]|-, im[1]|-, im[2]|-
@@ -127,7 +188,7 @@ struct Args {
   const uint8_t *ok_nodes, *ok_tris;
   // (n_chunks,) node blocks and (tri_chunks,) triangle blocks with a set
   // block pair in that side's mask, or null (all): an item of another
-  // block is hashed but not listed, so its column is written zero
+  // block is hashed but not probed, so its column is written zero
   const uint8_t *list_nodes, *list_tris;
   const uint8_t* overlap;  // ()
   const T* lo;             // (3,) grid origin (all_min)
@@ -137,22 +198,25 @@ struct Args {
   T young, kc, Cr, myu, d_lim, ddiv;
   T* force;                // row stride ld; node slot n at column off_i + n,
   int64_t ld, off_i, off_t;    // triangle k at off_t + k
-  int32_t* count;          // (Cp + Tp,) accepted pairs per item, or null
+  int32_t* count;          // (3, Cp + Tp) per item: accepted pairs,
+                           // candidates visited, past the radius cull; or
+                           // null
   // the workspace: buckets [0, B) hash the triangles, [B, 2B) the nodes;
-  // fill, tile_fill and n_work[0] are zero between calls
+  // fill, tile_fill, the header's counter and R and E are zero between
+  // calls
   int32_t* fill;           // (2B,) items a bucket
   int32_t* start;          // (2B + 1,) a bucket's first sorted item
   int32_t* tile_fill;      // (tiles,) items in each kScan buckets
-  int32_t* n_work;         // (2,) items listed: counter, its final count
+  int32_t* head;           // (kHeader,) the header
   int32_t* work;           // (F2 + Ci,) the in-range items' columns
   int tiles;               // 2B / kScan, 1 at least
-  int4* link;              // (F2 + Ci,) slot in the bucket (-1: out of
-                           // range), the cell
-  int4* sorted;            // (F2 + Ci,) item, cell, by bucket
+  int4* link;              // (F2 + Ci,) slot in the bucket, the ddiv cell
+  int4* sorted;            // (F2 + Ci,) item, ddiv cell, by bucket
   T* cull;                 // (F2 + Ci, 4) ctr|rmax or p|m, by bucket
   T* tgeo;                 // (F2, kGeo)
   T* ngeo;                 // (Ci, kNode)
-  uint32_t mask;           // B - 1
+  uint32_t mask;           // B - 1: a call takes the least power of two of
+                           // buckets a side, 64 to B, not below its items
 };
 
 template <typename T>
@@ -166,10 +230,76 @@ __device__ __forceinline__ int cell_of(T x, T lo, T ddiv) {
   return (int)ceil((x - lo) / ddiv);
 }
 
+// the fine cell of a coordinate: floor((x - lo) * (1 / h)), two roundings
+template <typename T>
+__device__ __forceinline__ int fine_of(T x, T lo, T inv) {
+  return (int)floor((x - lo) * inv);
+}
+
 __device__ __forceinline__ uint32_t bucket(int x, int y, int z,
                                            uint32_t mask) {
   return (((uint32_t)x * 73856093u) ^ ((uint32_t)y * 19349663u)
           ^ ((uint32_t)z * 83492791u)) & mask;
+}
+
+// an element-type value as unsigned bits in the header: for a value >= 0
+// (or NaN with its sign cleared) the bits order as the values do
+__device__ __forceinline__ unsigned int to_bits(float x) {
+  return __float_as_uint(x);
+}
+__device__ __forceinline__ unsigned long long to_bits(double x) {
+  return (unsigned long long)__double_as_longlong(x);
+}
+__device__ __forceinline__ float from_bits(unsigned int u) {
+  return __uint_as_float(u);
+}
+__device__ __forceinline__ double from_bits(unsigned long long u) {
+  return __longlong_as_double((long long)u);
+}
+
+template <typename T>
+struct BitsOf;
+template <>
+struct BitsOf<float> { using type = unsigned int; };
+template <>
+struct BitsOf<double> { using type = unsigned long long; };
+template <typename T>
+using Bits = typename BitsOf<T>::type;
+
+template <typename T>
+__device__ __forceinline__ T load_word(const int32_t* w) {
+  return from_bits(*reinterpret_cast<const Bits<T>*>(w));
+}
+
+// the header's maximum at w raised to |v|; the plain read skips the
+// atomic once the maximum is above v
+template <typename T>
+__device__ __forceinline__ void raise_max(int32_t* w, T v) {
+  Bits<T>* p = reinterpret_cast<Bits<T>*>(w);
+  const Bits<T> b = to_bits(fabs(v));
+  if (b > *reinterpret_cast<volatile Bits<T>*>(p)) atomicMax(p, b);
+}
+
+// the call's rule from R and E (every thread of narrow_hash takes it
+// alike): the fine hash when its cell h = 17/16 R is at most half of ddiv
+// and E / h <= 2^15, with 1 / h; R = 0, or R or E not finite, keeps ddiv's
+template <typename T>
+__device__ __forceinline__ bool fine_rule(const Args<T>& a, T* inv) {
+  const T h = load_word<T>(a.head + kReach) * T(1.0625);
+  *inv = T(1) / h;
+  return h * T(2) <= a.ddiv
+         && load_word<T>(a.head + kExtent) * *inv <= T(32768);
+}
+
+// place of this thread in a list: one atomicAdd per converged group of
+// the warp's lanes
+__device__ __forceinline__ int append(int32_t* counter) {
+  const unsigned act = __activemask();
+  const int lane = threadIdx.x & 31, leader = __ffs(act) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(counter, __popc(act));
+  base = __shfl_sync(act, base, leader);
+  return base + __popc(act & ((1u << lane) - 1u));
 }
 
 // four workspace values (a row's fours are 16-byte aligned for float,
@@ -193,10 +323,11 @@ __device__ __forceinline__ void st4(double* p, double a, double b, double c,
   reinterpret_cast<double2*>(p)[1] = make_double2(c, d);
 }
 
-// per-triangle geometry (contact.py:266-303) into triangle k's row
+// per-triangle geometry (contact.py:266-303) into triangle k's row; its
+// centroid and circumradius into c and rmax
 template <typename T>
-__device__ void tri_geometry(const Args<T>& a, int64_t k) {
-  T q0[3], q1[3], q2[3], c[3], v1[3], v2[3], vj[3], nrm[3], im[3][3];
+__device__ void tri_geometry(const Args<T>& a, int64_t k, T c[3], T& rmax) {
+  T q0[3], q1[3], q2[3], v1[3], v2[3], vj[3], nrm[3], im[3][3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     q0[i] = a.kin[i * a.R + a.t0 + k];
@@ -210,7 +341,7 @@ __device__ void tri_geometry(const Args<T>& a, int64_t k) {
   const T r0 = sq3(q0[0] - c[0], q0[1] - c[1], q0[2] - c[2]);
   const T r1 = sq3(q1[0] - c[0], q1[1] - c[1], q1[2] - c[2]);
   const T r2 = sq3(q2[0] - c[0], q2[1] - c[1], q2[2] - c[2]);
-  const T rmax = sqrt(mx(mx(r0, r1), r2));
+  rmax = sqrt(mx(mx(r0, r1), r2));
   const T L1 = sqrt(sq3(v1[0], v1[1], v1[2]));
   const T L2 = sqrt(sq3(v2[0], v2[1], v2[2]));
   const T Lm = mx(L1, L2);
@@ -318,6 +449,13 @@ __device__ __forceinline__ bool within_radius(const Geo<T>& g,
   return dpc < g.rmax;
 }
 
+// the +-1 ddiv-cell test of a candidate's record against the probing
+// item's ddiv cell
+__device__ __forceinline__ bool near_cell(const int4& r, const int c[3]) {
+  return abs(r.y - c[0]) <= 1 && abs(r.z - c[1]) <= 1
+         && abs(r.w - c[2]) <= 1;
+}
+
 // the solve, its accept window and the force of a (triangle, node) pair
 // that passed the cell, own-element and radius tests (contact.py:312-340)
 template <typename T>
@@ -346,51 +484,119 @@ __device__ __forceinline__ bool pair_force(const Args<T>& a, const Geo<T>& g,
   return true;
 }
 
-// f(item, sorted position), spread over the warp's lanes, once for every
-// item of side `side`'s hash whose cell lies within one cell of c in each
-// direction: the buckets of the 27 cells around c, each filtered by the
-// exact cell
+// The cell of a probing item and the call's hash: its ddiv cell, and on
+// the fine hash its fine cell and 1 / h
+template <typename T>
+struct Probe {
+  int c[3];                // ddiv cell
+  int f[3];                // fine cell (fine hash only)
+  bool fine;
+  uint32_t mask;           // the call's buckets a side less one
+  T inv, lo[3];
+};
+
+// f(record, cull values), spread over the warp's lanes, once for every
+// item of side `side`'s hash whose cell lies within one cell of the
+// probing item's in each direction.  Lane l < 27 reads the bucket range of
+// cell l around the item (its ddiv cell, or on the fine hash its fine
+// cell); the warp then strides over the 27 ranges laid end to end, each
+// lane finding its range by a binary search over the ranges' offsets and
+// reading kBatch strides' records and cull values at once, so a sweep
+// costs two dependent reads and as many more as the ranges hold items
+// over 32 kBatch, whether the cells hold thousands of items or a few.
+// Each bucket is filtered by the exact cell: the record's ddiv cell, or
+// the fine cell of its cull values.  Every lane runs every stride (f only
+// where its place lies in the ranges)
 template <typename T, typename F>
 __device__ __forceinline__ void for_near(const Args<T>& a, int side,
-                                         const int c[3], int lane, F f) {
-  const int32_t* start = a.start + side * (a.mask + 1);
-#pragma unroll 1
-  for (int dz = -1; dz <= 1; ++dz)
-#pragma unroll 1
-    for (int dy = -1; dy <= 1; ++dy)
-#pragma unroll 1
-      for (int dx = -1; dx <= 1; ++dx) {
-        const int x = c[0] + dx, y = c[1] + dy, z = c[2] + dz;
-        const uint32_t b = bucket(x, y, z, a.mask);
-        const int end = start[b + 1];
-        for (int j = start[b] + lane; j < end; j += 32) {
-          const int4 r = a.sorted[j];
-          if (r.y == x && r.z == y && r.w == z) f(r.x, j);
-        }
+                                         const Probe<T>& pr, int lane, F f) {
+  const int key[3] = {pr.fine ? pr.f[0] : pr.c[0],
+                       pr.fine ? pr.f[1] : pr.c[1],
+                       pr.fine ? pr.f[2] : pr.c[2]};
+  const int32_t* start = a.start + side * (pr.mask + 1);
+  int first = 0, size = 0;
+  if (lane < 27) {
+    const uint32_t b = bucket(key[0] + lane % 3 - 1, key[1] + lane / 3 % 3 - 1,
+                              key[2] + lane / 9 - 1, pr.mask);
+    first = start[b];
+    size = start[b + 1] - first;
+  }
+  int end = size;                              // the ranges' inclusive sums
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int z = __shfl_up_sync(kWarp, end, d);
+    if (lane >= d) end += z;
+  }
+  const int total = __shfl_sync(kWarp, end, 31), off = end - size;
+  for (int base = 0; base < total; base += 32 * kBatch) {
+    int c[kBatch], j[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int q = base + 32 * u + lane;
+      c[u] = 0;                                // the last range from <= q
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1) {
+        const int o = __shfl_sync(kWarp, off, (c[u] + step) & 31);
+        if (c[u] + step < 27 && o <= q) c[u] += step;
       }
+      const int from = __shfl_sync(kWarp, first, c[u]),
+                at = __shfl_sync(kWarp, off, c[u]);
+      j[u] = q < total ? from + q - at : -1;
+    }
+    // the batch's records and cull values, read together
+    int4 r[kBatch];
+    T v[kBatch][4];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (j[u] >= 0) {
+        r[u] = a.sorted[j[u]];
+        ld4(a.cull + 4 * (int64_t)j[u], v[u]);
+      }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (j[u] < 0) continue;
+      const int x = key[0] + c[u] % 3 - 1, y = key[1] + c[u] / 3 % 3 - 1,
+                z = key[2] + c[u] / 9 - 1;
+      if (pr.fine ? fine_of(v[u][0], pr.lo[0], pr.inv) == x
+                        && fine_of(v[u][1], pr.lo[1], pr.inv) == y
+                        && fine_of(v[u][2], pr.lo[2], pr.inv) == z
+                  : r[u].y == x && r[u].z == y && r[u].w == z)
+        f(r[u], v[u]);
+    }
+  }
 }
 
 // the kList smallest indices added, ascending (INT_MAX: an empty slot),
-// and how many were added; constant indices keep it in registers
+// each with its pair force, and how many were added; constant indices
+// keep it in registers
+template <typename T>
 struct Smallest {
   int v[kList];
+  T f[kList][3];
   int added = 0;
 
   __device__ __forceinline__ Smallest() {
 #pragma unroll
     for (int s = 0; s < kList; ++s) v[s] = INT_MAX;
   }
-  __device__ __forceinline__ void add(int k) {
+  __device__ __forceinline__ void add(int k, const T g[3]) {
     ++added;
 #pragma unroll
     for (int s = kList - 1; s >= 0; --s) {
-      const int below = s > 0 ? v[s - 1] : INT_MIN;
-      if (v[s] > k) v[s] = below > k ? below : k;
+      if (v[s] <= k) continue;
+      const bool shift = s > 0 && v[s - 1] > k;
+#pragma unroll
+      for (int r = 0; r < 3; ++r) f[s][r] = shift ? f[s - 1][r] : g[r];
+      v[s] = shift ? v[s - 1] : k;
     }
   }
   __device__ __forceinline__ void pop() {
 #pragma unroll
-    for (int s = 0; s + 1 < kList; ++s) v[s] = v[s + 1];
+    for (int s = 0; s + 1 < kList; ++s) {
+      v[s] = v[s + 1];
+#pragma unroll
+      for (int r = 0; r < 3; ++r) f[s][r] = f[s + 1][r];
+    }
     v[kList - 1] = INT_MAX;
   }
   // the largest index below which this lane's list is complete
@@ -401,52 +607,73 @@ struct Smallest {
 
 // the accepted pairs of one item, whose lanes each hold a Smallest of a
 // sweep, in increasing index order up to the lanes' common complete_to:
-// sum(k) on every lane for each (the warp's lanes agree on every value).
-// Returns how far the sweep's pairs are summed (INT_MAX: all of them).
-template <typename Sum>
-__device__ __forceinline__ int merge(Smallest& s, Sum sum) {
+// sum(k, f) on every lane for each, f the pair force from the lane that
+// holds k (the warp's lanes agree on every value).  Returns how far the
+// sweep's pairs are summed (INT_MAX: all of them).
+template <typename T, typename Sum>
+__device__ __forceinline__ int merge(Smallest<T>& s, Sum sum) {
   const int lim = __reduce_min_sync(kWarp, s.complete_to());
   for (;;) {
     const int k = __reduce_min_sync(kWarp, s.v[0]);
     if (k == INT_MAX || k > lim) break;
+    const int owner = __ffs(__ballot_sync(kWarp, s.v[0] == k)) - 1;
+    T f[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) f[r] = __shfl_sync(kWarp, s.f[0][r], owner);
     if (s.v[0] == k) s.pop();
-    sum(k);
+    sum(k, f);
   }
   return lim;
 }
 
+// a probing item's count of accepted pairs, and on its lane, of the
+// candidates it visited in the first sweep and of those past the radius
+// cull
+struct Tally {
+  int hits = 0, visits = 0, near = 0;
+};
+
 // force_i of in-range node n (its accepted triangles in increasing order,
 // summed per triangle block into blk, the blocks added in order) into acc,
-// on every lane of the node's warp; returns the count
+// on every lane of the node's warp
 template <typename T, bool SELF>
-__device__ int node_sums(const Args<T>& a, int64_t n, int lane, T acc[3]) {
+__device__ void node_sums(const Args<T>& a, int64_t n, Probe<T> pr,
+                          int lane, T acc[3], Tally& t) {
   Node<T> nd;
   load_pos(a.ngeo + n * kNode, nd);
   load_vel(a, n, nd);
   const int4 own = a.link[a.F2 + n];
-  const int c[3] = {own.y, own.z, own.w};
+  pr.c[0] = own.y; pr.c[1] = own.z; pr.c[2] = own.w;
+  if (pr.fine) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) pr.f[r] = fine_of(nd.p[r], pr.lo[r], pr.inv);
+  }
   const uint8_t* ok = a.ok_nodes + n / a.nb;   // column of (t, n / nb)
   T blk[3] = {T(0), T(0), T(0)};
-  int last = -1, cur = -1, hits = 0;
+  int last = -1, cur = -1;
   for (;;) {
-    Smallest s;
-    for_near(a, 0, c, lane, [&](int k, int j) {
-      if (k <= last || !ok[(int64_t)(k / a.TB) * a.n_chunks]
-          || own_element<SELF>(a.enodes, a.F2, k, nd.id))
+    Smallest<T> s;
+    const bool first = last < 0;
+    for_near(a, 0, pr, lane, [&](const int4& r, const T v[4]) {
+      const int k = r.x;
+      t.visits += first;
+      if (k <= last || (pr.fine && !near_cell(r, pr.c))) return;
+      // the tests in order: the mask, the own element, the radius cull;
+      // the cull reads nothing more, so the mask's byte and the rest of
+      // the triangle's row are read, together, only where it passes
+      Geo<T> g;
+      g.ctr[0] = v[0]; g.ctr[1] = v[1]; g.ctr[2] = v[2]; g.rmax = v[3];
+      const bool near = within_radius(g, nd);
+      if (!near) return;
+      const bool in_blocks = ok[(int64_t)(k / a.TB) * a.n_chunks];
+      load_rest(a, k, g);
+      if (!in_blocks || own_element<SELF>(a.enodes, a.F2, k, nd.id))
         return;
-      Geo<T> g;
-      load_cull(a.cull + 4 * (int64_t)j, g);
-      if (!within_radius(g, nd)) return;
-      load_rest(a, k, g);
+      t.near += first;
       T f[3];
-      if (pair_force(a, g, nd, f)) s.add(k);
+      if (pair_force(a, g, nd, f)) s.add(k, f);
     });
-    last = merge(s, [&](int k) {
-      Geo<T> g;
-      load_cull(a.tgeo + (int64_t)k * kGeo, g);
-      load_rest(a, k, g);
-      T f[3];
-      pair_force(a, g, nd, f);
+    last = merge(s, [&](int k, const T f[3]) {
       if (k / a.TB != cur) {
 #pragma unroll
         for (int r = 0; r < 3; ++r) {
@@ -457,20 +684,20 @@ __device__ int node_sums(const Args<T>& a, int64_t n, int lane, T acc[3]) {
       }
 #pragma unroll
       for (int r = 0; r < 3; ++r) blk[r] += f[r];
-      ++hits;
+      ++t.hits;
     });
     if (last == INT_MAX) break;
   }
 #pragma unroll
   for (int r = 0; r < 3; ++r) acc[r] += blk[r];
-  return hits;
 }
 
 // force_t of in-range triangle k (its accepted nodes in increasing order,
 // summed per node block into blk, blk / 3 added block by block) into acc,
-// on every lane of the triangle's warp; returns the count
+// on every lane of the triangle's warp
 template <typename T, bool SELF>
-__device__ int tri_sums(const Args<T>& a, int64_t k, int lane, T acc[3]) {
+__device__ void tri_sums(const Args<T>& a, int64_t k, Probe<T> pr, int lane,
+                         T acc[3], Tally& t) {
   Geo<T> g;
   load_cull(a.tgeo + k * kGeo, g);
   load_rest(a, k, g);
@@ -480,33 +707,40 @@ __device__ int tri_sums(const Args<T>& a, int64_t k, int lane, T acc[3]) {
     for (int i = 0; i < 8; ++i) en[i] = a.enodes[i * (int64_t)a.F2 + k];
   }
   const int4 own = a.link[k];
-  const int c[3] = {own.y, own.z, own.w};
+  pr.c[0] = own.y; pr.c[1] = own.z; pr.c[2] = own.w;
+  if (pr.fine) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) pr.f[r] = fine_of(g.ctr[r], pr.lo[r], pr.inv);
+  }
   const uint8_t* ok = a.ok_tris + (int64_t)(k / a.TB) * a.n_chunks;
   T blk[3] = {T(0), T(0), T(0)};
-  int last = -1, cur = -1, hits = 0;
+  int last = -1, cur = -1;
   for (;;) {
-    Smallest s;
-    for_near(a, 1, c, lane, [&](int n, int j) {
-      if (n <= last || !ok[n / a.nb]) return;
+    Smallest<T> s;
+    const bool first = last < 0;
+    for_near(a, 1, pr, lane, [&](const int4& r, const T v[4]) {
+      const int n = r.x;
+      t.visits += first;
+      if (n <= last || (pr.fine && !near_cell(r, pr.c))) return;
+      // the tests in order: the mask, the own element, the radius cull;
+      // the cull reads nothing more, so the mask's byte and the node's id
+      // and velocity are read, together, only where it passes
+      Node<T> nd;
+      nd.p[0] = v[0]; nd.p[1] = v[1]; nd.p[2] = v[2]; nd.m = v[3];
+      if (!within_radius(g, nd)) return;
+      const bool in_blocks = ok[n / a.nb];
+      load_vel(a, n, nd);
+      if (!in_blocks) return;
       if (SELF) {
-        const int id = a.ids[n];
 #pragma unroll
         for (int i = 0; i < 8; ++i)
-          if (en[i] == id) return;
+          if (en[i] == nd.id) return;
       }
-      Node<T> nd;
-      load_pos(a.cull + 4 * (int64_t)j, nd);
-      if (!within_radius(g, nd)) return;
-      load_vel(a, n, nd);
+      t.near += first;
       T f[3];
-      if (pair_force(a, g, nd, f)) s.add(n);
+      if (pair_force(a, g, nd, f)) s.add(n, f);
     });
-    last = merge(s, [&](int n) {
-      Node<T> nd;
-      load_pos(a.ngeo + (int64_t)n * kNode, nd);
-      load_vel(a, n, nd);
-      T f[3];
-      pair_force(a, g, nd, f);
+    last = merge(s, [&](int n, const T f[3]) {
       if (n / a.nb != cur) {
 #pragma unroll
         for (int r = 0; r < 3; ++r) {
@@ -517,34 +751,42 @@ __device__ int tri_sums(const Args<T>& a, int64_t k, int lane, T acc[3]) {
       }
 #pragma unroll
       for (int r = 0; r < 3; ++r) blk[r] += f[r];
-      ++hits;
+      ++t.hits;
     });
     if (last == INT_MAX) break;
   }
 #pragma unroll
   for (int r = 0; r < 3; ++r) acc[r] += blk[r] / T(3);
-  return hits;
+}
+
+// column i's zeros: its force and, on request, its counts
+template <typename T>
+__device__ __forceinline__ void zero_column(const Args<T>& a, int64_t i,
+                                            int64_t col, int64_t cols) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r) a.force[r * a.ld + col] = T(0);
+  if (a.count != nullptr) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) a.count[r * cols + i] = 0;
+  }
 }
 
 // a thread per force column (node slots, then triangle slots): zeros for
-// one out of range; an in-range item's cell, workspace row and slot in its
-// bucket (slot -1: out of range), and its place in the work list if its
-// block is listed (else zeros)
+// one out of range; an in-range item's ddiv cell, workspace row and place
+// in the work list, R and E raised; zeros for an item of a block that is
+// not listed
 template <typename T>
 __global__ void __launch_bounds__(kThreads) narrow_bin(Args<T> a) {
   const int64_t Cp = (int64_t)a.n_chunks * a.nb;
+  const int64_t cols = Cp + (int64_t)a.tri_chunks * a.TB;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Cp + (int64_t)a.tri_chunks * a.TB) return;
+  if (i >= cols) return;
   const bool tri = i >= Cp;
   const int64_t j = tri ? i - Cp : i;          // the index on its side
   const bool item = j < (tri ? a.F2 : a.Ci);
-  const int64_t li = tri ? j : a.F2 + j;       // its link
+  const int64_t out = tri ? a.off_t + j : a.off_i + j;
   if (!item || !*a.overlap || !(tri ? a.tri_in[j] : a.node_in[j])) {
-    if (item) a.link[li].x = -1;
-    const int64_t col = tri ? a.off_t + j : a.off_i + j;
-#pragma unroll
-    for (int r = 0; r < 3; ++r) a.force[r * a.ld + col] = T(0);
-    if (a.count != nullptr) a.count[i] = 0;
+    zero_column(a, i, out, cols);
     return;
   }
   const int64_t col = tri ? a.t0 + j : a.cs + j;   // q0, or the node
@@ -552,126 +794,222 @@ __global__ void __launch_bounds__(kThreads) narrow_bin(Args<T> a) {
 #pragma unroll
   for (int r = 0; r < 3; ++r)
     c[r] = cell_of(a.kin[r * a.R + col], a.lo[r], a.ddiv);
+  T x[3];                                      // centroid, or position
   if (tri) {
-    tri_geometry(a, j);
+    T rmax;
+    tri_geometry(a, j, x, rmax);
+    raise_max(a.head + kReach, rmax);
   } else {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) x[r] = a.kin[r * a.R + col];
     T* w = a.ngeo + j * kNode;
-    st4(w, a.kin[col], a.kin[a.R + col], a.kin[2 * a.R + col], a.mass[j]);
+    st4(w, x[0], x[1], x[2], a.mass[j]);
     st4(w + 4, a.kin[3 * a.R + col], a.kin[4 * a.R + col],
         a.kin[5 * a.R + col], T(0));
   }
-  const uint32_t b = (tri ? 0 : a.mask + 1) + bucket(c[0], c[1], c[2],
-                                                      a.mask);
-  atomicAdd(a.tile_fill + b / kScan, 1);
-  a.link[li] = make_int4(atomicAdd(a.fill + b, 1), c[0], c[1], c[2]);
+  raise_max(a.head + kExtent,
+            mx(mx(fabs(x[0] - a.lo[0]), fabs(x[1] - a.lo[1])),
+               fabs(x[2] - a.lo[2])));
+  a.link[tri ? j : a.F2 + j] = make_int4(0, c[0], c[1], c[2]);
+  a.work[append(a.head)] = (int)i;
   const uint8_t* listed = tri ? a.list_tris : a.list_nodes;
-  if (listed == nullptr || listed[tri ? j / a.TB : j / a.nb]) {
-    a.work[atomicAdd(a.n_work, 1)] = (int)i;
-  } else {
-    const int64_t out = tri ? a.off_t + j : a.off_i + j;
+  if (listed != nullptr && !listed[tri ? j / a.TB : j / a.nb])
+    zero_column(a, i, out, cols);
+}
+
+// an in-range item's cell in the call's hash: its ddiv cell, or the fine
+// cell of its row's first three values (centroid, or position)
+template <typename T>
+__device__ __forceinline__ uint32_t item_bucket(const Args<T>& a, bool tri,
+                                                int64_t j, const int4& l,
+                                                bool fine, T inv,
+                                                uint32_t mask) {
+  int c[3] = {l.y, l.z, l.w};
+  if (fine) {
+    T v[4];
+    ld4(tri ? a.tgeo + j * kGeo : a.ngeo + j * kNode, v);
 #pragma unroll
-    for (int r = 0; r < 3; ++r) a.force[r * a.ld + out] = T(0);
-    if (a.count != nullptr) a.count[i] = 0;
+    for (int r = 0; r < 3; ++r) c[r] = fine_of(v[r], a.lo[r], inv);
+  }
+  return (tri ? 0 : mask + 1) + bucket(c[0], c[1], c[2], mask);
+}
+
+// one atomicAdd per group of converged lanes of the warp with the same
+// key, each adding one to *p
+__device__ __forceinline__ void grouped_inc(int32_t* p, unsigned key) {
+  const unsigned same = __match_any_sync(__activemask(), key);
+  if ((int)(threadIdx.x & 31) == __ffs(same) - 1)
+    atomicAdd(p, __popc(same));
+}
+
+// this lane's place among the lanes of the warp that add to *p: one
+// atomicAdd per group of converged lanes with the same p
+__device__ __forceinline__ int grouped_add(int32_t* p, unsigned key) {
+  const unsigned act = __activemask();
+  const unsigned same = __match_any_sync(act, key);
+  const int lane = threadIdx.x & 31, leader = __ffs(same) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(p, __popc(same));
+  base = __shfl_sync(same, base, leader);
+  return base + __popc(same & ((1u << lane) - 1u));
+}
+
+// a thread per in-range item: the call's rule and buckets (block 0 writes
+// them to the header), the item's bucket and its slot there
+template <typename T>
+__global__ void __launch_bounds__(kThreads) narrow_hash(Args<T> a) {
+  T inv;
+  const bool fine = fine_rule(a, &inv);
+  const int n = a.head[0];
+  uint32_t mask = 63;
+  while (mask < a.mask && (int64_t)mask + 1 < n) mask = 2 * mask + 1;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    a.head[kRule] = fine;
+    a.head[kMask] = (int)mask;
+    *reinterpret_cast<Bits<T>*>(a.head + kInv) = to_bits(inv);
+  }
+  const int64_t Cp = (int64_t)a.n_chunks * a.nb;
+  for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < n;
+       w += gridDim.x * blockDim.x) {
+    const int64_t i = a.work[w];
+    const bool tri = i >= Cp;
+    const int64_t j = tri ? i - Cp : i, li = tri ? j : a.F2 + j;
+    const uint32_t b = item_bucket(a, tri, j, a.link[li], fine, inv, mask);
+    grouped_inc(a.tile_fill + b / kScan, b / kScan);
+    a.link[li].x = grouped_add(a.fill + b, b);
   }
 }
 
-// a block per kScan buckets: start = the exclusive sum of fill (n = 2B
-// entries, and the total at start[n]); fill left zero; the work list's
-// count moved to n_work[1] and its counter zeroed
+// kScan buckets a step of a block, over the call's buckets (n = 2
+// (head[kMask] + 1)): start = the exclusive sum of fill, and the total at
+// start[n]; fill left zero; the work list's count moved to head[1], its
+// counter, R and E zeroed
 __global__ void __launch_bounds__(kScan)
 narrow_scan(int32_t* __restrict__ fill, int32_t* __restrict__ start,
-            const int32_t* __restrict__ tile_fill, int32_t* n_work, int n) {
+            const int32_t* __restrict__ tile_fill, int32_t* head) {
   __shared__ int part[kScan / 32];
   __shared__ int offset;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int o = 0;                                   // the earlier blocks' items
-  for (int q = threadIdx.x; q < (int)blockIdx.x; q += kScan)
-    o += tile_fill[q];
-  o = __reduce_add_sync(kWarp, o);
-  if (lane == 0) part[warp] = o;
-  __syncthreads();
-  if (warp == 0) {
-    const int w = __reduce_add_sync(kWarp, lane < kScan / 32 ? part[lane]
-                                                             : 0);
-    if (lane == 0) offset = w;
-  }
-  __syncthreads();
-  const int b = blockIdx.x * kScan + threadIdx.x;
-  const int x = b < n ? fill[b] : 0;
-  int y = x;                                   // inclusive, in the warp
+  const int n = 2 * (head[kMask] + 1);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    head[1] = head[0];
+    head[0] = 0;
 #pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int z = __shfl_up_sync(kWarp, y, d);
-    if (lane >= d) y += z;
+    for (int w = kReach; w < kInv; ++w) head[w] = 0;
   }
-  if (lane == 31) part[warp] = y;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < kScan / 32 ? part[lane] : 0;
+  for (int tile = blockIdx.x; tile * kScan < n; tile += gridDim.x) {
+    __syncthreads();                           // part and offset are free
+    int o = 0;                                 // the earlier tiles' items
+    for (int q = threadIdx.x; q < tile; q += kScan) o += tile_fill[q];
+    o = __reduce_add_sync(kWarp, o);
+    if (lane == 0) part[warp] = o;
+    __syncthreads();
+    if (warp == 0) {
+      const int w = __reduce_add_sync(kWarp, lane < kScan / 32 ? part[lane]
+                                                               : 0);
+      if (lane == 0) offset = w;
+    }
+    __syncthreads();
+    const int b = tile * kScan + threadIdx.x;
+    const int x = b < n ? fill[b] : 0;
+    int y = x;                                 // inclusive, in the warp
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-      const int z = __shfl_up_sync(kWarp, w, d);
-      if (lane >= d) w += z;
+      const int z = __shfl_up_sync(kWarp, y, d);
+      if (lane >= d) y += z;
     }
-    if (lane < kScan / 32) part[lane] = w;
-  }
-  __syncthreads();
-  const int incl = offset + y + (warp > 0 ? part[warp - 1] : 0);
-  if (b < n) {
-    start[b] = incl - x;
-    fill[b] = 0;
-  }
-  if (b == n - 1) start[n] = incl;
-  if (b == 0) {
-    n_work[1] = n_work[0];
-    n_work[0] = 0;
+    if (lane == 31) part[warp] = y;
+    __syncthreads();
+    if (warp == 0) {
+      int w = lane < kScan / 32 ? part[lane] : 0;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int z = __shfl_up_sync(kWarp, w, d);
+        if (lane >= d) w += z;
+      }
+      if (lane < kScan / 32) part[lane] = w;
+    }
+    __syncthreads();
+    const int incl = offset + y + (warp > 0 ? part[warp - 1] : 0);
+    if (b < n) {
+      start[b] = incl - x;
+      fill[b] = 0;
+    }
+    if (b == n - 1) start[n] = incl;
   }
 }
 
-// a thread per in-range item: the item, its cell and its cull values at
-// its bucket's start plus its slot
+// a thread per in-range item: the item, its ddiv cell and its cull values
+// at its bucket's start plus its slot
 template <typename T>
 __global__ void __launch_bounds__(kThreads) narrow_sort(Args<T> a) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (int64_t)a.F2 + a.Ci) return;
-  const int4 l = a.link[i];
-  if (l.x < 0) return;
-  const bool tri = i < a.F2;
-  const int64_t j = tri ? i : i - a.F2;
-  const int pos = a.start[(tri ? 0 : a.mask + 1)
-                          + bucket(l.y, l.z, l.w, a.mask)] + l.x;
-  a.sorted[pos] = make_int4((int)j, l.y, l.z, l.w);
-  T v[4];
-  ld4(tri ? a.tgeo + j * kGeo : a.ngeo + j * kNode, v);
-  st4(a.cull + 4 * (int64_t)pos, v[0], v[1], v[2], v[3]);
+  const bool fine = a.head[kRule] != 0;
+  const uint32_t mask = (uint32_t)a.head[kMask];
+  const T inv = load_word<T>(a.head + kInv);
+  const int64_t Cp = (int64_t)a.n_chunks * a.nb;
+  const int n = a.head[1];
+  for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < n;
+       w += gridDim.x * blockDim.x) {
+    const int64_t i = a.work[w];
+    const bool tri = i >= Cp;
+    const int64_t j = tri ? i - Cp : i;
+    const int4 l = a.link[tri ? j : a.F2 + j];
+    const int pos = a.start[item_bucket(a, tri, j, l, fine, inv, mask)]
+                    + l.x;
+    a.sorted[pos] = make_int4((int)j, l.y, l.z, l.w);
+    T v[4];
+    ld4(tri ? a.tgeo + j * kGeo : a.ngeo + j * kNode, v);
+    st4(a.cull + 4 * (int64_t)pos, v[0], v[1], v[2], v[3]);
+  }
 }
 
 // a persistent grid of warps over the work list: each listed item's sums
-// into its force column; tile_fill zeroed for the next call
+// into its force column (and on request its counts); tile_fill zeroed for
+// the next call
 template <typename T, bool SELF>
 __global__ void __launch_bounds__(kThreads) narrow_probe(Args<T> a) {
   for (int q = blockIdx.x * blockDim.x + threadIdx.x; q < a.tiles;
        q += gridDim.x * blockDim.x)
     a.tile_fill[q] = 0;
   const int64_t Cp = (int64_t)a.n_chunks * a.nb;
-  const int lane = threadIdx.x & 31, listed = a.n_work[1];
-  for (int w = blockIdx.x * (kThreads / 32) + threadIdx.x / 32; w < listed;
+  const int64_t cols = Cp + (int64_t)a.tri_chunks * a.TB;
+  const int lane = threadIdx.x & 31, items = a.head[1];
+  Probe<T> pr;
+  pr.fine = a.head[kRule] != 0;
+  pr.mask = (uint32_t)a.head[kMask];
+  pr.inv = load_word<T>(a.head + kInv);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) pr.lo[r] = a.lo[r];
+  // whether each hash holds an item (triangles, nodes): an item facing an
+  // empty hash has no candidate
+  const int tris = a.start[pr.mask + 1];
+  const bool hashed[2] = {tris > 0, a.start[2 * (pr.mask + 1)] > tris};
+  for (int w = blockIdx.x * (kThreads / 32) + threadIdx.x / 32; w < items;
        w += gridDim.x * (kThreads / 32)) {
     const int64_t i = a.work[w];
+    const bool tri = i >= Cp;
+    const int64_t j = tri ? i - Cp : i;
+    const uint8_t* listed = tri ? a.list_tris : a.list_nodes;
+    if (listed != nullptr && !listed[tri ? j / a.TB : j / a.nb]) continue;
     T acc[3] = {T(0), T(0), T(0)};
-    int hits;
-    int64_t col;
-    if (i < Cp) {
-      hits = node_sums<T, SELF>(a, i, lane, acc);
-      col = a.off_i + i;
-    } else {
-      hits = tri_sums<T, SELF>(a, i - Cp, lane, acc);
-      col = a.off_t + i - Cp;
+    Tally t;
+    if (tri ? hashed[1] : hashed[0]) {
+      if (tri)
+        tri_sums<T, SELF>(a, j, pr, lane, acc, t);
+      else
+        node_sums<T, SELF>(a, j, pr, lane, acc, t);
     }
+    const int visits = __reduce_add_sync(kWarp, t.visits);
+    const int near = __reduce_add_sync(kWarp, t.near);
     if (lane == 0) {
+      const int64_t col = tri ? a.off_t + j : a.off_i + j;
 #pragma unroll
       for (int r = 0; r < 3; ++r) a.force[r * a.ld + col] = acc[r];
-      if (a.count != nullptr) a.count[i] = hits;
+      if (a.count != nullptr) {
+        a.count[i] = t.hits;
+        a.count[cols + i] = visits;
+        a.count[2 * cols + i] = near;
+      }
     }
   }
 }
@@ -691,18 +1029,22 @@ int narrow(const Args<T>& a, int B, void* stream) {
   if (err != cudaSuccess) return (int)err;
   narrow_bin<T><<<(unsigned)((cols + kThreads - 1) / kThreads), kThreads, 0,
                   st>>>(a);
-  narrow_scan<<<a.tiles, kScan, 0, st>>>(a.fill, a.start, a.tile_fill,
-                                         a.n_work, 2 * B);
+  // a thread an item, at most 4 blocks an SM
+  const int64_t per = (items + kThreads - 1) / kThreads;
+  const unsigned grid = (unsigned)(per < 4 * sms ? (per > 0 ? per : 1)
+                                                 : 4 * sms);
+  narrow_hash<T><<<grid, kThreads, 0, st>>>(a);
+  narrow_scan<<<(unsigned)(a.tiles < sms ? a.tiles : sms), kScan, 0, st>>>(
+      a.fill, a.start, a.tile_fill, a.head);
   if (items > 0) {
-    const unsigned blocks = (unsigned)((items + kThreads - 1) / kThreads);
-    narrow_sort<T><<<blocks, kThreads, 0, st>>>(a);
+    narrow_sort<T><<<grid, kThreads, 0, st>>>(a);
     // a warp an item, at most 16 blocks an SM
     const int64_t need = (items + kThreads / 32 - 1) / (kThreads / 32);
-    const unsigned grid = (unsigned)(need < 16 * sms ? need : 16 * sms);
+    const unsigned warps = (unsigned)(need < 16 * sms ? need : 16 * sms);
     if (a.enodes != nullptr)
-      narrow_probe<T, true><<<grid, kThreads, 0, st>>>(a);
+      narrow_probe<T, true><<<warps, kThreads, 0, st>>>(a);
     else
-      narrow_probe<T, false><<<grid, kThreads, 0, st>>>(a);
+      narrow_probe<T, false><<<warps, kThreads, 0, st>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -824,16 +1166,16 @@ int narrow_entry(const T* kin, int R, int t0, int t1, int t2, int cs, int F2,
   a.myu = myu; a.d_lim = d_lim; a.ddiv = ddiv; a.force = force; a.ld = ld;
   a.off_i = off_i; a.off_t = off_t; a.count = count;
   // the workspace: iws = fill (2B) | start (2B + 4) | tile_fill (tiles,
-  // in fours) | n_work (4) | work (F2 + Ci, in fours) | link, sorted
-  // (4 (F2 + Ci) each); fws = triangle rows (kGeo F2) | node rows
+  // in fours) | the header (kHeader) | work (F2 + Ci, in fours) | link,
+  // sorted (4 (F2 + Ci) each); fws = triangle rows (kGeo F2) | node rows
   // (kNode Ci) | sorted cull values (4 (F2 + Ci))
   const int64_t items = (int64_t)F2 + Ci;
   a.tiles = (2 * B + kScan - 1) / kScan;
   a.fill = iws;
   a.start = iws + 2 * (int64_t)B;
   a.tile_fill = a.start + 2 * (int64_t)B + 4;
-  a.n_work = a.tile_fill + (a.tiles + 3) / 4 * 4;
-  a.work = a.n_work + 4;
+  a.head = a.tile_fill + (a.tiles + 3) / 4 * 4;
+  a.work = a.head + kHeader;
   a.link = reinterpret_cast<int4*>(a.work + (items + 3) / 4 * 4);
   a.sorted = a.link + items;
   a.tgeo = fws;
@@ -853,11 +1195,14 @@ extern "C" {
 // list_nodes (n_chunks,) and list_tris (tri_chunks,) flag the blocks of
 // each side with a set pair in its mask, or are null (every block: an item
 // of a block without one finds no candidate, so listing it only costs
-// time).  count is (Cp + Tp,) int32 or null.  B is a power of two, 64 at
-// least; iws is int32 of 4B + 4 + r4(tiles) + 4 + r4(F2 + Ci) + 8 (F2 +
-// Ci), with tiles = max(1, 2B / 1024) and r4 rounding up to a multiple of
-// 4, zero when allocated (each call leaves its counters zero); fws is
-// (32 F2 + 12 Ci,) of the element type; both 32-byte aligned.
+// time).  count is (3, Cp + Tp) int32 (per column: accepted pairs,
+// candidates visited, of those past the radius cull) or null.  B is a
+// power of two, 64 at least; iws is int32 of 4B + 4 + r4(tiles) + 16 +
+// r4(F2 + Ci) + 8 (F2 + Ci), with tiles = max(1, 2B / 1024) and r4
+// rounding up to a multiple of 4, zero when allocated (each call leaves
+// its counters zero, and word 2 of the header, at 4B + 4 + r4(tiles), the
+// call's rule: 1 where it took the fine hash); fws is (32 F2 + 12 Ci,) of
+// the element type; both 32-byte aligned.
 int hk_narrow_f32(const float* kin, int R, int t0, int t1, int t2, int cs,
                   int F2, int Ci, int TB, int nb, int tri_chunks,
                   int n_chunks, const uint8_t* tri_in, const uint8_t* node_in,

@@ -15,7 +15,10 @@ per block (force_i) and per block over 3 (force_t).  Its per-pair
 arithmetic is written in the kernel's association order with every
 constant a tensor of the element type (PyTorch divides by a Python scalar
 as a multiply by its reciprocal on the card), so the two take bitwise
-equal accept decisions on equal inputs.
+equal accept decisions on equal inputs.  The kernel's enumeration of
+candidates (the rule that picks the fine or the ddiv hash, and the pairs
+each side visits) has a plain twin too: :func:`fine_rule_plain`,
+:func:`cell_candidates_plain` and :func:`probe_counts_plain`.
 """
 from __future__ import annotations
 
@@ -29,6 +32,12 @@ from ..core.lowering import ContactPair, LoweredModel
 _NARROW = {torch.float32: "hk_narrow_f32", torch.float64: "hk_narrow_f64"}
 # workspace values per triangle and per node (kGeo, kNode in csrc/contact.cu)
 _GEO, _NODE = 28, 8
+# int32 words of the work list's header (kHeader) and the word of the
+# call's rule in it (kRule)
+_HEADER, _RULE = 16, 2
+# the fine cell over the largest in-range circumradius, and the largest
+# extent in fine cells that the rule takes (csrc/contact.cu fine_rule)
+_FINE_CELL, _FINE_EXTENT = 1.0625, 32768.0
 # (triangles, nodes, dtype, device) -> the narrow phase's workspace
 _WORKSPACES: dict = {}
 # (force dtype, nodal dtype) -> scatter entry; float32 -> float64 is mixed
@@ -57,6 +66,16 @@ def pair_constants(model: LoweredModel, pair: ContactPair) -> PairConstants:
         d_lim=model.element_min_size * cc.d_lim_scale,
         ddiv=model.element_max_size * (cc.ddiv_scale_self if pair.is_self
                                        else cc.ddiv_scale))
+
+
+class NarrowCounts(NamedTuple):
+    """What ``narrow_phase(..., count=True)`` returns: per item, as each
+    side counted it (int32), and the call's rule."""
+    node: torch.Tensor      # (Cp,) accepted pairs a node slot
+    tri: torch.Tensor       # (Tp,) accepted pairs a triangle slot
+    visits: torch.Tensor    # (Cp + Tp,) candidates the item visited
+    near: torch.Tensor      # (Cp + Tp,) of them past the radius cull
+    fine: torch.Tensor      # () bool: the call took the fine hash
 
 
 class BroadPhase(NamedTuple):
@@ -212,28 +231,38 @@ def narrow_phase_plain(pair: ContactPair, kin, ksl, bp: BroadPhase,
 
 
 def narrow_buckets(n_tri: int, n_node: int) -> int:
-    """Buckets B of each of the narrow phase's two spatial hashes: the least
-    power of two above an eighth of the larger side, 64 at least.  Shapes
-    alone set it.  (A fracture deck's face inventory is mostly out of range
-    and a cell holds many items, so few buckets are in use; a collision
-    costs only candidates that the exact-cell test drops.)"""
+    """Buckets B that the workspace holds for each of the narrow phase's
+    two spatial hashes (the ddiv hash or the fine hash, whichever a call
+    builds): the least power of two above an eighth of the larger side, 64
+    at least.  Shapes alone set it.  A call takes the least power of two of
+    them that is not below its in-range items (64 to B), found on the
+    device, so its scan reads no more buckets than its items need (a
+    fracture deck's face inventory is mostly out of range); a collision
+    costs only candidates that the exact-cell test drops."""
     return max(64, 1 << (max(n_tri, n_node) // 8).bit_length())
 
 
+def _header(B: int) -> int:
+    """Offset of the work list's header in the int32 workspace."""
+    return 4 * B + 4 + -(-max(1, 2 * B // 1024) // 4) * 4
+
+
 def narrow_workspace(n_tri: int, n_node: int, dtype, device):
-    """(int32 bucket counts and starts, work list and item records,
+    """(int32 bucket counts and starts, the work list's header (its
+    counter, the call's rule, R and E), work list and item records,
     element-type rows, B): the narrow phase's workspace for a pair of these
     shapes, allocated once per shapes, dtype and device and rewritten by
     every call (calls run in stream order, so pairs of equal shapes can
-    share it).  Its counters start zero, and each call leaves them so."""
+    share it).  Either hash a call builds, the ddiv hash or the fine hash,
+    lives in the same buckets and records: the fine hash adds only the
+    header's 12 words beside the counters.  Its counters start zero, and
+    each call leaves them so."""
     key = (n_tri, n_node, dtype, device)
     if key not in _WORKSPACES:
         B, items = narrow_buckets(n_tri, n_node), n_tri + n_node
-        tiles = max(1, 2 * B // 1024)
         _WORKSPACES[key] = (
-            torch.zeros(4 * B + 4 + -(-tiles // 4) * 4 + 4
-                        + -(-items // 4) * 4 + 8 * items,
-                        dtype=torch.int32, device=device),
+            torch.zeros(_header(B) + _HEADER + -(-items // 4) * 4
+                        + 8 * items, dtype=torch.int32, device=device),
             torch.empty(_GEO * n_tri + _NODE * n_node + 4 * items,
                         dtype=dtype, device=device), B)
     return _WORKSPACES[key]
@@ -270,40 +299,131 @@ def _probe(own, own_cell, other, other_cell, B):
     return own[visit[exact] // 27], other[j[exact]]
 
 
-def cell_candidates_plain(pair: ContactPair, kin, ksl, bp: BroadPhase,
-                          consts: PairConstants, sides=None, buckets=None):
-    """The (triangle, node slot) pairs each side of kernel N tests past the
-    cell test, as (node side's, triangle side's) (P, 2) int64 lists: the
-    in-range nodes probing a hash of the in-range triangles by q0's cell,
-    and the triangles probing a hash of the nodes; each pair in a block
-    pair of that side's mask (``sides``, by default both ``bp.pair_ok``)
-    and, on a self pair, not of the triangle's own element.  ``buckets``
-    (default :func:`narrow_buckets` of the shapes) sets B; fewer buckets
-    only add collisions.  The plain twin of the kernel's cull, for tests;
-    nothing on the main path calls it."""
-    if not bool(bp.overlap):
-        none = torch.zeros((0, 2), dtype=torch.long, device=kin.device)
-        return none, none
+class FineRule(NamedTuple):
+    """Kernel N's rule for one call: which hash it builds."""
+    on: torch.Tensor        # () bool: the fine hash
+    inv: torch.Tensor       # () 1 / h, the fine cell's inverse
+    reach: torch.Tensor     # () R, the largest in-range circumradius
+
+
+def _rule(kin, ksl, bp: BroadPhase, c):
+    """(FineRule, centroids, circumradii) of one call; see
+    :func:`fine_rule_plain`."""
+    q0, q1, q2, _, pos_i, _, _ = kin_views(kin, ksl)
+    ctr, rmax = tri_geometry(q0, q1, q2, c)[:2]
+    lo = bp.all_min[:, None]
+    tin, nin = bp.tri_in & bp.overlap, bp.node_in & bp.overlap
+    zero = kin.new_zeros(1)
+    reach = torch.cat([zero, rmax[tin]]).amax()
+    extent = torch.cat([zero, (ctr - lo).abs()[:, tin].reshape(-1),
+                        (pos_i - lo).abs()[:, nin].reshape(-1)]).amax()
+    h = reach * torch.tensor(_FINE_CELL, dtype=kin.dtype, device=kin.device)
+    inv = torch.ones_like(h) / h
+    on = (h * c["two"] <= c["ddiv"]) & (extent * inv <= _FINE_EXTENT)
+    return FineRule(on, inv, reach), ctr, rmax
+
+
+def fine_rule_plain(kin, ksl, bp: BroadPhase,
+                    consts: PairConstants) -> FineRule:
+    """The rule of ``csrc/contact.cu`` (``fine_rule``) on the device of its
+    inputs: R, the largest circumradius of the call's in-range triangles;
+    E, the largest |x - all_min| of their centroids and of the in-range
+    nodes' positions; the fine hash where its cell h = 17/16 R is at most
+    half of ddiv and E / h is at most 2^15 (nothing in range, or R or E
+    not finite: the ddiv hash).  Both decide from the same floats."""
+    return _rule(kin, ksl, bp, constants_on(consts, kin.dtype,
+                                            kin.device))[0]
+
+
+def _enumerate(pair: ContactPair, kin, ksl, bp: BroadPhase,
+               consts: PairConstants, sides, buckets, fine):
+    """Kernel N's enumeration of one call: (rule, [node side's, triangle
+    side's] (k, n, tested, near)): the (triangle, node slot) pairs each
+    listed in-range item visits (the other side's in-range items whose
+    cell in the call's hash lies within one of its own), whether each
+    passes the tests before the radius cull (on the fine hash the +-1
+    ddiv-cell test; the side's block-pair mask; on a self pair the
+    own-element exclusion) and whether it passes the radius cull too.
+    ``fine`` None takes the rule's hash, False the ddiv hash."""
     q0, _, _, _, pos_i, _, _ = kin_views(kin, ksl)
-    ddiv = torch.tensor(consts.ddiv, dtype=kin.dtype, device=kin.device)
-    tri = torch.nonzero(bp.tri_in).reshape(-1)
-    node = torch.nonzero(bp.node_in).reshape(-1)
-    ct = _cells(q0, bp.all_min, ddiv).long()[:, tri]
-    cn = _cells(pos_i, bp.all_min, ddiv).long()[:, node]
+    c = constants_on(consts, kin.dtype, kin.device)
+    rule, ctr, rmax = _rule(kin, ksl, bp, c)
+    use = fine is None and bool(rule.on)
+    ct = _cells(q0, bp.all_min, c["ddiv"]).long()
+    cn = _cells(pos_i, bp.all_min, c["ddiv"]).long()
+    if use:
+        lo = bp.all_min[:, None]
+        kt = torch.floor((ctr - lo) * rule.inv).long()
+        kn = torch.floor((pos_i - lo) * rule.inv).long()
+    else:
+        kt, kn = ct, cn
+    oks = (bp.pair_ok,) * 2 if sides is None else tuple(sides)
+    tri = torch.nonzero(bp.tri_in & bp.overlap).reshape(-1)
+    node = torch.nonzero(bp.node_in & bp.overlap).reshape(-1)
+    # a rank's share probes from its own blocks' items (one device: all)
+    nl, tl = ((node, tri) if sides is None else
+              (node[oks[0].any(dim=0)[node // pair.nb]],
+               tri[oks[1].any(dim=1)[tri // pair.tb]]))
     B = buckets or narrow_buckets(q0.shape[1], pos_i.shape[1])
     out = []
-    for side, ok in enumerate(sides if sides is not None
-                              else (bp.pair_ok,) * 2):
+    for side, ok in enumerate(oks):
         if side == 0:
-            n, k = _probe(node, cn, tri, ct, B)
+            n, k = _probe(nl, kn[:, nl], tri, kt[:, tri], B)
         else:
-            k, n = _probe(tri, ct, node, cn, B)
-        keep = ok[k // pair.tb, n // pair.nb]
+            k, n = _probe(tl, kt[:, tl], node, kn[:, node], B)
+        tested = ok[k // pair.tb, n // pair.nb]
+        if use:
+            tested &= ((ct[:, k] - cn[:, n]).abs() <= 1).all(dim=0)
         if pair.is_self:
-            keep &= ~(pair.tri_enodes[:, k].long()
-                      == pair.cand_nodes[n].long()).any(dim=0)
-        out.append(torch.stack([k[keep], n[keep]], dim=1))
-    return tuple(out)
+            tested &= ~(pair.tri_enodes[:, k].long()
+                        == pair.cand_nodes[n].long()).any(dim=0)
+        near = tested & (torch.sqrt(_sq3(pos_i[:, n] - ctr[:, k]))
+                         < rmax[k])
+        out.append((k, n, tested, near))
+    return rule, out
+
+
+def cell_candidates_plain(pair: ContactPair, kin, ksl, bp: BroadPhase,
+                          consts: PairConstants, sides=None, buckets=None,
+                          fine=None):
+    """The (triangle, node slot) pairs each side of kernel N tests past the
+    cell test, as (node side's, triangle side's) (P, 2) int64 lists: the
+    in-range nodes probing a hash of the in-range triangles, and the
+    triangles probing a hash of the nodes; each pair in a block pair of
+    that side's mask (``sides``, by default both ``bp.pair_ok``) and, on a
+    self pair, not of the triangle's own element.  On the ddiv hash the
+    hashes key triangles by q0's ddiv cell and nodes by theirs, and a pair
+    is within one ddiv cell; on the fine hash they key triangles by their
+    centroid's fine cell and nodes by theirs, and a pair is within one fine
+    cell and one ddiv cell.  ``fine`` None takes the hash of the call's
+    rule (:func:`fine_rule_plain`), as the kernel does; False the ddiv
+    hash, the 27-cell sweep.
+    ``buckets`` (default :func:`narrow_buckets` of the shapes) sets B;
+    fewer buckets only add collisions.  The plain twin of the kernel's
+    cull, for tests; nothing on the main path calls it."""
+    _, sides_out = _enumerate(pair, kin, ksl, bp, consts, sides, buckets,
+                              fine)
+    return tuple(torch.stack([k[t], n[t]], dim=1)
+                 for k, n, t, _ in sides_out)
+
+
+def probe_counts_plain(pair: ContactPair, kin, ksl, bp: BroadPhase,
+                       consts: PairConstants, sides=None, fine=None):
+    """(visits, near, rule) of one call as kernel N counts them: per force
+    column (node slots, then triangle slots; (Cp + Tp,) int32) the
+    candidates the item visited (the other side's items in its probed
+    cells) and of those the ones past the radius cull, and the call's
+    :class:`FineRule`; ``fine`` as for :func:`cell_candidates_plain`."""
+    rule, sides_out = _enumerate(pair, kin, ksl, bp, consts, sides, None,
+                                 fine)
+    cols = pair.Cp + pair.Tp
+    visits = torch.zeros(cols, dtype=torch.long, device=kin.device)
+    near = torch.zeros_like(visits)
+    for side, (k, n, _, nr) in enumerate(sides_out):
+        col = n if side == 0 else pair.Cp + k
+        visits += torch.bincount(col, minlength=cols)
+        near += torch.bincount(col[nr], minlength=cols)
+    return visits.int(), near.int(), rule
 
 
 def narrow_phase(pair: ContactPair, kin, ksl, bp: BroadPhase,
@@ -314,12 +434,17 @@ def narrow_phase(pair: ContactPair, kin, ksl, bp: BroadPhase,
 
     ``kin`` (6, R) merged kinematics in the element dtype, ``ksl`` the
     pair's slices of it, ``bp`` its broad phase.  On the card one call is
-    four kernels on the current stream: every in-range item is sorted into
-    a spatial hash of its side by grid cell, then a warp per in-range item
-    probes the other side's hash in the 27 cells around its own
-    (``csrc/contact.cu``), in :func:`narrow_workspace`.  With ``count``
-    it returns the accepted pairs per node slot (Cp,) and per triangle
-    slot (Tp,), int32, as each side counted them; else None.  ``sides`` =
+    five kernels on the current stream: every in-range item is sorted into
+    a spatial hash of its side, by its ddiv cell or, where the call's
+    in-range triangles reach less than half of ddiv, by a finer cell sized
+    to the radius cull's reach; then a warp per in-range item probes the
+    other side's hash in the 27 cells around its own (``csrc/contact.cu``),
+    in :func:`narrow_workspace`.  Either hash gives the same forces, bit
+    for bit.  With ``count`` it returns :class:`NarrowCounts`: the
+    accepted pairs per node slot (Cp,) and per triangle slot (Tp,), int32,
+    as each side counted them, the candidates each item visited and those
+    past the radius cull, and whether the call took the fine hash (on the
+    CPU, the twin's, :func:`probe_counts_plain`); else None.  ``sides`` =
     (node side's, triangle side's) block-pair masks, by default both
     ``bp.pair_ok``; with them, only the items of blocks that have a set
     pair in their side's mask probe the other side (the rest find no
@@ -332,8 +457,12 @@ def narrow_phase(pair: ContactPair, kin, ksl, bp: BroadPhase,
         force[:, off_t:off_t + pair.Tp] = out[1]
         if count:
             hit = out[2]["pairs"]
-            return (torch.bincount(hit[:, 1], minlength=pair.Cp).int(),
-                    torch.bincount(hit[:, 0], minlength=pair.Tp).int())
+            visits, near, rule = probe_counts_plain(pair, kin, ksl, bp,
+                                                    consts, sides)
+            return NarrowCounts(
+                torch.bincount(hit[:, 1], minlength=pair.Cp).int(),
+                torch.bincount(hit[:, 0], minlength=pair.Tp).int(),
+                visits, near, rule.on)
         return None
     if kin.device.type != "cuda":
         raise ValueError(f"no narrow-phase kernel for device {kin.device}")
@@ -363,7 +492,8 @@ def narrow_phase(pair: ContactPair, kin, ksl, bp: BroadPhase,
         raise ValueError("pair force columns exceed the force buffer")
     lib = _build.library()
     iws, fws, B = narrow_workspace(F2, Ci, dt, kin.device)
-    cnt = torch.empty(pair.Cp + pair.Tp, dtype=torch.int32,
+    cols = pair.Cp + pair.Tp
+    cnt = torch.empty(3 * cols, dtype=torch.int32,
                       device=kin.device) if count else None
     (t0, _), (t1, _), (t2, _), (cs, _), _ = ksl
     with torch.cuda.device(kin.device):
@@ -382,11 +512,15 @@ def narrow_phase(pair: ContactPair, kin, ksl, bp: BroadPhase,
             torch.cuda.current_stream(kin.device).cuda_stream)
     _build.check(lib, err, "narrow-phase kernel")
     narrow_phase.launches += 1
-    return (cnt[:pair.Cp], cnt[pair.Cp:]) if count else None
+    if not count:
+        return None
+    return NarrowCounts(cnt[:pair.Cp], cnt[pair.Cp:cols],
+                        cnt[cols:2 * cols], cnt[2 * cols:],
+                        iws[_header(B) + _RULE].clone() != 0)
 
 
-# one launch = one pair's narrow_bin, narrow_scan, narrow_sort and
-# narrow_probe
+# one launch = one pair's narrow_bin, narrow_hash, narrow_scan,
+# narrow_sort and narrow_probe
 narrow_phase.launches = 0
 
 

@@ -24,11 +24,13 @@ from hakai_tpu_torch.core.lowering import model_from_numpy
 from hakai_tpu_torch.core.state import init_state
 from hakai_tpu_torch.ops.contact import (contact_forces, contact_forces_pv,
                                          pair_activity)
-from hakai_tpu_torch.ops.contact_cuda import (cell_candidates_plain,
-                                              narrow_buckets,
+from hakai_tpu_torch.ops.contact_cuda import (_FINE_CELL, PairConstants,
+                                              _sq3, cell_candidates_plain,
+                                              constants_on, fine_rule_plain,
+                                              kin_views, narrow_buckets,
                                               narrow_phase_plain,
                                               narrow_workspace,
-                                              scatter_forces)
+                                              scatter_forces, tri_geometry)
 from hakai_tpu_torch.ops.gather_cuda import gather_cols
 from test_contact import _corner_node, two_body_model
 from test_element import unit_cube_model
@@ -281,10 +283,15 @@ def test_narrow_phase_counts_accepted_pairs():
             if not count:
                 assert out is None
                 continue
-            per_node, per_tri = out
+            per_node, per_tri = out.node, out.tri
             assert per_node.shape == (p.Cp,) and per_tri.shape == (p.Tp,)
             assert per_node.dtype == per_tri.dtype == torch.int32
             assert int(per_node.sum()) == int(per_tri.sum())
+            accepted = torch.cat([per_node, per_tri])
+            assert out.visits.shape == out.near.shape == (p.Cp + p.Tp,)
+            assert bool((out.visits >= out.near).all())
+            assert bool((out.near >= accepted).all())
+            assert out.fine.dtype == torch.bool and out.fine.dim() == 0
             if p.j_instance == 0:
                 slot = int(torch.nonzero(p.cand_nodes == nid)[0, 0])
                 assert int(per_node[slot]) == 1
@@ -316,12 +323,14 @@ def _state(deck):
 def test_cell_candidates_match_plain(deck, world, buckets):
     """The narrow kernel's enumeration (its plain twin: each side's items
     probing the other side's spatial hash in the 27 cells around their
-    own, exact cells only, within the side's block-pair mask) finds the
-    plain narrow phase's pairs within one cell, each once: on the penalty
-    pair, the eroded impact, the self-contact plates (own elements
-    excluded) and a deal_block_pairs share of each of 2 ranks; with the
-    shapes' buckets and with one bucket for all (every probe a
-    collision)."""
+    own, exact cells only, within the side's block-pair mask) on the ddiv
+    hash finds the plain narrow phase's pairs within one cell, each once:
+    on the penalty pair, the eroded impact, the self-contact plates (own
+    elements excluded) and a deal_block_pairs share of each of 2 ranks;
+    with the shapes' buckets and with one bucket for all (every probe a
+    collision).  On the hash the call's rule picks (the fine hash on the
+    impact's cube triangles), each pair is found once, lies among those,
+    and includes every one of them that passes the radius cull."""
     from hakai_tpu_torch.ops.contact import (broad_phase, contact_activity,
                                              contact_kinematics,
                                              deal_block_pairs)
@@ -331,7 +340,7 @@ def test_cell_candidates_match_plain(deck, world, buckets):
         assert 0 < int(ts.element_flag.sum()) < tm.n_element
     kin = contact_kinematics(tm, tm.coord + ts.disp, ts.velo)
     acts = contact_activity(tm, ts.element_flag)
-    found = 0
+    found = engaged = 0
     for i, p in enumerate(tm.pairs):
         ksl, c = tm.ckin_slices[i], pair_constants(tm, p)
         bp = broad_phase(p, kin, ksl, acts[i], c)
@@ -340,23 +349,39 @@ def test_cell_candidates_match_plain(deck, world, buckets):
                                                              rank, world)
             oks = (bp.pair_ok,) * 2 if sides is None else sides
             got = cell_candidates_plain(p, kin, ksl, bp, c, sides=sides,
-                                        buckets=buckets)
-            info = narrow_phase_plain(p, kin, ksl, bp, c, record=True,
-                                      sides=sides)[2]
+                                        buckets=buckets, fine=False)
+            ruled = cell_candidates_plain(p, kin, ksl, bp, c, sides=sides,
+                                          buckets=buckets)
+            fi, ft, info = narrow_phase_plain(p, kin, ksl, bp, c,
+                                              record=True, sides=sides)
             ref = info["cell_pairs"]
             assert len(ref) == info["cell"]
+            q0, q1, q2, _, pos_i, _, _ = kin_views(kin, ksl)
+            ctr, rmax = tri_geometry(q0, q1, q2, constants_on(
+                c, kin.dtype, kin.device))[:2]
+            passing = ref[torch.sqrt(_sq3(pos_i[:, ref[:, 1]]
+                                          - ctr[:, ref[:, 0]]))
+                          < rmax[ref[:, 0]]]
             union = set()
-            for pairs, ok in zip(got, oks):
+            for pairs, fine_pairs, ok in zip(got, ruled, oks):
                 want = ref[ok[ref[:, 0] // p.tb, ref[:, 1] // p.nb]]
                 mine = set(map(tuple, pairs.tolist()))
                 assert len(mine) == len(pairs)
                 assert mine == set(map(tuple, want.tolist()))
                 union |= mine
+                fine_set = set(map(tuple, fine_pairs.tolist()))
+                assert len(fine_set) == len(fine_pairs)
+                assert fine_set <= mine
+                keep = passing[ok[passing[:, 0] // p.tb,
+                                  passing[:, 1] // p.nb]]
+                assert set(map(tuple, keep.tolist())) <= fine_set
             assert union == set(map(tuple, ref.tolist()))
             if world == 1:
                 assert len(got[0]) == len(got[1]) == info["cell"]
             found += info["cell"]
+            engaged += bool(fine_rule_plain(kin, ksl, bp, c).on)
     assert found > 0
+    assert engaged == (world if deck == "impact" else 0)
 
 
 @pytest.mark.parametrize("shape,want", [
@@ -366,16 +391,180 @@ def test_narrow_buckets(shape, want):
     """B of the narrow kernel's hashes: the least power of two above an
     eighth of the larger side (64 at least), from the shapes alone; the
     workspace of a shape, its dtype and device is allocated once: int32
-    counters (zero), starts, a work list and two records an item, and 28
-    values a triangle, 8 a node and 4 an item of the element type."""
+    counters (zero), starts, the work list's 16-word header (its counter,
+    the call's rule, the fine hash's R and E), a work list and two records
+    an item, and 28 values a triangle, 8 a node and 4 an item of the
+    element type: the fine hash shares the buckets and records of the ddiv
+    hash and adds 12 header words."""
     assert narrow_buckets(*shape) == want == narrow_buckets(*shape[::-1])
     assert want & (want - 1) == 0 and want > max(shape) // 8
     iws, fws, B = narrow_workspace(*shape, torch.float64, torch.device("cpu"))
     tiles, items = max(1, B // 512), sum(shape)
     assert B == want and iws.dtype == torch.int32 and not iws.any()
-    assert iws.numel() == 4 * B + 4 + -(-tiles // 4) * 4 + 4 + \
+    assert iws.numel() == 4 * B + 4 + -(-tiles // 4) * 4 + 16 + \
         -(-items // 4) * 4 + 8 * items
     assert fws.dtype == torch.float64 and fws.numel() == \
         32 * shape[0] + 12 * shape[1]
     again = narrow_workspace(*shape, torch.float64, torch.device("cpu"))
     assert again[0] is iws and again[1] is fws
+
+
+def _pressed(deck):
+    """(port model, its initial state) of a deck whose bodies overlap from
+    the start, for the narrow kernel's rule: the impact at n = 4 and 16
+    with its cube moved off the slab's grid and 0.005 into it, two unit
+    cubes pressed together, the self-contact plates 0.01 into each other,
+    and a 2x2x8 bar with self-contact."""
+    from hakai_tpu_torch import SolverConfig as PortConfig
+    from hakai_tpu_torch import lower
+    from hakai_tpu_torch.pre import synthetic as tsyn
+    if deck.startswith("impact"):
+        m = tsyn.offset_instance(tsyn.impact_model(n=int(deck[6:])), 1,
+                                 0.013, 0.017)
+        inst = m.instances[1]
+        part = m.parts[inst.part_id - 1]
+        part.coordmat = part.coordmat - np.array([[0.0], [0.0], [0.055]])
+        m.coordmat = m.coordmat.copy()
+        m.coordmat[2, inst.node_offset:inst.node_offset + inst.n_node] -= \
+            0.055
+    elif deck == "two_body":
+        m = two_body_model(gap=-0.02, upper_shift=(0.13, 0.07))
+    elif deck == "self":
+        m = tsyn.self_contact_model(gap=-0.01)
+    else:
+        m = tsyn.bar_model(2, 2, 8)
+        m.contact_flag = 2
+    tm = lower(m, PortConfig(dtype="float64"), device="cpu")
+    return tm, init_state(tm)
+
+
+@pytest.mark.parametrize("deck,want", [
+    ("impact16", {(1, 0): True, (0, 1): True}),
+    ("impact4", {(1, 0): False, (0, 1): True}),
+    ("two_body", {(1, 0): False, (0, 1): False}),
+    ("self", {(0, 0): False}), ("bar", {(0, 0): False})])
+def test_fine_rule_per_pair(deck, want):
+    """Which pairs the narrow kernel's rule sends to the fine hash (keyed
+    by (node instance, triangle instance)): a pair whose in-range
+    triangles reach at most about half of ddiv, which follows the model's
+    largest element.  The impact's cube (0.6 / n) and its slab at n = 16
+    (2 / 32 in plane) lie under the slab's 0.2 mm thickness (ddiv 0.22):
+    fine; at n = 4 the slab's 0.25 triangles reach too far.  Uniform
+    meshes (the unit cubes, the bar) and the self pairs (ddiv_scale_self
+    0.6): ddiv cells.  Every pair overlaps, so the rule sees its items."""
+    from hakai_tpu_torch.ops.contact import (broad_phase, contact_activity,
+                                             contact_kinematics)
+    from hakai_tpu_torch.ops.contact_cuda import pair_constants
+    tm, ts = _pressed(deck)
+    kin = contact_kinematics(tm, tm.coord + ts.disp, ts.velo)
+    acts = contact_activity(tm, ts.element_flag)
+    got = {}
+    for i, p in enumerate(tm.pairs):
+        ksl, c = tm.ckin_slices[i], pair_constants(tm, p)
+        bp = broad_phase(p, kin, ksl, acts[i], c)
+        assert bool(bp.overlap) and bool(bp.tri_in.any())
+        rule = fine_rule_plain(kin, ksl, bp, c)
+        got[(p.i_instance, p.j_instance)] = bool(rule.on)
+        assert bool(rule.on) == bool(
+            2 * _FINE_CELL * float(rule.reach) <= c.ddiv)
+    assert got == want
+
+
+def _random_pair(dtype, seed):
+    """A stand-in pair of seeded random geometry for the fine hash's cull:
+    triangles of three kinds (regular, needles a dozen times longer than
+    wide, and near-degenerate ones whose third corner lies 1e-6 of an edge
+    off the other two's line) with centroids snapped to fine-cell edges,
+    and nodes random, on fine and ddiv cell edges, and just inside and
+    outside each triangle's cull sphere along the axes and diagonals; ddiv
+    2.3 fine cells, so the rule takes the fine hash."""
+    from types import SimpleNamespace
+
+    from hakai_tpu_torch.ops.contact_cuda import BroadPhase
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.rand(*shape, generator=g, dtype=torch.float64)
+    T = 90
+    size = 0.02 * (0.3 + rnd(T))
+    e1 = torch.nn.functional.normalize(rnd(3, T) - 0.5, dim=0)
+    e2 = torch.nn.functional.normalize(torch.linalg.cross(
+        e1, rnd(3, T) - 0.5, dim=0), dim=0)
+    kind = torch.arange(T) % 3
+    length = torch.where(kind == 1, 12.0, 1.0) * size
+    width = torch.where(kind == 2, 1e-6, 1.0) * size
+    base = 0.2 + 0.6 * rnd(3, T)
+    q0 = base
+    q1 = base + length * e1
+    q2 = base + 0.5 * length * e1 + torch.where(kind == 2, width, width) \
+        * e2
+    lo = torch.tensor([0.1, -0.05, 0.15], dtype=torch.float64)
+    R = float(torch.sqrt(torch.stack([
+        _sq3(q - ((q0 + q1) + q2) / 3) for q in (q0, q1, q2)]).amax()))
+    h = 1.0625 * R
+    ddiv = 2.3 * h
+    # centroids of every other triangle onto a fine-cell edge
+    ctr = ((q0 + q1) + q2) / 3
+    snap = lo[:, None] + torch.round((ctr - lo[:, None]) / h) * h - ctr
+    snap[:, 1::2] = 0.0
+    q0, q1, q2 = q0 + snap, q1 + snap, q2 + snap
+    ctr = ((q0 + q1) + q2) / 3
+    rmax = torch.sqrt(torch.stack([_sq3(q - ctr) for q in (q0, q1, q2)])
+                      .amax(dim=0))
+    dirs = torch.cat([torch.eye(3), -torch.eye(3),
+                      torch.nn.functional.normalize(
+                          torch.tensor([[1.0, 1, 1], [1, -1, 1],
+                                        [-1, 1, -1]]), dim=1).T.double().T],
+                     dim=0).T                                   # (3, 9)
+    shell = [ctr[:, :, None] + (rmax * f)[None, :, None] * dirs[:, None]
+             for f in (1 - 1e-7, 1 + 1e-7, 0.999, 0.5)]
+    nodes = [0.1 + 1.0 * rnd(3, 600),
+             lo[:, None] + torch.round((0.2 + 0.6 * rnd(3, 200)) / h) * h,
+             lo[:, None] + torch.round((0.2 + 0.6 * rnd(3, 200)) / ddiv)
+             * ddiv] + [s.reshape(3, -1) for s in shell]
+    pos = torch.cat(nodes, dim=1)
+    C = pos.shape[1]
+    kin = torch.cat([torch.cat([q0, q1, q2, pos], dim=1),
+                     torch.zeros(3, 3 * T + C, dtype=torch.float64)]
+                    ).to(dtype)
+    ksl = ((0, T), (T, 2 * T), (2 * T, 3 * T), (3 * T, 3 * T + C), (0, 0))
+    pair = SimpleNamespace(tb=T, nb=C, Cp=C, Tp=T, is_self=False)
+    bp = BroadPhase(torch.ones(T, dtype=torch.bool),
+                    torch.ones(C, dtype=torch.bool), lo.to(dtype),
+                    torch.ones((1, 1), dtype=torch.bool),
+                    torch.tensor(True))
+    consts = PairConstants(young=1.0, kc=1.0, Cr=0.0, myu=0.0, d_lim=1.0,
+                           ddiv=ddiv)
+    return pair, kin, ksl, bp, consts
+
+
+@pytest.mark.parametrize("seed", [3, 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fine_hash_is_conservative(dtype, seed):
+    """The fine hash drops only pairs that the radius cull rejects: on
+    seeded random geometry (regular, stretched and near-degenerate
+    triangles, items on fine and ddiv cell edges and on the edges of the
+    cull spheres), every pair within one ddiv cell that passes the radius
+    cull is among each side's fine-hash candidates, and every candidate
+    lies within one ddiv cell; in float32 and float64."""
+    from hakai_tpu_torch.ops.contact_cuda import _cells
+    pair, kin, ksl, bp, consts = _random_pair(dtype, seed)
+    rule = fine_rule_plain(kin, ksl, bp, consts)
+    assert bool(rule.on)
+    got = cell_candidates_plain(pair, kin, ksl, bp, consts)
+    coarse = cell_candidates_plain(pair, kin, ksl, bp, consts, fine=False)
+    q0, q1, q2, _, pos, _, _ = kin_views(kin, ksl)
+    ctr, rmax = tri_geometry(q0, q1, q2, constants_on(
+        consts, kin.dtype, kin.device))[:2]
+    ddiv = torch.tensor(consts.ddiv, dtype=dtype)
+    ct, cn = _cells(q0, bp.all_min, ddiv), _cells(pos, bp.all_min, ddiv)
+    cell = ((ct[:, :, None] - cn[:, None, :]).abs() <= 1).all(dim=0)
+    near = torch.sqrt(_sq3(pos[:, None, :] - ctr[:, :, None])) \
+        < rmax[:, None]
+    want = set(map(tuple, torch.nonzero(cell & near).tolist()))
+    within = set(map(tuple, torch.nonzero(cell).tolist()))
+    assert len(want) > 100
+    assert len(got[0]) < len(coarse[0]) / 2
+    for pairs in got:
+        mine = set(map(tuple, pairs.tolist()))
+        assert want <= mine <= within

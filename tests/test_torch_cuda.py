@@ -413,13 +413,16 @@ def test_contact_kernels_match_plain(cuda, n, steps, dtype):
     contact: the gather bitwise; the narrow phase as a step launches it
     with forces within the element bounds, every node's and every
     triangle's accepted pairs equal to the plain version's (the deck has
-    no ties), bitwise repeatable and unchanged by counting; the scatter
-    within the assembly's bounds."""
+    no ties), its visited candidates, those past the radius cull and its
+    rule equal to its plain twin's (the n = 12 deck takes the fine hash on
+    a pair at least), bitwise repeatable and unchanged by counting; the
+    scatter within the assembly's bounds."""
     from hakai_tpu_torch.ops.contact import (broad_phase, contact_activity,
                                              contact_kinematics)
     from hakai_tpu_torch.ops.contact_cuda import (narrow_phase,
                                                   narrow_phase_plain,
                                                   pair_constants,
+                                                  probe_counts_plain,
                                                   scatter_forces,
                                                   scatter_forces_plain)
     from hakai_tpu_torch.ops.gather_cuda import gather_cols, gather_cols_plain
@@ -431,16 +434,22 @@ def test_contact_kernels_match_plain(cuda, n, steps, dtype):
                                               m.ckin_idx))
     acts = contact_activity(m, s.element_flag)
     force = torch.empty((3, m.fs_width), dtype=edt, device=cuda)
-    accepts = 0
+    accepts = fine = 0
     for i, p in enumerate(m.pairs):
         ksl, c = m.ckin_slices[i], pair_constants(m, p)
         bp = broad_phase(p, kin, ksl, acts[i], c)
         off_i, off_t = m.fs_offsets[i]
         before = narrow_phase.launches
-        per_node, per_tri = narrow_phase(p, kin, ksl, bp, c, force,
-                                         (off_i, off_t), count=True)
+        counts = narrow_phase(p, kin, ksl, bp, c, force, (off_i, off_t),
+                              count=True)
+        per_node, per_tri = counts.node, counts.tri
         assert narrow_phase.launches == before + 1
         fi, ft, info = narrow_phase_plain(p, kin, ksl, bp, c, record=True)
+        visits, near, rule = probe_counts_plain(p, kin, ksl, bp, c)
+        assert torch.equal(counts.visits, visits)
+        assert torch.equal(counts.near, near)
+        assert bool(counts.fine) == bool(rule.on)
+        fine += bool(rule.on)
         hit = info["pairs"]
         assert torch.equal(per_node, torch.bincount(
             hit[:, 1], minlength=p.Cp).int())
@@ -455,7 +464,7 @@ def test_contact_kernels_match_plain(cuda, n, steps, dtype):
         assert torch.equal(again[0], again[1])
         for a, b in ((off_i, p.Cp), (off_t, p.Tp)):
             assert torch.equal(again[0][:, a:a + b], force[:, a:a + b])
-    assert accepts > 0
+    assert accepts > 0 and fine >= (n == 12)
     g = scatter_forces(m, force, m.dtype)
     assert g.dtype == m.dtype
     assert _rel(g, scatter_forces_plain(m, force, m.dtype)) <= \
@@ -527,7 +536,7 @@ def test_narrow_kernel_drops_no_accept(cuda, dtype):
         force = torch.full((2, 3, m.fs_width), float("nan"), dtype=m.edtype,
                            device=cuda)
         per_node, per_tri = narrow_phase(p, kin, ksl, bp, c, force[0],
-                                         (off_i, off_t), count=True)
+                                         (off_i, off_t), count=True)[:2]
         narrow_phase(p, kin, ksl, bp, c, force[1], (off_i, off_t))
         fi, ft, info = narrow_phase_plain(p, kin, ksl, bp, c, record=True)
         hit = info["pairs"]
