@@ -828,10 +828,13 @@ def update_inputs(model, rng, device):
 def check_update(model, rng, name, want_triax=False, ref=None):
     """The unpacked entry (TPU kernel #3) against its plain version on one
     random state, and bitwise against the reference design ``ref`` where
-    there is one; returns the JSON record's numbers."""
+    there is one; with a metrics stream in ``model``'s config, its
+    negative-Jacobian count equal to the plain count.  Returns the JSON
+    record's numbers."""
     import torch
     from hakai_tpu_torch.ops.element import (element_core_plain,
                                              gather_element_nodes,
+                                             neg_jacobian_count,
                                              triax_stress)
     from hakai_tpu_torch.ops.element_cuda import element_update
     u = update_inputs(model, rng, model.device)
@@ -869,6 +872,14 @@ def check_update(model, rng, name, want_triax=False, ref=None):
         raise AssertionError(f"inputs do not engage both branches: {plastic}")
     if rk.Qe[..., ~u[-1]].abs().max().item() != 0.0:
         raise AssertionError("dead/padding lanes carry force")
+    count = model.config.metrics_path is not None
+    if count:
+        fused = int(rk.neg_jacobian)
+        want = int(neg_jacobian_count(model, u[0][:, model.elem], u[-1]))
+        log(f"[kernels] element_update {name} {kind} +neg: the kernel's "
+            f"count {fused}, the plain count {want}")
+        if fused != want:
+            raise AssertionError(f"fused count {fused} != plain {want}")
     rec = {"max_abs_err": max_abs}
     rec["ms"] = time_ms(lambda: element_update(model, *u,
                                                want_triax=want_triax))
@@ -882,11 +893,14 @@ def check_update(model, rng, name, want_triax=False, ref=None):
     rec["bound_ms"], rec["bound_by"] = bound(moved, ELEMENT_FLOP * model.E,
                                              kind)
     rec["library_ms"] = None
-    vs_reference(rec, ref, 3 + (kind == "float64") + 5 * want_triax,
+    which = 3 + (kind == "float64") + 5 * want_triax
+    vs_reference(rec, ref, {3: 10, 4: 11, 8: 12, 9: 13}[which] if count
+                 else which,
                  lambda: element_update(model, *u, want_triax=want_triax),
                  out_k, model)
     log(f"[kernels] element_update {name} {kind}"
-        f"{' +triax' if want_triax else ''}: kernel {rec['ms']:.4f} ms "
+        f"{' +triax' if want_triax else ''}{' +neg' * count}: kernel "
+        f"{rec['ms']:.4f} ms "
         f"({rec['bound_ms'] / rec['ms']:.3f} of bound), "
         f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
         f"({rec['bound_by']}: {moved / 1e6:.1f} MB, "
@@ -2344,12 +2358,47 @@ def contact_cpu():
     deletion_rule(only, keep, first, dc)
 
 
+def generic_counts(model, s):
+    """[generic]'s negative-Jacobian count, the unpacked entry's own (the
+    metrics stream's, ``+neg``) against the plain count, at state ``s``
+    and with four live elements far apart turned inside out (their nodes
+    mirrored in z through each one's centroid: every Gauss point of the
+    four inverted, their neighbours distorted).  Returns [(fused, plain)]
+    for the two."""
+    import torch
+    from hakai_tpu_torch.ops.element import neg_jacobian_count
+    from hakai_tpu_torch.ops.element_cuda import element_update
+    live = torch.nonzero(s.element_flag).flatten()
+    picks = live[[0, len(live) // 3, 2 * len(live) // 3, -1]]
+    out = []
+    for invert in (False, True):
+        pos = model.coord + s.disp
+        if invert:
+            for e in picks.tolist():
+                nodes = model.elem[:, e].long()
+                z = pos[2, nodes]
+                pos[2, nodes] = 2.0 * z.mean() - z
+        pos = pos.to(model.edtype)
+        du = (s.velo * model.dt).to(model.edtype)
+        res, _ = element_update(model, pos, du, s.stress, s.strain, s.eq_ps,
+                                s.yield_s, s.element_flag, want_triax=True)
+        plain = neg_jacobian_count(model, pos[:, model.elem],
+                                   s.element_flag)
+        torch.cuda.synchronize()
+        out.append((int(res.neg_jacobian), int(plain)))
+    if any(f != p for f, p in out) or not out[1][0] >= 32:
+        raise AssertionError(f"[generic] fused and plain counts {out}")
+    return out
+
+
 def generic_run(smi_line, run_first, run_alive):
     """run() on the generic step: [run]'s deck (the mixed ductile bar)
     lowered with gather_mode="xla", its end time cut to GENERIC_STEPS
     steps (the amplitude ramp kept), GENERIC_FRAMES frames with a
-    checkpoint at each, energy balance and metrics; launches counted,
-    frames checked against the alive count, the first deletion located
+    checkpoint at each, energy balance and metrics; launches counted (the
+    unpacked entry's counting variant), its negative-Jacobian count held
+    against the plain count (:func:`generic_counts`), frames checked
+    against the alive count, the first deletion located
     exactly and set beside [run]'s (another loop: they need not agree)."""
     import torch
     from hakai_tpu_torch import SolverConfig, init_state, lower, run
@@ -2380,7 +2429,7 @@ def generic_run(smi_line, run_first, run_alive):
     launches = read_counts()
     steps = model.time_num
     log(f"\n[generic] launches {launches} for {steps} steps")
-    want = {"update": steps, "update[float32+triax]": steps,
+    want = {"update": steps, "update[float32+triax+neg]": steps,
             "assemble[hk_assemble_f32_f64]": steps, "element": 0,
             "integrate[mixed]": steps, "erosion[float32]": steps}
     if any(launches.get(k, 0) != v for k, v in want.items()):
@@ -2388,6 +2437,7 @@ def generic_run(smi_line, run_first, run_alive):
     for f in ("disp", "velo", "Q", "stress", "eq_ps", "triax"):
         if not torch.isfinite(getattr(final, f)).all():
             raise AssertionError(f"[generic] {f} is not finite")
+    counts = generic_counts(model, final)
     alive = int(final.element_flag.sum())
     frames = sorted(p for p in os.listdir(GENERIC_DIR) if p.endswith(".vtk"))
     cells = [vtk_cells(os.path.join(GENERIC_DIR, p)) for p in frames]
@@ -2418,7 +2468,10 @@ def generic_run(smi_line, run_first, run_alive):
         f"{cells}; energy_rel_error {recs[-1]['energy_rel_error']:.3e}; "
         f"first deletion at step {first} (packed [run]: {run_first}); "
         f"alive by step {[(t, by_step[t], run_alive[t]) for t in common]} "
-        f"(generic, packed); {alive} alive at step {steps} [{smi_line}]")
+        f"(generic, packed); {alive} alive at step {steps}; "
+        f"negative-Jacobian count (kernel, plain) at step {steps} "
+        f"{counts[0]}, with four elements inverted {counts[1]} "
+        f"[{smi_line}]")
     return model, launches, final, us, first
 
 
@@ -3722,6 +3775,11 @@ def main() -> int:
                                     want_triax=True, ref=ref),
         "u_f64": check_update(with_padding(bench64, 128), rng, "bench",
                               ref=ref),
+        "u_f32_triax_neg": check_update(
+            dataclasses.replace(with_padding(bench, 128), config=(
+                dataclasses.replace(bench.config, metrics_path=os.path.join(
+                    GENERIC_DIR, "unopened.jsonl")))), rng, "bench",
+            want_triax=True),
         "asm_f32": check_assemble(bench, rng, "bench", ref=ref),
         "asm_f64": check_assemble(bench64, rng, "bench", ref=ref),
         "asm_mixed": check_assemble(mixed, rng, "bench", torch.float64,
@@ -3736,7 +3794,8 @@ def main() -> int:
         "float32 +triax", "f64": "element packed float64", "mixed":
         "element packed mixed +triax", "u_f32": "element unpacked float32",
         "u_f32_triax": "element unpacked float32 +triax", "u_f64":
-        "element unpacked float64", "asm_f32": "kernel B float32",
+        "element unpacked float64", "u_f32_triax_neg": "element unpacked "
+        "float32 +triax +neg", "asm_f32": "kernel B float32",
         "asm_f64": "kernel B float64", "asm_mixed": "kernel B "
         "float32->float64", "gasm_f32": "grouped float32", "gasm_f64":
         "grouped float64", "gasm_mixed": "grouped float32->float64"})
@@ -3847,7 +3906,8 @@ def main() -> int:
         f"{gen_run_us:.2f} us)")
     graphs["[generic] mixed"] = graph_path(
         "[generic] mixed", gen_mixed, GENERIC_STEPS, {
-            "update[float32+triax]": 1, "assemble[hk_assemble_f32_f64]": 1,
+            "update[float32+triax+neg]": 1,
+            "assemble[hk_assemble_f32_f64]": 1,
             "integrate[mixed]": 1, "erosion[float32]": 1},
         smi_line, deletes=True)
     step_kernels_generic(gen_mixed, gen_first, smi_line)
@@ -3923,6 +3983,10 @@ def main() -> int:
               rec["mixed"]),
         entry("element_update[float32+triax]", el, f"{src}:25 (call :63)",
               "update[float32+triax]", rec["u_f32_triax"]),
+        entry("element_update[float32+triax+neg]", el,
+              f"{src}:25 (call :63) and hakai_tpu/ops/element.py:65,181 "
+              "(the negative-Jacobian count beside it; an XLA fusion)",
+              "update[float32+triax+neg]", rec["u_f32_triax_neg"]),
         entry("element_update[float64]", el,
               f"{src}:25 (call :63; f64 takes the XLA math there)",
               "update[float64]", rec["u_f64"]),

@@ -76,9 +76,9 @@ _SIGNATURES = {
     # elem, position, d_disp, stress, strain, eq_ps, yield, G, lam, mat,
     # hasp, flag, hard_strain, hard_slope, hard_n, hard_rows, hard_cols, E,
     # N, stress_out, strain_out, eq_out, yield_out, qe, triax (None: no
-    # triaxiality output), stream
-    "hk_element_update_f32": (_P,) * 15 + (_I,) * 4 + (_P,) * 7,
-    "hk_element_update_f64": (_P,) * 15 + (_I,) * 4 + (_P,) * 7,
+    # triaxiality output), neg (None: no negative-Jacobian count), stream
+    "hk_element_update_f32": (_P,) * 15 + (_I,) * 4 + (_P,) * 8,
+    "hk_element_update_f64": (_P,) * 15 + (_I,) * 4 + (_P,) * 8,
     # instantiation, hard_rows, hard_cols, out (5 ints: blocks an SM,
     # registers, static and local bytes, dynamic shared bytes)
     "hk_element_resources": (_I, _I, _I, _P),

@@ -25,7 +25,8 @@ are one file a process plus process 0's manifest.
 
 ``--timings`` also prints the run's graph captures (count and host
 seconds), graph replays, the host loop's own seconds and its reads of
-device values (``solver/explicit.run_loop``'s counters), and which
+device values, and the metrics stream's host seconds and records
+(one a chunk; ``solver/explicit.run_loop``'s counters), and which
 host-IO path parsed the deck and wrote the frames: the path of the C++
 helper's shared library.
 """
@@ -349,6 +350,9 @@ def main(argv=None):
               f"host loop {timings['loop_s']:.3f} s, "
               f"{timings['host_syncs']} host syncs in {timings['chunks']} "
               "chunks")
+        records = timings["chunks"] if cfg.metrics_path else 0
+        print(f"timings: metrics {timings['metrics_s']:.3f} s for "
+              f"{records} records")
         from ._build import HOST_INFO, host_library
         host_library()                  # loaded by the parse already
         print(f"host-io: C++ helper {HOST_INFO['path']}")

@@ -26,7 +26,14 @@
 // Both write qe (24, E) = (3, 8, E) with rows b*8+i, masked by the life
 // flag, and with a triax pointer the (8, E) triaxiality of the final stress
 // (want_triax; the formula and the vm < 1e-10 / vm == 0 guards of
-// element_pallas.py:448-455).  The math is hakai_tpu/ops/element.py:
+// element_pallas.py:448-455).  The generic stage, given a neg pointer,
+// also adds to it the number of Gauss points of live elements whose detJ
+// is negative (NEG; the count hakai_tpu/ops/element.py:element_core forms
+// beside its TPU kernel when a metrics stream is on): each warp ballots
+// its 32 points, each block adds its warps' counts with one atomicAdd.
+// Integer sums, so the count is exact in any block order; the caller
+// zeroes it.  The packed instantiations take NEG = false and compile as
+// they did without it.  The math is hakai_tpu/ops/element.py:
 // _element_math, direct form.
 //
 // Two scalar types: K for the nodal disp/dprev, T for the element math and
@@ -167,9 +174,10 @@ template <typename T> int table_bytes(int M, int W) {
 // GENERIC: a = position, b = d_disp (3, N) in T, centred after the gather,
 // coord_e unused; else a = disp, b = dprev (3, N) in K with coord_e.
 // ``staged``: the launch gave table_bytes(M, W) bytes of dynamic shared
-// memory for the hardening tables.
+// memory for the hardening tables.  NEG (generic only): count the live
+// Gauss points with detJ < 0 into *neg.
 template <typename K, typename T, bool GENERIC, bool TRIAX,
-          int MINB = kMinBlocks<T>>
+          int MINB = kMinBlocks<T>, bool NEG = false>
 __global__ void __launch_bounds__(kThreads, MINB)
 element_kernel(const int32_t* __restrict__ elem,      // (8, E)
                const T* __restrict__ coord_e,         // (24, E)
@@ -185,11 +193,14 @@ element_kernel(const int32_t* __restrict__ elem,      // (8, E)
                int E, int N,
                const StateOut<T> gpo,                 // new state
                T* __restrict__ qe,                    // (24, E)
-               T* __restrict__ triax) {               // (8, E) if TRIAX
+               T* __restrict__ triax,                 // (8, E) if TRIAX
+               int32_t* __restrict__ neg) {           // () if NEG
+  static_assert(GENERIC || !NEG, "the count is the generic stage's");
   // region A: s_kin[48][kTE] (pos rows b*8+i, du rows 24+b*8+i) from the
   // gather to the Jacobian, then sum 2's partials [7][kNG][kTE] after
-  // barrier 2; region B: sum 1's partials [2][kNG][kTE], then the force
-  // moments M[c][b] [9][kNG][kTE] after barrier 3
+  // barrier 2; region B: sum 1's partials [2][kNG][kTE] (with NEG the
+  // warps' counts, kNG ints, after them), then the force moments M[c][b]
+  // [9][kNG][kTE] after barrier 3
   __shared__ T s_a[7 * kNG * kTE];
   __shared__ T s_b[9 * kNG * kTE];
   extern __shared__ __align__(16) unsigned char s_tab[];
@@ -283,6 +294,12 @@ element_kernel(const int32_t* __restrict__ elem,      // (8, E)
                + J[0][2] * J[1][0] * J[2][1] - J[0][0] * J[1][2] * J[2][1]
                - J[0][1] * J[1][0] * J[2][2] - J[0][2] * J[1][1] * J[2][0];
   const T adet = detJ < T(0) ? -detJ : detJ;
+  if constexpr (NEG) {   // warp k's count of its 32 points, after sum 1
+    const unsigned ballot = __ballot_sync(0xffffffffu,
+                                          live && alive && detJ < T(0));
+    if (x == 0) reinterpret_cast<int*>(s_b + 2 * kNG * kTE)[k] =
+        __popc(ballot);
+  }
   const T inv_det = T(1) / (detJ == T(0) ? T(1) : detJ);
   T iJ[3][3];   // iJ[b][a] = cofactor(a, b) / detJ
 #pragma unroll
@@ -307,6 +324,15 @@ element_kernel(const int32_t* __restrict__ elem,      // (8, E)
   s_sum1[0][k][x] = adet;
   s_sum1[1][k][x] = adet * tr;
   __syncthreads();                      // barrier 2: sum 1; s_kin is dead
+  if constexpr (NEG) {   // the block's count, read before barrier 3
+    if (x == 0 && k == 0) {
+      const int* w = reinterpret_cast<const int*>(s_b + 2 * kNG * kTE);
+      int c = 0;
+#pragma unroll
+      for (int kk = 0; kk < kNG; ++kk) c += w[kk];
+      if (c) atomicAdd(neg, c);
+    }
+  }
   T V = s_sum1[0][0][x], S = s_sum1[1][0][x];
 #pragma unroll
   for (int kk = 1; kk < kNG; ++kk) {
@@ -425,18 +451,18 @@ element_kernel(const int32_t* __restrict__ elem,      // (8, E)
   }
 }
 
-template <typename K, typename T, bool GENERIC, bool TRIAX>
+template <typename K, typename T, bool GENERIC, bool TRIAX, bool NEG>
 int launch_one(const int32_t* elem, const T* coord_e, const K* a,
                const K* b, StateIn<T> gp, const T* G_e, const T* lam_e,
                const int32_t* mat, const uint8_t* hasp, const uint8_t* flag,
                Hardening<T> hard, int E, int N, StateOut<T> gpo, T* qe,
-               T* triax, void* stream) {
+               T* triax, int32_t* neg, void* stream) {
   const int smem = table_bytes<T>(hard.M, hard.W);
-  element_kernel<K, T, GENERIC, TRIAX>
+  element_kernel<K, T, GENERIC, TRIAX, kMinBlocks<T>, NEG>
       <<<(E + kTE - 1) / kTE, dim3(kTE, kNG), smem,
          (cudaStream_t)stream>>>(elem, coord_e, a, b, gp, G_e, lam_e, mat,
                                  hasp, flag, hard, smem > 0, E, N, gpo, qe,
-                                 triax);
+                                 triax, neg);
   return (int)cudaGetLastError();
 }
 
@@ -445,17 +471,28 @@ int launch(const int32_t* elem, const T* coord_e, const K* a, const K* b,
            StateIn<T> gp, const T* G_e, const T* lam_e, const int32_t* mat,
            const uint8_t* hasp, const uint8_t* flag, const T* hard_strain,
            const T* hard_slope, const int32_t* hard_n, int M, int W, int E,
-           int N, StateOut<T> gpo, T* qe, T* triax, void* stream) {
+           int N, StateOut<T> gpo, T* qe, T* triax, int32_t* neg,
+           void* stream) {
   if (E <= 0) return 0;
   if (M < 1 || W < 1) return (int)cudaErrorInvalidValue;
   const Hardening<T> hard{hard_strain, hard_slope, hard_n, M, W};
+  if constexpr (GENERIC) {   // the packed stage is given no count
+    if (neg != nullptr && triax != nullptr)
+      return launch_one<K, T, true, true, true>(
+          elem, coord_e, a, b, gp, G_e, lam_e, mat, hasp, flag, hard, E, N,
+          gpo, qe, triax, neg, stream);
+    if (neg != nullptr)
+      return launch_one<K, T, true, false, true>(
+          elem, coord_e, a, b, gp, G_e, lam_e, mat, hasp, flag, hard, E, N,
+          gpo, qe, triax, neg, stream);
+  }
   if (triax != nullptr)
-    return launch_one<K, T, GENERIC, true>(elem, coord_e, a, b, gp, G_e,
-                                           lam_e, mat, hasp, flag, hard, E,
-                                           N, gpo, qe, triax, stream);
-  return launch_one<K, T, GENERIC, false>(elem, coord_e, a, b, gp, G_e,
-                                          lam_e, mat, hasp, flag, hard, E, N,
-                                          gpo, qe, triax, stream);
+    return launch_one<K, T, GENERIC, true, false>(
+        elem, coord_e, a, b, gp, G_e, lam_e, mat, hasp, flag, hard, E, N,
+        gpo, qe, triax, nullptr, stream);
+  return launch_one<K, T, GENERIC, false, false>(
+      elem, coord_e, a, b, gp, G_e, lam_e, mat, hasp, flag, hard, E, N, gpo,
+      qe, triax, nullptr, stream);
 }
 
 template <typename K, typename T>
@@ -468,7 +505,8 @@ int launch_packed(const int32_t* elem, const T* coord_e, const K* disp,
   return launch<K, T, false>(elem, coord_e, disp, dprev, packed_in(P, E),
                              G_e, lam_e, mat, hasp, flag, hard_strain,
                              hard_slope, hard_n, M, W, E, N,
-                             packed_out(P_out, E), qe, triax, stream);
+                             packed_out(P_out, E), qe, triax, nullptr,
+                             stream);
 }
 
 template <typename T>
@@ -479,20 +517,23 @@ int launch_generic(const int32_t* elem, const T* position, const T* d_disp,
                    const uint8_t* flag, const T* hard_strain,
                    const T* hard_slope, const int32_t* hard_n, int M, int W,
                    int E, int N, T* stress_out, T* strain_out, T* eq_out,
-                   T* yield_out, T* qe, T* triax, void* stream) {
+                   T* yield_out, T* qe, T* triax, int32_t* neg,
+                   void* stream) {
   return launch<T, T, true>(
       elem, nullptr, position, d_disp, {stress, strain, eq, yield}, G_e,
       lam_e, mat, hasp, flag, hard_strain, hard_slope, hard_n, M, W, E, N,
-      {stress_out, strain_out, eq_out, yield_out, nullptr}, qe, triax,
+      {stress_out, strain_out, eq_out, yield_out, nullptr}, qe, triax, neg,
       stream);
 }
 
 // What one instantiation holds, with ``smem`` bytes of dynamic shared
 // memory: out = {resident blocks an SM, registers a thread, static shared
 // memory a block, local memory a thread (spills), smem}.
-template <typename K, typename T, bool GENERIC, bool TRIAX>
+template <typename K, typename T, bool GENERIC, bool TRIAX,
+          bool NEG = false>
 int resources(int smem, int* out) {
-  const auto kernel = element_kernel<K, T, GENERIC, TRIAX>;
+  const auto kernel = element_kernel<K, T, GENERIC, TRIAX, kMinBlocks<T>,
+                                     NEG>;
   cudaFuncAttributes fa;
   cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return (int)err;
@@ -561,7 +602,8 @@ int hk_element_mixed(const int32_t* elem, const float* coord_e,
 
 // The generic step's unpacked update: position and d_disp (3, N) in the
 // element type; stress (6, 8, E), strain (6, E), eq_ps and yield (8, E) in
-// and out as separate arrays; qe (3, 8, E).
+// and out as separate arrays; qe (3, 8, E).  neg == nullptr: no count;
+// else the live Gauss points with detJ < 0 are added to *neg (int32).
 int hk_element_update_f32(const int32_t* elem, const float* position,
                           const float* d_disp, const float* stress,
                           const float* strain, const float* eq,
@@ -572,12 +614,12 @@ int hk_element_update_f32(const int32_t* elem, const float* position,
                           const int32_t* hard_n, int M, int W, int E, int N,
                           float* stress_out, float* strain_out,
                           float* eq_out, float* yield_out, float* qe,
-                          float* triax, void* stream) {
+                          float* triax, int32_t* neg, void* stream) {
   return launch_generic<float>(elem, position, d_disp, stress, strain, eq,
                                yield, G_e, lam_e, mat, hasp, flag,
                                hard_strain, hard_slope, hard_n, M, W, E, N,
                                stress_out, strain_out, eq_out, yield_out, qe,
-                               triax, stream);
+                               triax, neg, stream);
 }
 
 int hk_element_update_f64(const int32_t* elem, const double* position,
@@ -591,18 +633,19 @@ int hk_element_update_f64(const int32_t* elem, const double* position,
                           int M, int W, int E, int N, double* stress_out,
                           double* strain_out, double* eq_out,
                           double* yield_out, double* qe, double* triax,
-                          void* stream) {
+                          int32_t* neg, void* stream) {
   return launch_generic<double>(elem, position, d_disp, stress, strain, eq,
                                 yield, G_e, lam_e, mat, hasp, flag,
                                 hard_strain, hard_slope, hard_n, M, W, E, N,
                                 stress_out, strain_out, eq_out, yield_out, qe,
-                                triax, stream);
+                                triax, neg, stream);
 }
 
 // The resources of instantiation ``which`` (0 packed f32, 1 packed f64,
 // 2 packed mixed, 3 unpacked f32, 4 unpacked f64; +5 with the triaxiality
-// output) with the shared-memory tables of an (M, W) hardening table, into
-// out[5] (see resources above).
+// output; 10-13: 3, 4, 8, 9 with the negative-Jacobian count) with the
+// shared-memory tables of an (M, W) hardening table, into out[5] (see
+// resources above).
 int hk_element_resources(int which, int M, int W, int* out) {
   const int sf = table_bytes<float>(M, W), sd = table_bytes<double>(M, W);
   switch (which) {
@@ -616,6 +659,10 @@ int hk_element_resources(int which, int M, int W, int* out) {
     case 7: return resources<double, float, false, true>(sf, out);
     case 8: return resources<float, float, true, true>(sf, out);
     case 9: return resources<double, double, true, true>(sd, out);
+    case 10: return resources<float, float, true, false, true>(sf, out);
+    case 11: return resources<double, double, true, false, true>(sd, out);
+    case 12: return resources<float, float, true, true, true>(sf, out);
+    case 13: return resources<double, double, true, true, true>(sd, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

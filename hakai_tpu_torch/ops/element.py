@@ -154,7 +154,11 @@ def gather_element_nodes(model: LoweredModel, position, d_disp):
 
 def neg_jacobian_count(model: LoweredModel, pos_e, element_flag):
     """() int32: Gauss points of live elements whose Jacobian determinant
-    is negative (``_det_sign_negative``; a diagnostic)."""
+    is negative (``_det_sign_negative``; a diagnostic).  J is an ``einsum``
+    over the node-0-centred positions in their dtype.  This is the count's
+    CPU path and the oracle of the unpacked kernel's own count, whose J
+    sums in another order: the two can differ only on points whose
+    ``|detJ|`` is at rounding level."""
     J = torch.einsum("kai,bie->abke", model.pusai.to(pos_e.dtype),
                      pos_e - pos_e[:, 0:1, :])
     neg = (_det3(J) < 0) & element_flag[None, :]

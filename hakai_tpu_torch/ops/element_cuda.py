@@ -28,7 +28,7 @@ from .. import _build
 from ..core.lowering import LoweredModel
 from .element import (ElementResult, element_core_packed_plain,
                       element_core_plain, gather_element_nodes,
-                      neg_jacobian_count, triax_stress)
+                      triax_stress)
 from .erosion_cuda import erosion_walk
 from .shape import pusai_hexa
 
@@ -150,8 +150,16 @@ def element_update(model: LoweredModel, position, d_disp, stress, strain,
     the Gauss-point state in the element dtype and ``element_flag`` (E,)
     bool.  The kernel gathers both nodal fields through ``model.elem`` and
     centres the positions on each element's node 0 in the element dtype.
-    ``neg_jacobian`` is counted (plain PyTorch) only when the config
-    streams metrics, as the JAX package counts it beside its TPU kernel."""
+
+    ``neg_jacobian``, the Gauss points of live elements whose Jacobian
+    determinant is negative, is counted only when the config streams
+    metrics (``metrics_path``), as the JAX package counts it beside its TPU
+    kernel; else it is 0.  On the card the kernel counts it from the
+    ``detJ`` it forms (a zeroed int32 that it adds to; launches under
+    ``"<dtype>[+triax]+neg"``), on the CPU :func:`~hakai_tpu_torch.ops.
+    element.neg_jacobian_count` does.  The two form J in other summation
+    orders, so they can disagree only on points whose ``|detJ|`` is at
+    rounding level."""
     _element_kernel(model)
     if position.device.type == "cpu":
         pos_e, du = gather_element_nodes(model, position, d_disp)
@@ -175,6 +183,8 @@ def element_update(model: LoweredModel, position, d_disp, stress, strain,
     qe = torch.empty((3, 8, E), dtype=edt, device=position.device)
     triax = (torch.empty((8, E), dtype=edt, device=position.device)
              if want_triax else None)
+    count = model.config.metrics_path is not None
+    neg = torch.zeros((), dtype=torch.int32, device=position.device)
     with torch.cuda.device(position.device):
         _ensure_pusai(lib, position.device)
         err = getattr(lib, entry)(
@@ -187,21 +197,22 @@ def element_update(model: LoweredModel, position, d_disp, stress, strain,
             *model.hard_strain.shape, E, N,
             *(x.data_ptr() for x in out), qe.data_ptr(),
             None if triax is None else triax.data_ptr(),
+            neg.data_ptr() if count else None,
             torch.cuda.current_stream(position.device).cuda_stream)
     _build.check(lib, err, "element kernel (unpacked)")
     element_update.launches += 1
-    element_update.launches_by[variant + "+triax" * want_triax] += 1
-    neg = (neg_jacobian_count(model, position[:, model.elem], element_flag)
-           if model.config.metrics_path is not None
-           else torch.zeros((), dtype=torch.int32, device=position.device))
+    element_update.launches_by[variant + "+triax" * want_triax
+                               + "+neg" * count] += 1
     res = ElementResult(qe, *out, neg)
     return (res, triax) if want_triax else res
 
 
 element_update.launches = 0
-# launches by entry: "float32", "float64", each also with "+triax"
-element_update.launches_by = {v + t: 0 for _, v in _UPDATE_ENTRIES.values()
-                              for t in ("", "+triax")}
+# launches by instantiation: "float32", "float64", each also with "+triax",
+# and each of those with "+neg" (the negative-Jacobian count)
+element_update.launches_by = {v + t + n: 0
+                              for _, v in _UPDATE_ENTRIES.values()
+                              for t in ("", "+triax") for n in ("", "+neg")}
 
 
 def packed_element_step(model: LoweredModel, P, flag, disp, disp_prev,

@@ -400,7 +400,8 @@ def run_loop(model: LoweredModel, state, chunk, hooks, verbose: bool = True,
     calls of ``chunk`` (each up to the device sync that reads the step
     count) over ``steps`` steps; ``frame_s`` over ``frames`` (the root's);
     ``loop_s``, the loop's other host seconds (guards, metrics, progress,
-    checkpoints); ``host_syncs``, the device values read to the host
+    checkpoints); ``metrics_s``, the part of ``loop_s`` inside
+    ``hakai.metrics``; ``host_syncs``, the device values read to the host
     outside frames and checkpoints; ``captures`` and ``capture_s``, the
     graphs captured in the call and their host seconds of warm-up,
     capture and instantiation, and ``replays``, graph replays
@@ -417,7 +418,7 @@ def run_loop(model: LoweredModel, state, chunk, hooks, verbose: bool = True,
     n_frames = time_num // d_out if time_num else 0
     metrics = MetricsWriter(cfg.metrics_path if root else None)
     clock = {"step_s": 0.0, "frame_s": 0.0, "frames": 0, "steps": 0,
-             "chunks": 0, "host_syncs": 0}
+             "chunks": 0, "host_syncs": 0, "metrics_s": 0.0}
     t_loop, framing, graphs = _time.perf_counter(), 0.0, totals()
 
     def read(name, value):
@@ -488,11 +489,13 @@ def run_loop(model: LoweredModel, state, chunk, hooks, verbose: bool = True,
                              f"{model.end_time:.4e}     ")
             sys.stdout.flush()
         if cfg.metrics_path is not None:
+            tm = _time.perf_counter()
             with span("hakai.metrics"):
                 vals = hooks.metrics()
                 if root:
                     metrics.record_raw(vals, model, done, _time.time() - t0)
                     clock["host_syncs"] += len(vals)
+            clock["metrics_s"] += _time.perf_counter() - tm
         if write_output and done % d_out == 0 and i_out <= n_frames:
             frame(i_out)
             frame_times.append((i_out, done * model.dt))

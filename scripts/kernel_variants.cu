@@ -305,7 +305,8 @@ element_kernel_c2(const int32_t* __restrict__ elem,
                   int E, int N,
                   const StateOut<T> gpo,
                   T* __restrict__ qe,
-                  T* __restrict__ triax) {
+                  T* __restrict__ triax,
+                  int32_t*) {                            // neg: unused
   __shared__ T s_a[7 * kNG * kTE];
   __shared__ T s_b[9 * kNG * kTE];
   extern __shared__ __align__(16) unsigned char s_tab[];
@@ -621,7 +622,8 @@ element_kernel_alt(const int32_t* __restrict__ elem,      // (8, E)
                int E, int N,
                const StateOut<T> gpo,                 // new state
                T* __restrict__ qe,                    // (24, E)
-               T* __restrict__ triax) {               // (8, E) if TRIAX
+               T* __restrict__ triax,                 // (8, E) if TRIAX
+               int32_t*) {                            // neg: unused
   // region A: s_kin[48][kTE] (pos rows b*8+i, du rows 24+b*8+i) from the
   // gather to the Jacobian, then sum 2's partials [7][kNG][kTE] after
   // barrier 2; region B: sum 1's partials [2][kNG][kTE], then the force
@@ -947,7 +949,8 @@ element_kernel_c6(const int32_t* __restrict__ elem,      // (8, E)
                int E, int N,
                const StateOut<T> gpo,                 // new state
                T* __restrict__ qe,                    // (24, E)
-               T* __restrict__ triax) {               // (8, E) if TRIAX
+               T* __restrict__ triax,                 // (8, E) if TRIAX
+               int32_t*) {                            // neg: unused
   // region A: s_kin[48][kTE] (pos rows b*8+i, du rows 24+b*8+i) from the
   // gather to the Jacobian, then sum 2's partials [7][kNG][kTE] after
   // barrier 2; region B: sum 1's partials [2][kNG][kTE], then the force
@@ -1230,7 +1233,8 @@ element_kernel_mem(const int32_t* __restrict__ elem,
                    const uint8_t* __restrict__ hasp,
                    const uint8_t* __restrict__ flag, const Hardening<T> hard,
                    bool staged, int E, int N, const StateOut<T> gpo,
-                   T* __restrict__ qe, T* __restrict__ triax) {
+                   T* __restrict__ qe, T* __restrict__ triax,
+                   int32_t*) {                            // neg: unused
   __shared__ T s_kin[48][kTE];
   const int x = threadIdx.x, k = threadIdx.y;
   const int64_t e = (int64_t)blockIdx.x * kTE + x;
@@ -1562,7 +1566,7 @@ struct Design {
         c.elem, c.coord_e, c.a, c.b, c.in(), c.G, c.lam, c.mat, c.hasp,
         c.flag, el::Hardening<T>{c.hard_strain, c.hard_slope, c.hard_n,
                                  c.M, c.W},
-        smem > 0, c.m.E, c.m.N, c.out(), c.qe, c.tri);
+        smem > 0, c.m.E, c.m.N, c.out(), c.qe, c.tri, nullptr);
   }
 };
 

@@ -20,7 +20,8 @@ from hakai_tpu_torch.ops.assemble_cuda import (assemble_internal_force,
 from hakai_tpu_torch.ops.element import (assemble_internal_force_plain,
                                          element_core_packed_plain,
                                          element_core_plain,
-                                         gather_element_nodes, triax_stress)
+                                         gather_element_nodes,
+                                         neg_jacobian_count, triax_stress)
 from hakai_tpu_torch.ops.element_cuda import (element_core_packed,
                                               element_update)
 from hakai_tpu_torch.pre.synthetic import bar_model
@@ -341,6 +342,101 @@ def test_element_update_kernel_matches_plain(cuda, dtype, want_triax):
     assert not res.Qe[..., ~u[-1]].any()
     if want_triax:
         assert _rel(out[1], triax_stress(ref.stress)) <= TRIAX_TOL[m.edtype]
+
+
+def _bench_bar_counting(cuda, dtype, tmp_path, stream=True):
+    """The bench bar (32x32x128) lowered for the generic step, with a
+    metrics stream configured (the path is never opened here)."""
+    m = lower(bar_model(32, 32, 128), SolverConfig(
+        dtype=dtype, gather_mode="xla", metrics_path=str(
+            tmp_path / "m.jsonl") if stream else None), device=cuda)
+    assert m.coord_e is None and m.node_new2old is None
+    return m
+
+
+def _count_inputs(m, seed, invert):
+    """:func:`_update_inputs` with, when ``invert``, the bar's four top
+    corners pushed 1 mm down, through their elements (0.39 mm high)."""
+    u = list(_update_inputs(m, seed))
+    if invert:
+        top = [((i * 33) + j) * 129 + 128 for i in (0, 32) for j in (0, 32)]
+        pos = u[0].clone()
+        pos[2, top] -= 1.0
+        u[0] = pos
+    return u
+
+
+def _plain_count(m, u):
+    return int(neg_jacobian_count(m, u[0][:, m.elem], u[-1]))
+
+
+@pytest.mark.parametrize("invert", [True, False], ids=["inverted", "clean"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_fused_count_matches_plain(cuda, dtype, invert, tmp_path):
+    """With a metrics stream the unpacked entry counts the negative
+    Jacobians itself (launched as ``<dtype>+triax+neg``): equal to the
+    plain count on the bench bar, clean and with inverted corners, eager
+    and through replays of a captured graph, which zero the count each
+    time (the inverted state replayed twice counts the same)."""
+    m = _bench_bar_counting(cuda, dtype, tmp_path)
+    u = _count_inputs(m, 5, invert)
+    want = _plain_count(m, u)
+    assert (want > 0) == invert
+    key = f"{dtype}+triax+neg"
+    before = element_update.launches_by[key]
+    res, _ = element_update(m, *u, want_triax=True)
+    assert element_update.launches_by[key] == before + 1
+    assert res.neg_jacobian.dtype == torch.int32
+    assert int(res.neg_jacobian) == want
+    other = _count_inputs(m, 6, not invert)
+    static = [x.clone() for x in u]
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out, _ = element_update(m, *static, want_triax=True)
+    for x in (u, other, u, u):
+        for s, v in zip(static, x):
+            s.copy_(v)
+        g.replay()
+        torch.cuda.synchronize()
+        assert int(out.neg_jacobian) == _plain_count(m, x)
+    assert torch.equal(out.Qe, res.Qe)
+
+
+def test_no_count_without_a_stream(cuda, tmp_path):
+    """Without a metrics stream the unpacked entry is launched without a
+    count (its ``+triax`` variant, not ``+triax+neg``) and the count reads
+    0 with inverted corners; the outputs equal the counting launch's."""
+    m = _bench_bar_counting(cuda, "float32", tmp_path, stream=False)
+    u = _count_inputs(m, 5, True)
+    before = dict(element_update.launches_by)
+    res, tri = element_update(m, *u, want_triax=True)
+    after = element_update.launches_by
+    assert after["float32+triax"] == before["float32+triax"] + 1
+    assert after["float32+triax+neg"] == before["float32+triax+neg"]
+    assert int(res.neg_jacobian) == 0 and _plain_count(m, u) > 0
+    mc = _bench_bar_counting(cuda, "float32", tmp_path)
+    rc, tc = element_update(mc, *u, want_triax=True)
+    assert int(rc.neg_jacobian) == _plain_count(m, u)
+    for name in ("Qe", "stress", "strain", "eq_ps", "yield_s"):
+        assert torch.equal(getattr(rc, name), getattr(res, name)), name
+    assert torch.equal(tc, tri)
+
+
+def test_packed_entries_resources_unchanged(cuda):
+    """The packed instantiations the chunk loop runs, f32 and mixed, with
+    and without triaxiality, hold the kernel table's 64 registers and 4
+    blocks an SM without spills: the count's template flag left them as
+    they were.  The unpacked entries' with the count are printed."""
+    from hakai_tpu_torch import _build
+    m = lower(bar_model(8, 8, 32, ductile=True), SolverConfig(), device=cuda)
+    M, W = m.hard_strain.shape
+    for which in (0, 2, 5, 7):
+        r = _build.resources("hk_element_resources", which, M, W)
+        assert (r["registers"], r["blocks"], r["local"]) == (64, 4, 0), \
+            (which, r)
+    for which in (3, 8, 10, 12, 4, 9, 11, 13):
+        print(which, _build.resources("hk_element_resources", which, M, W))
 
 
 @pytest.mark.parametrize("loop", ["generic", "packed"])

@@ -132,7 +132,7 @@ def test_timings_count_the_loop(tmp_path, guards):
     """``host_syncs``: the step count and the alive count before the
     loop, then a chunk's sync and alive count, its NaN check and energy
     guard where set, and each metric value recorded; no graphs on the
-    CPU."""
+    CPU.  ``metrics_s``: the stream's seconds, a part of ``loop_s``."""
     cfg = {"alive": dict(energy_check=False, energy_abort_rel=0.0),
            "energy": {}, "nan": dict(check_nan=True),
            "metrics": dict(metrics_path=str(tmp_path / "m.jsonl"))}[guards]
@@ -148,6 +148,8 @@ def test_timings_count_the_loop(tmp_path, guards):
     assert (tm["chunks"], tm["steps"], tm["frames"]) == (CHUNKS, 10, 0)
     assert (tm["captures"], tm["replays"], tm["capture_s"]) == (0, 0, 0.0)
     assert tm["loop_s"] > 0 and tm["step_s"] > 0
+    assert (tm["metrics_s"] > 0) == (guards == "metrics")
+    assert tm["metrics_s"] < tm["loop_s"]
 
 
 def test_graph_spans_and_counters(tmp_path, monkeypatch):
@@ -206,6 +208,8 @@ def test_cli_timings_and_profile_name_the_counters_and_spans(tmp_path,
                      r"syncs in (\d+) chunks$", out, re.M)
     assert line and line.group(2, 3, 6) == ("0", "0", "5")
     assert int(line.group(5)) == 2 + 5 * 3      # the CLI's energy guard
+    assert re.search(r"^timings: metrics 0\.000 s for 0 records$", out,
+                     re.M)
     events = json.loads((tmp_path / "prof" / "trace.json").read_text())
     chunks = [e for e in events["traceEvents"]
               if e.get("name") == "hakai.chunk"]
