@@ -837,6 +837,8 @@ class HaloView:
     method is a collective that every rank calls at the same point, and
     the root rank alone writes (see ``solver.explicit.LoopView``)."""
 
+    collective = True
+
     def __init__(self, comm: HaloComm, root: bool):
         self.comm, self.root = comm, root
         self.frame_fn = make_halo_frame(comm)

@@ -27,6 +27,7 @@ alone or on a rank whose collectives can be captured (NCCL).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import sys
 import time as _time
@@ -333,8 +334,7 @@ def run(model: LoweredModel, state: SimState | None = None,
                 state = init_state(model) if state is None \
                     else state.to(device)
             return run_loop(model, state, lambda s, n: run_chunk(model, s, n),
-                            LoopView(model, lambda s: s,
-                                     process_index() == 0),
+                            LoopView(model, None, process_index() == 0),
                             verbose, write_output, timings)
     if timings is not None:
         timings.update(clock)
@@ -343,29 +343,61 @@ def run(model: LoweredModel, state: SimState | None = None,
 
 class LoopView:
     """What :func:`run_loop` reads of a rank's state between chunks, from
-    ``view(state)``, the whole state (on element-sharded ranks a collective
-    that every rank calls at the same points).  Only the ``root`` rank
-    forms frames and metrics and writes checkpoints.  Halo ranks read
-    through ``parallel.halo.HaloView``, whose methods are collectives."""
+    ``view(state)``, the whole state: on element-sharded ranks a
+    collective that every rank calls at the same points, so the reads are
+    ``collective`` and the loop makes them one at a time as each chunk
+    ends.  With no ``view`` the state is the whole state on one device,
+    and the loop queues a chunk's reads on the device (:meth:`queue`).
+    Only the ``root`` rank forms frames and metrics and writes
+    checkpoints.  Halo ranks read through ``parallel.halo.HaloView``,
+    whose methods are collectives."""
 
     def __init__(self, model: LoweredModel, view, root: bool):
         self.model, self.view, self.root = model, view, root
+        self.collective = view is not None
         self.sv = None
+        self.host = self.copied = None       # made at the run's first read
 
     def update(self, state):
-        self.sv = self.view(state)
+        self.sv = state if self.view is None else self.view(state)
 
-    def alive(self) -> int:
-        return int(self.sv.element_flag.sum())
+    def alive(self):
+        return self.sv.element_flag.sum()
 
-    def finite(self) -> bool:
-        return bool(torch.isfinite(self.sv.disp).all())
+    def finite(self):
+        return torch.isfinite(self.sv.disp).all()
 
-    def energy_rel(self) -> float:
-        return float(energy_guard(self.model, self.sv))
+    def energy_rel(self):
+        return energy_guard(self.model, self.sv)
 
     def metrics(self) -> dict | None:
         return step_metrics(self.model, self.sv) if self.root else None
+
+    def queue(self, values: dict):
+        """``values`` (0-d device tensors by name) as one float64 vector
+        copied without blocking into the host buffer, pinned on a CUDA
+        device, and an event recorded after the copy; returns a function
+        that waits on the event and gives the values by name as floats.
+        float64 holds every float32 value, and a count up to 2**53,
+        exactly.  On the CPU the copy is synchronous.  One buffer serves
+        the run: the loop reads a chunk's values before it queues the next
+        chunk's."""
+        vec = torch.stack([v.to(torch.float64) for v in values.values()])
+        if self.host is None:
+            self.host = torch.empty(vec.shape, dtype=vec.dtype,
+                                    pin_memory=vec.is_cuda)
+            if vec.is_cuda:
+                self.copied = torch.cuda.Event()
+        self.host.copy_(vec, non_blocking=True)
+        if self.copied is not None:
+            self.copied.record(torch.cuda.current_stream(vec.device))
+        names = list(values)
+
+        def wait() -> dict:
+            if self.copied is not None:
+                self.copied.synchronize()
+            return dict(zip(names, self.host.tolist()))
+        return wait
 
     def frame_data(self):
         """(disp, velo, element_flag, NodeData) of the whole mesh on the
@@ -396,36 +428,135 @@ def run_loop(model: LoweredModel, state, chunk, hooks, verbose: bool = True,
     is the whole model.  Returns ``hooks.final()``, the whole final
     state.
 
-    With ``timings``, fills in: ``step_s``, host seconds of the ``chunks``
-    calls of ``chunk`` (each up to the device sync that reads the step
-    count) over ``steps`` steps; ``frame_s`` over ``frames`` (the root's);
-    ``loop_s``, the loop's other host seconds (guards, metrics, progress,
-    checkpoints); ``metrics_s``, the part of ``loop_s`` inside
-    ``hakai.metrics``; ``host_syncs``, the device values read to the host
-    outside frames and checkpoints; ``captures`` and ``capture_s``, the
-    graphs captured in the call and their host seconds of warm-up,
+    The loop runs one chunk ahead of its reads.  After chunk k it queues
+    every value it will read of chunk k (the alive count, the NaN flag
+    where ``check_nan`` is set, the energy ratio where the guard is on,
+    the metrics record with ``metrics_path``; the guard reads the
+    record's ``energy_rel_error``) as one copy to the host
+    (``hooks.queue``), then queues chunk k+1, and only then waits for
+    chunk k's values and acts on them: the guards, the "Element deleted"
+    and progress lines, the record.  The device so runs chunk k+1 while
+    the host reads chunk k.  It does not run ahead past a chunk after
+    which a frame or checkpoint is due, nor past the last chunk, nor on
+    ``hooks.collective`` (ranks whose reads are host collectives: they
+    read each value as each chunk ends).  A guard that trips after chunk
+    k raises after chunk k+1 was queued, which is dropped: the only
+    ``chunk`` call that a synchronous loop would not make.  At most two
+    states are alive at once: chunk k's is dropped once chunk k+1 has
+    been queued from it.
+
+    With ``timings``, fills in: ``step_s``, host seconds in ``chunk``
+    calls and in the waits for chunk values (``hakai.chunk.sync``), over
+    ``chunks`` chunks and ``steps`` steps; ``ahead``, the chunks queued
+    before the previous chunk's values were read; ``frame_s`` over
+    ``frames`` (the root's); ``loop_s``, the loop's other host seconds
+    (queueing the reads, the guards, metrics, progress, checkpoints);
+    ``metrics_s``, the part of ``loop_s`` inside ``hakai.metrics`` (the
+    record's reductions queued, the JSONL write); ``host_syncs``, the
+    waits for device values outside frames and checkpoints (one a chunk;
+    on collective hooks each value read); ``captures`` and ``capture_s``,
+    the graphs captured in the call and their host seconds of warm-up,
     capture and instantiation, and ``replays``, graph replays
     (``solver/graph.totals``).  Its stretches are spans: ``hakai.chunk``
-    (the sync in it ``hakai.chunk.sync``), ``hakai.guard.alive``,
-    ``.finite`` and ``.energy``, ``hakai.metrics``, ``hakai.frame`` (with
+    (the chunk queued and a wait for chunk values, ``hakai.chunk.sync``,
+    whose ``chunk`` is the chunk read), ``hakai.metrics``,
+    ``hakai.guard.alive`` (before the first chunk; on collective hooks
+    with ``.finite`` and ``.energy`` after each), ``hakai.frame`` (with
     ``.gather``, ``.map`` and ``.write``), ``hakai.checkpoint`` and
     ``hakai.pvd``, each with the run and the chunk it follows."""
     cfg = model.config
     root = hooks.root
     verbose = verbose and root
+    guard = cfg.energy_check and cfg.energy_abort_rel > 0
+    stream = cfg.metrics_path is not None
     time_num = model.time_num
     d_out = max(time_num // cfg.output_num, 1)
     n_frames = time_num // d_out if time_num else 0
     metrics = MetricsWriter(cfg.metrics_path if root else None)
     clock = {"step_s": 0.0, "frame_s": 0.0, "frames": 0, "steps": 0,
-             "chunks": 0, "host_syncs": 0, "metrics_s": 0.0}
+             "chunks": 0, "ahead": 0, "host_syncs": 0, "metrics_s": 0.0}
     t_loop, framing, graphs = _time.perf_counter(), 0.0, totals()
 
-    def read(name, value):
-        """``value()``, a device value read to the host, in span ``name``."""
+    @contextlib.contextmanager
+    def timed(key):
+        t = _time.perf_counter()
+        try:
+            yield
+        finally:
+            clock[key] += _time.perf_counter() - t
+
+    def read(name, value, **ids):
+        """``value()``, device values read to the host, in span ``name``."""
         clock["host_syncs"] += 1
-        with span(name):
+        with span(name, **ids):
             return value()
+
+    def sync(value, j):
+        """Chunk j's values waited for, a part of ``step_s``."""
+        with timed("step_s"):
+            return read("hakai.chunk.sync", value, chunk=j)
+
+    def queue_reads():
+        """The values of the chunk just run, queued on the device (its
+        record's reductions in ``hakai.metrics``): (wait, record names)."""
+        vals = {"alive": hooks.alive()}
+        if cfg.check_nan:
+            vals["finite"] = hooks.finite()
+        rec = {}
+        if stream and root:
+            with timed("metrics_s"), span("hakai.metrics"):
+                rec = hooks.metrics()
+            vals.update(rec)
+        if guard and "energy_rel_error" not in vals:
+            vals["energy_rel_error"] = hooks.energy_rel()
+        return hooks.queue(vals), list(rec)
+
+    def collective_reads():
+        """The values of the chunk just run, read one at a time (every rank
+        at the same points), and the record's names."""
+        got = {"alive": read("hakai.guard.alive",
+                             lambda: int(hooks.alive()))}
+        if cfg.check_nan:
+            got["finite"] = read("hakai.guard.finite",
+                                 lambda: bool(hooks.finite()))
+        if guard:
+            got["energy_rel_error"] = read(
+                "hakai.guard.energy", lambda: float(hooks.energy_rel()))
+        rec = {}
+        if stream:
+            with timed("metrics_s"), span("hakai.metrics"):
+                vals = hooks.metrics()
+                if root:
+                    rec = {k: float(v) for k, v in vals.items()}
+                    clock["host_syncs"] += len(vals)
+        return {**got, **rec}, list(rec)
+
+    def act(step, got, names):
+        """The guards, console lines and metrics record of the chunk that
+        ended at ``step``, from its values ``got``."""
+        nonlocal alive_prev
+        alive = int(got["alive"])
+        if cfg.check_nan and not got["finite"]:
+            raise FloatingPointError(f"NaN/Inf in displacement at step {step}")
+        if guard:
+            rel = got["energy_rel_error"]
+            if rel > cfg.energy_abort_rel:
+                raise FloatingPointError(
+                    f"energy balance diverged at step {step}: "
+                    f"|KE - KE0 - W_ext + W_int| = {rel:.3e} of the energy "
+                    f"scale (> {cfg.energy_abort_rel:.3e}) — roundoff energy "
+                    "injection; re-run with --precision f64 or mixed")
+        if verbose and alive != alive_prev:
+            print(f"Element deleted:{alive}/{model.n_element}")
+            alive_prev = alive
+        if verbose:
+            sys.stdout.write(f"\r{step * model.dt:.4e} / "
+                             f"{model.end_time:.4e}     ")
+            sys.stdout.flush()
+        if names:
+            with timed("metrics_s"), span("hakai.metrics"):
+                metrics.record_raw({k: got[k] for k in names}, model, step,
+                                   _time.time() - t0)
 
     def frame(index):
         nonlocal framing
@@ -456,47 +587,42 @@ def run_loop(model: LoweredModel, state, chunk, hooks, verbose: bool = True,
         frame_times.append((0, float(done) * model.dt))
 
     t0 = _time.time()
-    alive_prev = read("hakai.guard.alive", hooks.alive)
+    alive_prev = read("hakai.guard.alive", lambda: int(hooks.alive()))
     i_out = done // d_out + 1
+    pending = None      # (step, wait, names) of a chunk whose reads wait
     while done < time_num:
         n = min(d_out, time_num - done)
-        IDS["chunk"] = clock["chunks"]
-        tc = _time.perf_counter()
+        j = clock["chunks"]
+        IDS["chunk"] = j
+        done += n
+        due = write_output and done % d_out == 0 and i_out <= n_frames
+        ahead = not (hooks.collective or due or done == time_num)
         with span("hakai.chunk", steps=n):
-            state = chunk(state, n)
-            read("hakai.chunk.sync", lambda: int(state.t))  # device sync
-        clock["step_s"] += _time.perf_counter() - tc
+            with timed("step_s"):
+                state = chunk(state, n)
+            if hooks.collective:
+                sync(lambda: int(state.t), j)
+            else:
+                if pending is not None:     # chunk j - 1's, after j queued
+                    clock["ahead"] += 1
+                    prev = sync(pending[1], j - 1)
+                hooks.update(state)
+                wait, names = queue_reads()
+                if not ahead:
+                    got = sync(wait, j)
         clock["steps"] += n
         clock["chunks"] += 1
-        done += n
-        hooks.update(state)
-        alive = read("hakai.guard.alive", hooks.alive)
-        if cfg.check_nan and not read("hakai.guard.finite", hooks.finite):
-            raise FloatingPointError(f"NaN/Inf in displacement at step {done}")
-        if cfg.energy_check and cfg.energy_abort_rel > 0:
-            rel = read("hakai.guard.energy", hooks.energy_rel)
-            if rel > cfg.energy_abort_rel:
-                raise FloatingPointError(
-                    f"energy balance diverged at step {done}: "
-                    f"|KE - KE0 - W_ext + W_int| = {rel:.3e} of the energy "
-                    f"scale (> {cfg.energy_abort_rel:.3e}) — roundoff energy "
-                    "injection; re-run with --precision f64 or mixed")
-        if verbose and alive != alive_prev:
-            print(f"Element deleted:{alive}/{model.n_element}")
-            alive_prev = alive
-        if verbose:
-            sys.stdout.write(f"\r{done * model.dt:.4e} / "
-                             f"{model.end_time:.4e}     ")
-            sys.stdout.flush()
-        if cfg.metrics_path is not None:
-            tm = _time.perf_counter()
-            with span("hakai.metrics"):
-                vals = hooks.metrics()
-                if root:
-                    metrics.record_raw(vals, model, done, _time.time() - t0)
-                    clock["host_syncs"] += len(vals)
-            clock["metrics_s"] += _time.perf_counter() - tm
-        if write_output and done % d_out == 0 and i_out <= n_frames:
+        if hooks.collective:
+            hooks.update(state)
+            got, names = collective_reads()
+        if pending is not None:
+            act(pending[0], prev, pending[2])
+            pending = None
+        if ahead:
+            pending = (done, wait, names)
+            continue
+        act(done, got, names)
+        if due:
             frame(i_out)
             frame_times.append((i_out, done * model.dt))
             if cfg.checkpoint_every and i_out % cfg.checkpoint_every == 0:

@@ -54,14 +54,14 @@ def _energy_fields(ke, ke0, work, u_el, w_p):
     """Balance scalars: ``balance_residual`` = KE - KE0 - W_ext + W_int is
     zero in real arithmetic for the central-difference update, so its
     magnitude tracks accumulated roundoff energy; ``energy_rel_error``
-    normalises it by the run's energy scale."""
+    normalises it by the run's energy scale.  Every op is queued on the
+    device: no host value is copied in, which would wait for the stream."""
     w_ext, w_int = work[0], work[1]
     residual = ke - ke0 - w_ext + w_int
     scale = torch.maximum(
         torch.maximum(torch.maximum(ke, ke0),
                       torch.maximum(w_ext.abs(), w_int.abs())),
-        torch.maximum(u_el + w_p, torch.tensor(1e-30, dtype=ke.dtype,
-                                               device=ke.device)))
+        (u_el + w_p).to(ke.dtype).clamp_min(1e-30))
     return dict(work_external=w_ext, work_internal=w_int,
                 elastic_energy=u_el, plastic_dissipation=w_p,
                 balance_residual=residual,

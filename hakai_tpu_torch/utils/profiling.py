@@ -7,8 +7,11 @@ layer, always named ``hakai.*``: the run (``hakai.run``, its entry
 ``hakai.run.enter``), each chunk (``hakai.chunk`` with ``.load``,
 ``.sync`` and ``.unload``), the graphs (``hakai.graph.capture`` with
 ``.warm_up`` and ``.instantiate``; ``hakai.graph.replay``), the
-between-chunk readbacks (``hakai.guard.alive``, ``.finite``,
-``.energy``), ``hakai.metrics``, each frame (``hakai.frame`` with
+wait for a chunk's values (``hakai.chunk.sync``, inside the next chunk's
+``hakai.chunk`` where the loop runs ahead), the readbacks of the alive
+count before the first chunk and of each guard on ranks
+(``hakai.guard.alive``, ``.finite``, ``.energy``), ``hakai.metrics``,
+each frame (``hakai.frame`` with
 ``.gather``, ``.map`` and ``.write``), ``hakai.checkpoint`` and
 ``hakai.pvd``.  Under an active ``torch.profiler`` a span is a
 RecordFunction on the profiler's clock, the clock of the card's
@@ -20,7 +23,7 @@ the host only while a graph is captured.
 Every span carries the ids in :data:`IDS`: ``run``, a per-process count
 of :func:`simulation` blocks (one a ``run()``), and inside a run
 ``chunk``, the index of the chunk the loop is in or has just run; a
-span may add its own.  The ids are the RecordFunction's keyword values,
+span may add its own (a ``hakai.chunk.sync`` names the chunk it reads).  The ids are the RecordFunction's keyword values,
 which a trace holds in each event's ``args`` where the profiler records
 inputs (``record_shapes``, as :func:`trace` sets).
 """

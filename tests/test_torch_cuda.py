@@ -1308,7 +1308,7 @@ def test_run_counts_captures_and_replays(cuda, monkeypatch):
         assert (tm["captures"], tm["replays"], tm["chunks"]) == (2, 9, 3)
         assert tm["capture_s"] >= sum(c.capture_s + c.instantiate_s
                                       for _, c in made)
-        assert tm["host_syncs"] == 2 + 3 * 3
+        assert (tm["host_syncs"], tm["ahead"]) == (2 + 3, 2)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
         run(m, verbose=False, write_output=False, device=cuda)
@@ -1333,3 +1333,47 @@ def test_run_counts_captures_and_replays(cuda, monkeypatch):
     assert len(begins) == len(ends) == 2
     assert [n_ for n_, a, _ in host if n_.startswith("hakai.") and any(
         s < a < e for s, e in zip(begins, ends))] == []
+
+
+def test_run_reads_one_chunk_behind(cuda, monkeypatch, tmp_path):
+    """``run()`` on the card with captured graphs and a metrics stream (a
+    small mixed bar on the generic step, as ``bar131k_mixed_xla``): every
+    chunk but the first is queued before the previous chunk's values are
+    read, one read a chunk, and every record (but its wall seconds)
+    equals ``step_metrics`` read on that chunk's end state after the run,
+    as is the final state the last chunk's."""
+    import json
+
+    from hakai_tpu_torch import run
+    from hakai_tpu_torch.solver import explicit
+    from hakai_tpu_torch.utils.metrics import step_metrics
+    from hakai_tpu_torch.solver.graph import GRAPH_STEPS as K
+    n = K + 5
+    m = lower(bar_model(8, 8, 32, d_time=5e-8,
+                        end_time=(4 * n + 0.5) * 5e-8),
+              SolverConfig(dtype="mixed", gather_mode="xla",
+                           energy_check=True, energy_abort_rel=0.1,
+                           check_nan=True, output_num=4,
+                           metrics_path=str(tmp_path / "m.jsonl")),
+              device="cpu")
+    assert m.coord_e is None and m.time_num == 4 * n
+    ends, chunk = [], explicit.run_chunk
+
+    def keeping(model, state, steps, comm=None):
+        ends.append(chunk(model, state, steps, comm))
+        return ends[-1]
+    monkeypatch.setattr(explicit, "run_chunk", keeping)
+    tm = {}
+    final = run(m, verbose=False, write_output=False, device=cuda,
+                timings=tm)
+    assert (tm["chunks"], tm["ahead"], tm["host_syncs"]) == (4, 3, 2 + 4)
+    assert tm["replays"] == 8
+    recs = [json.loads(x) for x in open(tmp_path / "m.jsonl")]
+    mc = m.to(cuda)
+    for r, s in zip(recs, ends, strict=True):
+        want = {k: float(v) for k, v in step_metrics(mc, s).items()}
+        assert {k: v for k, v in r.items()
+                if k not in ("step", "time", "wall_s")} == want
+        assert r["step"] == int(s.t)
+    assert torch.equal(final.disp, ends[-1].disp)
+    assert torch.equal(final.stress, ends[-1].stress)

@@ -1,10 +1,12 @@
 """The host loop's and the graph layer's spans and counters on the CPU
 (``utils/profiling.span``, ``solver/explicit.run_loop``'s ``timings``,
 ``solver/graph.totals``): under ``torch.profiler`` a ``run()`` of a tiny
-deck shows a ``hakai.chunk`` a chunk, its guards and frames, correctly
-nested and carrying the run and chunk ids; without a profiler no span is
-made; ``timings`` counts the chunks, the host loop's seconds and its reads
-of device values, and the graphs captured and replayed (none on the CPU;
+deck shows a ``hakai.chunk`` a chunk, the reads of its values (one
+chunk behind where the loop runs ahead) and its frames, correctly nested
+and carrying the run and chunk ids; without a profiler no span is made;
+``timings`` counts the chunks, those run ahead, the host loop's seconds
+and its reads of device values, and the graphs captured and replayed
+(none on the CPU;
 on the graph path, with each capture stood in for by an eager replay as
 in ``tests/test_torch_graph.py``).  The card's own graphs:
 ``tests/test_torch_cuda.py::test_run_counts_captures_and_replays``."""
@@ -63,12 +65,23 @@ def _named(spans, name):
     return [s for s in spans if s[0] == name]
 
 
-def test_spans_nest_and_carry_run_and_chunk(tmp_path):
-    """A ``hakai.chunk`` a chunk with its sync inside, a
-    ``hakai.guard.alive`` and ``hakai.guard.energy`` after each chunk, a
-    ``hakai.frame`` a frame holding its gather, mapping and write, all
-    inside the one ``hakai.run``, each carrying the run and (after the
-    first chunk starts) the chunk; a second ``run()`` a new run id."""
+def test_spans_nest_and_carry_run_and_chunk(tmp_path, monkeypatch):
+    """A ``hakai.chunk`` a chunk, a ``hakai.frame`` a frame holding its
+    gather, mapping and write, all inside the one ``hakai.run``, each
+    carrying the run and (after the first chunk starts) the chunk; a
+    second ``run()`` a new run id.  With a frame after every chunk the
+    loop does not run ahead: each chunk's ``hakai.chunk.sync`` (the wait
+    for its values) lies in its own ``hakai.chunk``, before its frame.
+    Without frames chunk k's values are read in chunk k+1's
+    ``hakai.chunk``, after ``run_chunk`` has queued chunk k+1; only the
+    last chunk's in its own.  The guards read those values: no
+    ``hakai.guard.*`` span but the alive count before the first chunk."""
+    calls = explicit.run_chunk
+
+    def marked(*a, **k):                      # a span around each call
+        with profiling.span("hakai.test.run_chunk"):
+            return calls(*a, **k)
+    monkeypatch.setattr(explicit, "run_chunk", marked)
     m = _model(tmp_path)
     _, spans = _traced(lambda: run(m, verbose=False, device="cpu"))
     (run_span,) = _named(spans, "hakai.run")
@@ -82,7 +95,6 @@ def test_spans_nest_and_carry_run_and_chunk(tmp_path):
     assert all(c[3]["steps"] == 2 for c in chunks)
     for name, parent in (("hakai.chunk", "hakai.run"),
                          ("hakai.chunk.sync", "hakai.chunk"),
-                         ("hakai.guard.energy", "hakai.run"),
                          ("hakai.frame", "hakai.run"),
                          ("hakai.frame.gather", "hakai.frame"),
                          ("hakai.frame.map", "hakai.frame"),
@@ -90,14 +102,14 @@ def test_spans_nest_and_carry_run_and_chunk(tmp_path):
                          ("hakai.pvd", "hakai.run")):
         assert {_parent(s, spans) for s in _named(spans, name)} == {parent}
     syncs = _named(spans, "hakai.chunk.sync")
-    energy = _named(spans, "hakai.guard.energy")
-    assert [s[3]["chunk"] for s in syncs] == list(range(CHUNKS))
-    assert [s[3]["chunk"] for s in energy] == list(range(CHUNKS))
-    for j, c in enumerate(chunks):            # each guard after its chunk
-        assert c[2] <= energy[j][1]
-        assert j + 1 == CHUNKS or energy[j][2] <= chunks[j + 1][1]
-    assert len(_named(spans, "hakai.guard.alive")) == CHUNKS + 1
     frames = _named(spans, "hakai.frame")
+    assert [s[3]["chunk"] for s in syncs] == list(range(CHUNKS))
+    for j, c in enumerate(chunks):      # each read in its chunk, then frame
+        assert c[1] <= syncs[j][1] and syncs[j][2] <= c[2]
+        assert c[2] <= frames[j + 1][1]
+        assert j + 1 == CHUNKS or frames[j + 1][2] <= chunks[j + 1][1]
+    assert not _named(spans, "hakai.guard.energy")
+    assert len(_named(spans, "hakai.guard.alive")) == 1
     assert [f[3]["frame"] for f in frames] == list(range(CHUNKS + 1))
     for name in ("hakai.frame.gather", "hakai.frame.map",
                  "hakai.frame.write"):
@@ -107,6 +119,15 @@ def test_spans_nest_and_carry_run_and_chunk(tmp_path):
     _, again = _traced(lambda: run(m, verbose=False, write_output=False,
                                    device="cpu"))
     assert {s[3]["run"] for s in again} == {rid + 1}
+    chunks = _named(again, "hakai.chunk")
+    syncs = _named(again, "hakai.chunk.sync")
+    queued = _named(again, "hakai.test.run_chunk")
+    assert [s[3]["chunk"] for s in syncs] == list(range(CHUNKS))
+    assert len(chunks) == len(queued) == CHUNKS
+    for k in range(CHUNKS):         # chunk k read after chunk k+1 queued
+        c = chunks[min(k + 1, CHUNKS - 1)]
+        assert c[1] <= syncs[k][1] and syncs[k][2] <= c[2]
+        assert queued[min(k + 1, CHUNKS - 1)][2] <= syncs[k][1]
     assert not profiling.IDS                   # cleared when a run ends
 
 
@@ -130,21 +151,23 @@ def test_no_span_without_a_profiler(tmp_path, monkeypatch):
 @pytest.mark.parametrize("guards", ["alive", "energy", "nan", "metrics"])
 def test_timings_count_the_loop(tmp_path, guards):
     """``host_syncs``: the step count and the alive count before the
-    loop, then a chunk's sync and alive count, its NaN check and energy
-    guard where set, and each metric value recorded; no graphs on the
-    CPU.  ``metrics_s``: the stream's seconds, a part of ``loop_s``."""
+    loop, then one read a chunk, whatever the guards and the stream read
+    (the alive count, the NaN flag, the energy ratio and every metric
+    value come as one copy); ``ahead``: without frames every chunk but
+    the first is queued before the previous chunk's values are read; no
+    graphs on the CPU.  ``metrics_s``: the stream's seconds, a part of
+    ``loop_s``."""
     cfg = {"alive": dict(energy_check=False, energy_abort_rel=0.0),
            "energy": {}, "nan": dict(check_nan=True),
            "metrics": dict(metrics_path=str(tmp_path / "m.jsonl"))}[guards]
     m = _model(tmp_path, **cfg)
     tm = {}
     run(m, verbose=False, write_output=False, device="cpu", timings=tm)
-    per_chunk = 2 + (guards != "alive") + (guards == "nan")
     if guards == "metrics":
         recs = [json.loads(x) for x in open(tmp_path / "m.jsonl")]
         assert len(recs) == CHUNKS
-        per_chunk += len(recs[0]) - 3             # less step, time, wall_s
-    assert tm["host_syncs"] == 2 + CHUNKS * per_chunk
+    assert tm["host_syncs"] == 2 + CHUNKS
+    assert tm["ahead"] == CHUNKS - 1
     assert (tm["chunks"], tm["steps"], tm["frames"]) == (CHUNKS, 10, 0)
     assert (tm["captures"], tm["replays"], tm["capture_s"]) == (0, 0, 0.0)
     assert tm["loop_s"] > 0 and tm["step_s"] > 0
@@ -155,7 +178,8 @@ def test_timings_count_the_loop(tmp_path, guards):
 def test_graph_spans_and_counters(tmp_path, monkeypatch):
     """The graph path, each capture an eager stand-in: in each chunk its
     copy-in, then in the first chunk of each ``run()`` one capture a
-    length, its replays, its copy-out, all inside ``hakai.chunk``;
+    length, its replays, its copy-out, all inside ``hakai.chunk``, and
+    from the second chunk on the wait for the previous chunk's values;
     ``timings`` counts the captures of the run and
     ``chunks x (q + (r > 0))`` replays."""
     monkeypatch.setattr(explicit, "uses_graphs", lambda *a, **k: True)
@@ -183,13 +207,17 @@ def test_graph_spans_and_counters(tmp_path, monkeypatch):
         assert [(s[3]["chunk"], s[3]["steps"]) for s in caps] == \
             [(0, K), (0, 5)]
         assert {_parent(s, spans) for s in caps} == {"hakai.chunk"}
-        inside = [s for s in spans if chunks[0][1] <= s[1] <= chunks[0][2]
-                  and s[0] != "hakai.chunk"]
-        assert [s[0] for s in inside if _parent(s, spans) == "hakai.chunk"
-                ] == ["hakai.chunk.load", "hakai.graph.capture",
-                      "hakai.graph.replay", "hakai.graph.capture",
-                      "hakai.graph.replay", "hakai.chunk.unload",
-                      "hakai.chunk.sync"]
+        def inside(c):
+            return [s[0] for s in spans if c[1] <= s[1] <= c[2]
+                    and s[0] != "hakai.chunk"
+                    and _parent(s, spans) == "hakai.chunk"]
+        assert inside(chunks[0]) == [
+            "hakai.chunk.load", "hakai.graph.capture", "hakai.graph.replay",
+            "hakai.graph.capture", "hakai.graph.replay",
+            "hakai.chunk.unload"]
+        assert inside(chunks[1]) == [   # then chunk 0's values are read
+            "hakai.chunk.load", "hakai.graph.replay", "hakai.graph.replay",
+            "hakai.chunk.unload", "hakai.chunk.sync"]
 
 
 def test_cli_timings_and_profile_name_the_counters_and_spans(tmp_path,
@@ -207,7 +235,7 @@ def test_cli_timings_and_profile_name_the_counters_and_spans(tmp_path,
                      r"(\d+) replays, host loop ([0-9.]+) s, (\d+) host "
                      r"syncs in (\d+) chunks$", out, re.M)
     assert line and line.group(2, 3, 6) == ("0", "0", "5")
-    assert int(line.group(5)) == 2 + 5 * 3      # the CLI's energy guard
+    assert int(line.group(5)) == 2 + 5      # one read a chunk
     assert re.search(r"^timings: metrics 0\.000 s for 0 records$", out,
                      re.M)
     events = json.loads((tmp_path / "prof" / "trace.json").read_text())
