@@ -20,12 +20,7 @@ without its last line):
    float32 -> float64 (mixed).  Kernel, plain and (assembly)
    ``index_add_`` times and the least time the card could take, the
    kernel's share of it, and each instantiation's registers, local
-   (spill) bytes, shared memory and resident blocks an SM; where
-   ``build/ref/`` holds the reference design's sources (REF_DIR: the
-   parent commit's element, assembly, contact and interleave kernels),
-   times for them, built into a library of their own, with every output
-   bitwise the shipped kernels' on the same inputs and a REF_CHUNK-step
-   chunk of [run]'s deck bitwise too;
+   (spill) bytes, shared memory and resident blocks an SM;
 4. trajectory: 100 steps of a plastic 16x16x64 bar on the card (kernels)
    and on the CPU (plain versions), compared;
 5. main path of the first slice: the 32x32x128 bar (131,072 elements,
@@ -57,19 +52,14 @@ without its last line):
    (cell-binned: a spatial hash of each side, by ddiv cells or by finer
    cells sized to the radius cull, probed in the 27 cells around each
    item) with every node's and triangle's accept count, timed in both
-   types beside the reference N (given the reference design) and PR 7's
-   block-loop kernel, and its CUDA launches a step counted by the
-   profiler; its two hashes per pair, f32 and f64, on the deck during
-   approach and in contact and on the self-contact plates: the rule each
-   call took, the candidates an item visits and their hit share on the
-   fine hash and on the 27-cell sweep, and (given the reference design)
-   forces and counts bitwise the reference N's; its time as each of 2
-   ranks calls it
-   under [sharded-contact]'s deal, the ranks' forces summed bitwise one
-   device's; its time when built with FMA contraction; the scatter's
-   resources and share of bound; given the reference design, the scatter
-   bitwise the reference S, timed beside it, and a REF_CONTACT_CHUNK-step
-   chunk of the deck with either S, every field bitwise;
+   types beside the old block-loop kernel, and its CUDA launches a step
+   counted by the profiler; its two hashes per pair, f32 and f64, on the
+   deck during approach and in contact and on the self-contact plates:
+   the rule each call took, the candidates an item visits and their hit
+   share on the fine hash and on the 27-cell sweep; its time as each of 2
+   ranks calls it under [sharded-contact]'s deal, the ranks' forces
+   summed bitwise one device's; the scatter's resources and share of
+   bound;
 10. contact-cpu: a small impact with erosion, cube off the slab's grid
    lines, one step at a time on the card and on the CPU (below 2,048
    elements: the generic step): the first contact steps and the deletion
@@ -146,8 +136,7 @@ without its last line):
    through the port's interleave probe (slope-timed us/pass and ns/build,
    each chain bitwise its plain version's), then each mode bitwise its
    plain version on a random window and timed alone beside the bound,
-   with its resources; given the reference design, the probe on the
-   reference kernel and each mode bitwise it, timed;
+   with its resources;
 23. multihost (seventh slice): [cli]'s written deck through two CLI
    processes on loopback (``--multihost 127.0.0.1:P,2,K --halo 2``, one
    gloo rank each, sharing the card), each writing to a directory of its
@@ -164,7 +153,7 @@ without its last line):
    chunk through ``graph_chunk`` against ``eager_chunk`` from its initial
    state, bit for bit in every state field, with launch counts equal to
    the steps ([main] N2 steps; [run] GRAPH_RUN_CHUNK, past its first
-   deletion; [contact] REF_CONTACT_CHUNK, past first contact and first
+   deletion; [contact] GRAPH_CONTACT_CHUNK, past first contact and first
    deletion; [generic] f32 N2, mixed GENERIC_STEPS), one eager step under
    ``torch.cuda.set_sync_debug_mode("error")``, both loops slope-timed and
    traced (device busy, idle share), the capture and instantiate seconds
@@ -183,11 +172,14 @@ without its last line):
    registers and resident blocks an SM.  Every main-path run above also
    counts their launches.
 
+Launches are counted by C entry (``_build.LAUNCHES``) and, where one
+entry holds several instantiations (the unpacked element entry's outputs,
+the interleave modes), by instantiation (``count_variants``).
+
 The line before the last is nvidia-smi's name and power limit; the one
 before that the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX.
 """
-import contextlib
 import ctypes
 import dataclasses
 import json
@@ -367,10 +359,6 @@ IL_TILES, IL_BUILDS, IL_N1, IL_N2 = 512, 60, 20, 120
 # [multihost]: [cli]'s deck through two CLI processes of one rank each
 MH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                       "smoke_multihost")
-# H100 SXM peaks (NVIDIA data sheet, dense, no tensor cores): HBM
-# 3.35 TB/s; 67 TFLOP/s float32, 34 TFLOP/s float64.
-HBM_BPS = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "mixed": 67e12}
 # element-kernel operations per element, counted from csrc/element.cu (an
 # FMA counts 2): per Gauss-point thread J and Gdu 270, det/inverse 55,
 # g 45, B-bar and trial 60, return map 45, strain and sums 30, force
@@ -378,23 +366,10 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "mixed": 67e12}
 ELEMENT_FLOP = 6200
 
 
-# The reference design of the element kernel, kernel B, kernel S and TPU
-# kernel #12's replacement: their sources as the parent commit has them,
-# copied under build/ref/ before a run
-#   mkdir -p build/ref && for f in element assemble contact interleave; do
-#     git show HEAD:hakai_tpu_torch/csrc/$f.cu > build/ref/$f.cu; done
-# [kernels] builds them into a library of their own and holds every
-# element and assembly instantiation against them bit for bit, with their
-# resources and times, and a chunk of [run]'s deck; [contact-kernels] and
-# [interleave] do the same for S (and a chunk of [contact]'s deck) and
-# #12.  Without them each says so and goes on.
-REF_DIR = os.path.join(ROOT, "build", "ref")
-REF_SOURCES = ("element", "assemble", "contact", "interleave")
-REF_CHUNK = 1500                  # [run]'s deck past its first deletion
 GRAPH_KS = (1, 8, 32)             # graph lengths timed on [main], [contact]
 GRAPH_RUN_CHUNK = 2000            # [graph]'s [run] chunk: past step 1,424
 GRAPH_PROFILE_STEPS = 100         # run(profile=...) on the bench bar
-REF_CONTACT_CHUNK = 400           # [contact]'s deck past its first deletion
+GRAPH_CONTACT_CHUNK = 400         # [contact]'s deck past its first deletion
 
 
 def log(*a):
@@ -463,196 +438,9 @@ def nbytes(*tensors) -> int:
 def bound(n_bytes, n_flop, kind):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     operations over the peak rate of their type."""
+    from hakai_tpu_torch.probes import HBM_BPS, PEAK_FLOPS
     t_b, t_f = n_bytes / HBM_BPS, n_flop / PEAK_FLOPS[kind]
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
-
-
-def build_reference():
-    """The reference design's kernels (REF_DIR, REF_SOURCES) as a library
-    of their own, with the pusai table loaded; None, said so, where REF_DIR
-    lacks their sources."""
-    import numpy as np
-
-    from hakai_tpu_torch import _build
-    from hakai_tpu_torch.ops.shape import pusai_hexa
-    if not all(os.path.isfile(os.path.join(REF_DIR, f"{n}.cu"))
-               for n in REF_SOURCES):
-        log(f"[kernels] no reference sources in {REF_DIR} ("
-            + ", ".join(f"{n}.cu" for n in REF_SOURCES) + "): the bitwise "
-            "check against the reference design is skipped")
-        return None
-    t0 = time.perf_counter()
-    nvcc = _build.nvcc_path()
-    cmds, objs = [], []
-    for n in REF_SOURCES:
-        src = os.path.join(REF_DIR, f"{n}.cu")
-        objs.append(os.path.join(REF_DIR, f"{n}.o"))
-        cmds.append([nvcc, *_build.NVCC_FLAGS,
-                     *_build.SOURCE_FLAGS.get(f"{n}.cu", ()), "-c", src,
-                     "-o", objs[-1]])
-    so = os.path.join(REF_DIR, "libref.so")
-    out = _build._run_all(cmds) + _build._run_all(
-        [[nvcc, "-shared", *objs, "-o", so]])
-    lib = ctypes.CDLL(so)
-    # the element, assembly, interleave, narrow-phase and scatter entries
-    # take the shipped ones' arguments
-    sigs = {n: _build._SIGNATURES[n] for n in _build._SIGNATURES
-            if n.startswith(("hk_element", "hk_assemble",
-                             "hk_blocked_assemble", "hk_set_pusai",
-                             "hk_interleave_f32", "hk_narrow",
-                             "hk_scatter_f"))}
-    for n, argtypes in sigs.items():
-        getattr(lib, n).argtypes = list(argtypes)
-        getattr(lib, n).restype = ctypes.c_int
-    lib.hk_error_string.argtypes = [ctypes.c_int]
-    lib.hk_error_string.restype = ctypes.c_char_p
-    table = np.ascontiguousarray(pusai_hexa(8), np.float64)
-    if lib.hk_set_pusai(table.ctypes.data) != 0:
-        raise RuntimeError("reference design: hk_set_pusai failed")
-    log(f"[kernels] reference design built from {REF_DIR} in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for line in out.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"[kernels] reference ptxas: {line.strip()}")
-    return lib
-
-
-class _Reference:
-    """The port's library with its element, assembly and interleave entries
-    taken from the reference build (reference_scatter swaps in the
-    reference S)."""
-
-    def __init__(self, new, old):
-        self.new, self.old = new, old
-
-    def __getattr__(self, name):
-        old = name.startswith(("hk_element", "hk_assemble",
-                               "hk_blocked_assemble", "hk_interleave_f32"))
-        return getattr(self.old if old else self.new, name)
-
-
-@contextlib.contextmanager
-def reference(ref):
-    """The port's wrappers launch the reference design's kernels."""
-    from hakai_tpu_torch import _build
-    shipped = _build._lib
-    _build._lib = _Reference(shipped, ref)
-    try:
-        yield
-    finally:
-        _build._lib = shipped
-
-
-def ref_scatter(ref, model, force, out_dtype):
-    """The reference S (the parent commit's kernel, over the lowering's
-    ``fs_sorted``) on ``force``: its (3, N) output."""
-    import torch
-    from hakai_tpu_torch import _build
-    from hakai_tpu_torch.ops.contact_cuda import _SCATTER
-    out = torch.empty((3, model.N), dtype=out_dtype, device=force.device)
-    err = getattr(ref, _SCATTER[(force.dtype, out_dtype)])(
-        force.data_ptr(), model.fs_width, model.fs_ptr.data_ptr(),
-        model.fs_mid.data_ptr(), model.fs_sorted.data_ptr(), model.fs_nb,
-        model.fs_bits, model.fs_emax, model.N, out.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(ref, err, "reference scatter kernel")
-    return out
-
-
-# (triangles, nodes, dtype) -> the reference N's workspace
-_REF_NARROW_WS: dict = {}
-
-
-def ref_narrow(ref, pair, kin, ksl, bp, consts, force, offsets):
-    """The reference N (the parent commit's kernel: the 27-cell sweep of
-    the ddiv hash) on one pair, into ``force``, with a workspace of its own
-    layout (its header holds 4 words); its (Cp + Tp,) int32 accepted
-    counts."""
-    import torch
-    from hakai_tpu_torch import _build
-    from hakai_tpu_torch.ops.contact_cuda import _NARROW, narrow_buckets
-    F2, Ci = pair.tri_nodes.shape[1], pair.cand_nodes.shape[0]
-    B, items = narrow_buckets(F2, Ci), F2 + Ci
-    key = (F2, Ci, kin.dtype)
-    if key not in _REF_NARROW_WS:
-        tiles = max(1, 2 * B // 1024)
-        _REF_NARROW_WS[key] = (
-            torch.zeros(4 * B + 8 + -(-tiles // 4) * 4 + -(-items // 4) * 4
-                        + 8 * items, dtype=torch.int32, device=kin.device),
-            torch.empty(28 * F2 + 8 * Ci + 4 * items, dtype=kin.dtype,
-                        device=kin.device))
-    iws, fws = _REF_NARROW_WS[key]
-    cnt = torch.empty(pair.Cp + pair.Tp, dtype=torch.int32,
-                      device=kin.device)
-    (t0, _), (t1, _), (t2, _), (cs, _), _ = ksl
-    err = getattr(ref, _NARROW[kin.dtype])(
-        kin.data_ptr(), kin.shape[1], t0, t1, t2, cs, F2, Ci, pair.tb,
-        pair.nb, pair.tri_chunks, pair.n_chunks, bp.tri_in.data_ptr(),
-        bp.node_in.data_ptr(), bp.pair_ok.data_ptr(), bp.pair_ok.data_ptr(),
-        None, None, bp.overlap.data_ptr(), bp.all_min.data_ptr(),
-        pair.cand_mass.data_ptr(), pair.cand_nodes.data_ptr(),
-        pair.tri_enodes.data_ptr() if pair.is_self else None,
-        consts.young, consts.kc, consts.Cr, consts.myu, consts.d_lim,
-        consts.ddiv, force.data_ptr(), force.shape[1], *offsets,
-        cnt.data_ptr(), iws.data_ptr(), fws.data_ptr(), B,
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(ref, err, "reference narrow-phase kernel")
-    return cnt
-
-
-@contextlib.contextmanager
-def reference_scatter(ref):
-    """The contact path sums its forces with the reference S."""
-    from hakai_tpu_torch.ops import contact
-    shipped = contact.scatter_forces
-    contact.scatter_forces = (lambda model, force, out_dtype=None:
-                              ref_scatter(ref, model, force, out_dtype))
-    try:
-        yield
-    finally:
-        contact.scatter_forces = shipped
-
-
-def resources(lib, which, model=None, slots=0) -> dict:
-    """Resident blocks an SM, registers, static shared, local (spill) and
-    dynamic shared bytes of element instantiation ``which`` (with
-    ``model``'s hardening table) or of the assembly instantiation
-    ``which`` that a launch over ``slots`` incidence slots takes."""
-    from hakai_tpu_torch import _build
-    out = (ctypes.c_int * 5)()
-    if model is not None:
-        err = lib.hk_element_resources(which, *model.hard_strain.shape, out)
-    else:
-        err = lib.hk_assemble_resources(which, slots, out)
-    _build.check(lib, err, "resources")
-    return dict(zip(("blocks", "registers", "smem", "local", "dyn"), out))
-
-
-def _tensors(x):
-    if isinstance(x, (tuple, list)):
-        return [t for y in x for t in _tensors(y)]
-    return [x]
-
-
-def vs_reference(rec, ref, which, call, out_new, model=None, slots=0):
-    """``rec`` gains the shipped instantiation's resources and, with a
-    reference build, the reference design's resources and time on the same
-    inputs; raises unless its outputs equal ``out_new`` bit for bit.
-    ``model``: an element instantiation's; ``slots``: an assembly's V."""
-    import torch
-    from hakai_tpu_torch import _build
-    rec["res"] = resources(_build.library(), which, model, slots)
-    if ref is None:
-        return
-    with reference(ref):
-        out_ref = call()
-        torch.cuda.synchronize()
-        rec["ref_ms"] = time_ms(call)
-    rec["ref_res"] = resources(ref, which, model, slots)
-    a, b = _tensors(out_new), _tensors(out_ref)
-    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
-        raise AssertionError("the kernel's outputs differ from the reference"
-                             " design's")
 
 
 def _res(r) -> str:
@@ -662,46 +450,12 @@ def _res(r) -> str:
 
 
 def log_resources(rec, labels):
-    """Each instantiation's resources and time as a share of its bound,
-    beside the reference design's on the same inputs."""
+    """Each instantiation's resources and time as a share of its bound."""
     for key, label in labels.items():
         r = rec[key]
-        line = (f"[kernels] {label}: {_res(r['res'])}; {r['ms']:.4f} ms, "
-                f"{r['bound_ms'] / r['ms']:.3f} of its bound "
-                f"{r['bound_ms']:.4f} ms")
-        if "ref_ms" in r:
-            line += (f" | reference design: {_res(r['ref_res'])}; "
-                     f"{r['ref_ms']:.4f} ms, "
-                     f"{r['bound_ms'] / r['ref_ms']:.3f} of its bound; "
-                     "outputs bitwise equal")
-        log(line)
-
-
-def reference_chunk(model, ref):
-    """REF_CHUNK steps of ``model`` from its initial state through the
-    eager chunk loop (a captured graph replays the kernels it captured),
-    with the shipped kernels and with the reference design's: every state
-    field bit for bit, past the first deletion."""
-    import torch
-    from hakai_tpu_torch import init_state
-    from hakai_tpu_torch.solver.explicit import eager_chunk
-    if ref is None:
-        return
-    s0 = init_state(model)
-    new = eager_chunk(model, s0, REF_CHUNK)
-    with reference(ref):
-        old = eager_chunk(model, s0, REF_CHUNK)
-    torch.cuda.synchronize()
-    differ = [f.name for f in dataclasses.fields(new)
-              if not torch.equal(getattr(new, f.name), getattr(old, f.name))]
-    alive, n = int(new.element_flag.sum()), int(model.elem_exists.sum())
-    log(f"[kernels] {REF_CHUNK} steps of [run]'s deck with the shipped and "
-        f"the reference kernels: {n - alive} elements deleted; fields that "
-        f"differ: {differ or 'none'}")
-    if differ:
-        raise AssertionError(f"the chunk differs from the reference: {differ}")
-    if alive == n:
-        raise AssertionError("the reference chunk deleted no element")
+        log(f"[kernels] {label}: {_res(r['res'])}; {r['ms']:.4f} ms, "
+            f"{r['bound_ms'] / r['ms']:.3f} of its bound "
+            f"{r['bound_ms']:.4f} ms")
 
 
 def kind_of(model) -> str:
@@ -749,11 +503,11 @@ def element_inputs(model, rng, device):
             t(disp, model.dtype), t(dprev, model.dtype))
 
 
-def check_element(model, rng, name, want_triax=False, ref=None):
-    """Kernel vs plain version on one random state, and bitwise against
-    the reference design ``ref`` where there is one; returns the JSON
-    record's numbers."""
+def check_element(model, rng, name, want_triax=False):
+    """Kernel vs plain version on one random state, with the
+    instantiation's resources; returns the JSON record's numbers."""
     import torch
+    from hakai_tpu_torch import _build
     from hakai_tpu_torch.ops.element import element_core_packed_plain
     from hakai_tpu_torch.ops.element_cuda import element_core_packed
     P, flag, disp, dprev = element_inputs(model, rng, model.device)
@@ -802,9 +556,9 @@ def check_element(model, rng, name, want_triax=False, ref=None):
     rec["bound_ms"], rec["bound_by"] = bound(moved, ELEMENT_FLOP * model.E,
                                              kind)
     rec["library_ms"] = None
-    vs_reference(rec, ref, ("float32", "float64", "mixed").index(kind)
-                 + 5 * want_triax, lambda: element_core_packed(
-                     model, P, flag, disp, dprev, want_triax), out_k, model)
+    rec["res"] = _build.resources(
+        "hk_element_resources", ("float32", "float64", "mixed").index(kind)
+        + 5 * want_triax, *model.hard_strain.shape)
     log(f"[kernels] element {name} {kind}{' +triax' if want_triax else ''}: "
         f"kernel {rec['ms']:.4f} ms ({rec['bound_ms'] / rec['ms']:.3f} of "
         f"bound), plain {rec['plain_ms']:.4f} ms, bound "
@@ -825,13 +579,13 @@ def update_inputs(model, rng, device):
             P[56:64].contiguous(), P[64:72].contiguous(), flag)
 
 
-def check_update(model, rng, name, want_triax=False, ref=None):
+def check_update(model, rng, name, want_triax=False):
     """The unpacked entry (TPU kernel #3) against its plain version on one
-    random state, and bitwise against the reference design ``ref`` where
-    there is one; with a metrics stream in ``model``'s config, its
-    negative-Jacobian count equal to the plain count.  Returns the JSON
-    record's numbers."""
+    random state, with the instantiation's resources; with a metrics
+    stream in ``model``'s config, its negative-Jacobian count equal to the
+    plain count.  Returns the JSON record's numbers."""
     import torch
+    from hakai_tpu_torch import _build
     from hakai_tpu_torch.ops.element import (element_core_plain,
                                              gather_element_nodes,
                                              neg_jacobian_count,
@@ -894,10 +648,10 @@ def check_update(model, rng, name, want_triax=False, ref=None):
                                              kind)
     rec["library_ms"] = None
     which = 3 + (kind == "float64") + 5 * want_triax
-    vs_reference(rec, ref, {3: 10, 4: 11, 8: 12, 9: 13}[which] if count
-                 else which,
-                 lambda: element_update(model, *u, want_triax=want_triax),
-                 out_k, model)
+    rec["res"] = _build.resources(
+        "hk_element_resources",
+        {3: 10, 4: 11, 8: 12, 9: 13}[which] if count else which,
+        *model.hard_strain.shape)
     log(f"[kernels] element_update {name} {kind}"
         f"{' +triax' if want_triax else ''}{' +neg' * count}: kernel "
         f"{rec['ms']:.4f} ms "
@@ -921,11 +675,11 @@ def index_add_yardstick(model, qe, out_dtype, ref):
             time_ms(lambda: Q0.clone().index_add_(1, idx, src)))
 
 
-def check_assemble(model, rng, name, out_dtype=None, ref=None):
-    """Kernel B against its plain version on one random qe, and bitwise
-    against the reference design ``ref`` where there is one; returns the
-    JSON record's numbers."""
+def check_assemble(model, rng, name, out_dtype=None):
+    """Kernel B against its plain version on one random qe, with the
+    instantiation's resources; returns the JSON record's numbers."""
     import torch
+    from hakai_tpu_torch import _build
     from hakai_tpu_torch.ops.assemble_cuda import assemble_internal_force
     from hakai_tpu_torch.ops.element import assemble_internal_force_plain
     qe = torch.as_tensor(rng.normal(scale=100.0, size=(24, model.E)),
@@ -956,9 +710,9 @@ def check_assemble(model, rng, name, out_dtype=None, ref=None):
         model, qe, out_dtype, Qp)
     moved = nbytes(qe, model.inc_idx, model.inc_mask, Qk)
     rec["bound_ms"], rec["bound_by"] = bound(moved, 24 * model.E, kind)
-    vs_reference(rec, ref, ("float32", "float64", "mixed").index(kind),
-                 lambda: assemble_internal_force(model, qe, out_dtype), Qk,
-                 slots=model.inc_idx.shape[0])
+    rec["res"] = _build.resources(
+        "hk_assemble_resources", ("float32", "float64", "mixed").index(kind),
+        model.inc_idx.shape[0])
     log(f"[kernels] assemble {name} {kind}: kernel {rec['ms']:.4f} ms "
         f"({rec['bound_ms'] / rec['ms']:.3f} of bound), plain "
         f"{rec['plain_ms']:.4f} ms, index_add_ {rec['library_ms']:.4f} ms "
@@ -1003,45 +757,53 @@ def trajectory():
         raise AssertionError(f"card and CPU trajectories part: {bad}")
 
 
-def _wrappers() -> dict:
-    from hakai_tpu_torch.ops.assemble_cuda import (assemble_internal_force,
-                                                   blocked_assemble)
-    from hakai_tpu_torch.ops.broad_cuda import broad
-    from hakai_tpu_torch.ops.contact_cuda import narrow_phase, scatter_forces
-    from hakai_tpu_torch.ops.element_cuda import (element_core_packed,
-                                                  element_update)
-    from hakai_tpu_torch.ops.erosion_cuda import erosion_walk
-    from hakai_tpu_torch.ops.gather_cuda import gather_cols
-    from hakai_tpu_torch.ops.integrate_cuda import central_difference
-    from hakai_tpu_torch.ops.interleave_cuda import interleave
-    from hakai_tpu_torch.ops.stream_cuda import stream_add1
-    return {"element": element_core_packed, "update": element_update,
-            "assemble": assemble_internal_force, "grouped": blocked_assemble,
-            "gather": gather_cols,
-            "narrow": narrow_phase, "scatter": scatter_forces,
-            "integrate": central_difference, "erosion": erosion_walk,
-            "broad": broad, "stream": stream_add1, "interleave": interleave}
-
-
 def reset_counts():
-    for fn in _wrappers().values():
-        fn.launches = 0
-        for k in getattr(fn, "launches_by", ()):
-            fn.launches_by[k] = 0
+    from hakai_tpu_torch import _build
+    _build.LAUNCHES.clear()
 
 
 def read_counts() -> dict:
-    out = {}
-    for name, fn in _wrappers().items():
-        out[name] = fn.launches
-        out.update({f"{name}[{k}]": v
-                    for k, v in getattr(fn, "launches_by", {}).items() if v})
-    return out
+    """The kernel launches since :func:`reset_counts`, by C entry and, after
+    :func:`count_variants`, by instantiation (a Counter: an entry not
+    launched reads 0)."""
+    from hakai_tpu_torch import _build
+    return _build.LAUNCHES.copy()
+
+
+def count_variants():
+    """Count, beside each C entry's launches, those of the instantiations
+    that share one entry, as ``"<entry>[<variant>]"`` in
+    ``_build.LAUNCHES``: the unpacked element entry's by the outputs it is
+    given (its last two pointers, ``triax`` and ``neg``; ``plain`` with
+    neither), the interleave entry's by mode.  They go into the Counter
+    the entry's count goes into, so a graph's capture and replays count
+    them as they count the entry.  A process calls it before it counts."""
+    from hakai_tpu_torch import _build
+    from hakai_tpu_torch.ops.interleave_cuda import MODES
+    if getattr(_build.launch, "counts_variants", False):
+        return
+    launch, modes = _build.launch, {v: k for k, v in MODES.items()}
+
+    def variant(entry, args):
+        if entry.startswith("hk_element_update_"):
+            return "+".join(k for k, x in zip(("triax", "neg"), args[-2:])
+                            if x is not None) or "plain"
+        if entry == "hk_interleave_f32":       # (src, W, builds, n, mode, ..)
+            return modes[args[4]]
+        return None
+
+    def counted(entry, device, *args):
+        launch(entry, device, *args)        # raises, uncounted, on an error
+        v = variant(entry, args)
+        if v is not None:
+            _build.LAUNCHES[f"{entry}[{v}]"] += 1
+    counted.counts_variants = True
+    _build.launch = counted
 
 
 def main_path(model, smi_line, tag="[main]",
-              counts=("element", "assemble", "element[float32]",
-                      "integrate[float32]")):
+              counts=("hk_element_f32", "hk_assemble_f32",
+                      "hk_integrate_f32")):
     """run_chunk on ``model`` from its initial state, slope-timed; every
     count named in ``counts`` must equal the steps run."""
     import torch
@@ -1066,7 +828,7 @@ def main_path(model, smi_line, tag="[main]",
     launches = read_counts()
     steps = REPEATS * (N1 + N2)
     log(f"{tag} launches {launches} for {steps} steps")
-    if any(launches.get(k) != steps for k in counts):
+    if any(launches[k] != steps for k in counts):
         raise AssertionError(f"kernel launches {launches} != steps {steps}")
     fields = ("disp", "velo", "Q", "stress", "strain", "eq_ps", "yield_s",
               "triax")
@@ -1151,7 +913,8 @@ def graph_path(tag, model, steps, counts, smi_line, ks=(), deletes=False,
     loop.  One eager step under ``torch.cuda.set_sync_debug_mode("error")``
     (no step reads the device back); ``steps`` steps from the initial state
     through ``graph_chunk`` and ``eager_chunk``, every state field bit for
-    bit, the graph chunk's launches (``counts``: count -> launches a step)
+    bit, the graph chunk's launches (``counts``: C entry -> launches a
+    step)
     equal to its steps; both loops slope-timed and traced (device busy and
     idle share); the capture and instantiate seconds and the graph pool's
     bytes by captured length; with ``ks``, the graph chunk slope-timed in
@@ -1175,7 +938,7 @@ def graph_path(tag, model, steps, counts, smi_line, ks=(), deletes=False,
     torch.cuda.synchronize()
     launches = read_counts()
     want = {k: v * steps for k, v in counts.items()}
-    if any(launches.get(k) != v for k, v in want.items()):
+    if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"{tag} graph chunk launches {launches} != "
                              f"{want}")
     differ = [f.name for f in dataclasses.fields(got)
@@ -1362,11 +1125,9 @@ def second_path(model, smi_line):
     launches = read_counts()
     steps = model.time_num
     log(f"\n[run] launches {launches} for {steps} steps")
-    if (launches["element"] != steps or launches["assemble"] != steps
-            or launches.get("element[mixed+triax]") != steps
-            or launches.get("assemble[hk_assemble_f32_f64]") != steps
-            or launches.get("integrate[mixed]") != steps
-            or launches.get("erosion[float32]") != steps):
+    if any(launches[k] != steps for k in (
+            "hk_element_mixed", "hk_assemble_f32_f64", "hk_integrate_mixed",
+            "hk_erosion_f32")):
         raise AssertionError(f"kernel launches {launches} != steps {steps}")
     for f in ("disp", "velo", "Q", "stress", "eq_ps", "triax"):
         if not torch.isfinite(getattr(final, f)).all():
@@ -1499,12 +1260,11 @@ def contact_path(model, smi_line):
     launches = read_counts()
     steps, n_pairs = model.time_num, len(model.pairs)
     log(f"\n[contact] launches {launches} for {steps} steps")
-    want = {"element[mixed+triax]": steps,
-            "assemble[hk_assemble_f32_f64]": steps, "gather": steps,
-            "narrow": n_pairs * steps, "scatter": steps,
-            "integrate[mixed]": steps, "erosion[float32]": steps,
-            "broad[float32]": n_pairs * steps}
-    if any(launches.get(k) != v for k, v in want.items()):
+    want = {"hk_element_mixed": steps, "hk_assemble_f32_f64": steps,
+            "hk_gather_cols_f32": steps, "hk_narrow_f32": n_pairs * steps,
+            "hk_scatter_f32_f64": steps, "hk_integrate_mixed": steps,
+            "hk_erosion_f32": steps, "hk_broad_f32": n_pairs * steps}
+    if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"kernel launches {launches} != {want}")
     for f in ("disp", "velo", "Q", "stress", "eq_ps", "triax",
               "contact_force"):
@@ -1706,15 +1466,14 @@ def check_narrow(model, kin, acts, kind):
                                  "differ": n_diff}
 
 
-def fine_hash_check(tag, model, state, ref, smi_line, want_fine=None):
+def fine_hash_check(tag, model, state, smi_line, want_fine=None):
     """Kernel N's two hashes on one state, f32 and f64, per pair: the
     call's rule (the fine hash or the ddiv cells, with R and ddiv), the
     candidates each item visits and the share that passes the radius cull
     on the hash it took (the kernel's counters, equal to its plain twin's)
     and on the 27-cell sweep of the ddiv hash (the twin's), the same pairs
-    past the cull on both; forces and both sides' accepted counts bitwise
-    the reference N's (the parent's 27-cell sweep), given REF_DIR.
-    ``want_fine``: the rule every pair must take, or None."""
+    past the cull on both.  ``want_fine``: the rule every pair must take,
+    or None."""
     import torch
     from hakai_tpu_torch.ops.contact import (broad_phase, contact_activity,
                                              contact_kinematics)
@@ -1728,7 +1487,6 @@ def fine_hash_check(tag, model, state, ref, smi_line, want_fine=None):
         kin = contact_kinematics(model, pos, state.velo.to(edt).to(dt))
         new = torch.full((3, model.fs_width), float("nan"), dtype=dt,
                          device=kin.device)
-        old = torch.full_like(new, float("nan"))
         for i, p in enumerate(model.pairs):
             p = dataclasses.replace(p, cand_mass=p.cand_mass.to(dt))
             ksl, c = model.ckin_slices[i], pair_constants(model, p)
@@ -1753,20 +1511,6 @@ def fine_hash_check(tag, model, state, ref, smi_line, want_fine=None):
                 raise AssertionError(f"narrow phase {tag} {kind} pair {i}: "
                                      f"fine hash {bool(cnt.fine)}, want "
                                      f"{want_fine}")
-            cols = ((o[0], p.Cp), (o[1], p.Tp))
-            if ref is not None:
-                ref_cnt = ref_narrow(ref, p, kin, ksl, bp, c, old, o)
-                torch.cuda.synchronize()
-                if not (all(torch.equal(new[:, a:a + n], old[:, a:a + n])
-                            for a, n in cols)
-                        and torch.equal(torch.cat([cnt.node, cnt.tri]),
-                                        ref_cnt)):
-                    raise AssertionError(f"narrow phase {tag} {kind} pair "
-                                         f"{i}: not bitwise the reference "
-                                         "N's 27-cell sweep")
-                vs = "forces and both sides' counts bitwise the reference N"
-            else:
-                vs = "no reference N (REF_DIR) to hold it against"
             items = int((bp.tri_in & bp.overlap).sum()
                         + (bp.node_in & bp.overlap).sum())
             vis, vis_old, nr = (int(visits.sum()), int(v_old.sum()),
@@ -1779,10 +1523,10 @@ def fine_hash_check(tag, model, state, ref, smi_line, want_fine=None):
                 f"item {vis / max(items, 1):.2f} (hit share "
                 f"{nr / max(vis, 1):.4f}), the 27-cell sweep "
                 f"{vis_old / max(items, 1):.2f} ({nr / max(vis_old, 1):.4f});"
-                f" {nr} past the radius cull on both; {vs} [{smi_line}]")
+                f" {nr} past the radius cull on both [{smi_line}]")
 
 
-def fine_hash_phase(impact, ref, smi_line):
+def fine_hash_phase(impact, smi_line):
     """The fine hash on the impact during approach (step FINE_APPROACH: the
     ddiv hash, nothing in range) and contact (step FINE_CONTACT: the fine
     hash on both pairs), and on the self-contact plates in contact (the
@@ -1790,51 +1534,17 @@ def fine_hash_phase(impact, ref, smi_line):
     from hakai_tpu_torch import SolverConfig, init_state, lower, run_chunk
     from hakai_tpu_torch.pre.synthetic import self_contact_model
     s = run_chunk(impact, init_state(impact), FINE_APPROACH)
-    fine_hash_check(f"step {FINE_APPROACH}", impact, s, ref, smi_line,
+    fine_hash_check(f"step {FINE_APPROACH}", impact, s, smi_line,
                     want_fine=False)
     s = run_chunk(impact, s, FINE_CONTACT - FINE_APPROACH)
-    fine_hash_check(f"step {FINE_CONTACT}", impact, s, ref, smi_line,
+    fine_hash_check(f"step {FINE_CONTACT}", impact, s, smi_line,
                     want_fine=True)
     plates = lower(self_contact_model(n=FINE_SELF_N, d_time=FINE_SELF_DT),
                    SolverConfig(dtype="float64"), device="cuda")
     s = run_chunk(plates, init_state(plates), FINE_SELF_STEPS)
     fine_hash_check(f"self-contact plates n={FINE_SELF_N} step "
-                    f"{FINE_SELF_STEPS}", plates, s, ref, smi_line,
+                    f"{FINE_SELF_STEPS}", plates, s, smi_line,
                     want_fine=False)
-
-
-def fmad_cost(args, kin, force):
-    """Kernel N built as nvcc builds by default, with FMA contraction,
-    against the library the port ships (contact.cu with -fmad=false): the
-    time of the main path's narrow-phase calls and the normwise difference
-    of their forces.  Builds a second library (another key) and restores
-    the port's after."""
-    import torch
-    from hakai_tpu_torch import _build
-    from hakai_tpu_torch.ops.contact_cuda import narrow_phase
-
-    def calls(out):
-        return lambda: [narrow_phase(p, kin, ksl, bp, c, out, o)
-                        for p, ksl, bp, c, o in args]
-    shipped = _build._lib, _build.SOURCE_FLAGS
-    fused = torch.empty_like(force)
-    try:
-        _build._lib = None
-        _build.SOURCE_FLAGS = {k: tuple(f for f in v if f != "-fmad=false")
-                               for k, v in shipped[1].items()}
-        t0 = time.perf_counter()
-        _build.library()
-        built_s = time.perf_counter() - t0
-        calls(fused)()
-        torch.cuda.synchronize()
-        ms = time_ms(calls(fused), reps=10)
-    finally:
-        _build._lib, _build.SOURCE_FLAGS = shipped
-    ms_after = time_ms(calls(force), reps=10)
-    err = max(relerr(fused[:, a:a + n], force[:, a:a + n])
-              for p, _, _, _, (oi, ot) in args
-              for a, n in ((oi, p.Cp), (ot, p.Tp)))
-    return ms, ms_after, err, built_s
 
 
 def rank_shares(args, kin, force, world=2):
@@ -1866,9 +1576,8 @@ def rank_shares(args, kin, force, world=2):
     return ms
 
 
-def check_scatter(model, force, out_dtype, kind, ref_lib=None):
-    """Kernel S against its plain version (and, given the reference
-    library, bitwise against the reference S) on ``force``; times, bound,
+def check_scatter(model, force, out_dtype, kind):
+    """Kernel S against its plain version on ``force``; times, bound,
     resources."""
     import torch
     from hakai_tpu_torch import _build
@@ -1887,19 +1596,10 @@ def check_scatter(model, force, out_dtype, kind, ref_lib=None):
     rec["ms"], rec["plain_ms"] = _time_pair(
         lambda: scatter_forces(model, force, out_dtype),
         lambda: scatter_forces_plain(model, force, out_dtype))
-    out = (ctypes.c_int * 5)()
     which = {torch.float32: 0, torch.float64: 1}[force.dtype]
     which = 2 if force.dtype != out_dtype else which
-    _build.check(_build.library(), _build.library().hk_scatter_resources(
-        which, model.fs_emax, out), "scatter resources")
-    rec["res"] = dict(zip(("blocks", "registers", "smem", "local", "dyn"),
-                          out))
-    if ref_lib is not None:
-        if not torch.equal(g, ref_scatter(ref_lib, model, force, out_dtype)):
-            raise AssertionError(f"scatter kernel ({kind}) differs from the "
-                                 "reference S")
-        rec["ref_ms"] = time_ms(lambda: ref_scatter(ref_lib, model, force,
-                                                    out_dtype))
+    rec["res"] = _build.resources("hk_scatter_resources", which,
+                                  model.fs_emax)
     # one PyTorch call for the same sum (another order, atomics): index_add_
     # of the signed contributions into their nodes
     ptr = model.fs_ptr.long()
@@ -1915,51 +1615,17 @@ def check_scatter(model, force, out_dtype, kind, ref_lib=None):
     moved = nbytes(model.fs_ptr, model.fs_mid, model.fs_col, force, g)
     rec["bound_ms"], rec["bound_by"] = bound(
         moved, 3 * model.fs_col.shape[0], kind)
-    vs = (f"; the reference S {rec['ref_ms']:.4f} ms "
-          f"({rec['bound_ms'] / rec['ref_ms']:.3f} of its bound), outputs "
-          "bitwise equal" if "ref_ms" in rec else
-          "; no reference S (REF_DIR) to hold it against")
     log(f"[contact-kernels] scatter {kind} -> {g.dtype}: rel err {err:.3e} "
         f"(tol {tol:g}); kernel {rec['ms']:.4f} ms "
         f"({rec['bound_ms'] / rec['ms']:.3f} of its bound; blocks of "
         f"{model.fs_nb} nodes, at most {model.fs_emax} entries; "
         f"{_res(rec['res'])}), plain {rec['plain_ms']:.4f} ms, index_add_ "
         f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-        f"({moved / 1e6:.1f} MB){vs}")
+        f"({moved / 1e6:.1f} MB)")
     return rec
 
 
-def reference_contact_chunk(model, ref):
-    """REF_CONTACT_CHUNK steps of [contact]'s deck from its initial state
-    through the eager chunk loop, with the shipped S and with the
-    reference S: every state field bit for bit, past the first contact and
-    first deletion."""
-    import torch
-    from hakai_tpu_torch import init_state
-    from hakai_tpu_torch.solver.explicit import eager_chunk
-    if ref is None:
-        return
-    s0 = init_state(model)
-    new = eager_chunk(model, s0, REF_CONTACT_CHUNK)
-    with reference_scatter(ref):
-        old = eager_chunk(model, s0, REF_CONTACT_CHUNK)
-    torch.cuda.synchronize()
-    differ = [f.name for f in dataclasses.fields(new)
-              if not torch.equal(getattr(new, f.name), getattr(old, f.name))]
-    alive, n = int(new.element_flag.sum()), int(model.elem_exists.sum())
-    log(f"[contact-kernels] {REF_CONTACT_CHUNK} steps of [contact]'s deck "
-        f"with the shipped and the reference S: contact force max "
-        f"{new.contact_force.abs().max().item():.4e}, {n - alive} elements "
-        f"deleted; fields that differ: {differ or 'none'}")
-    if differ:
-        raise AssertionError(f"the contact chunk differs from the reference"
-                             f" S's: {differ}")
-    if alive == n:
-        raise AssertionError("the reference contact chunk deleted no "
-                             "element")
-
-
-def contact_kernels(model, state, smi_line, n_launch, ref=None):
+def contact_kernels(model, state, smi_line, n_launch):
     """Kernels G, N and S against their plain versions on the deck's own
     state with contact active, in the main path's types (f32 math, f64
     store) and in float64; times and bounds, N's in both types beside its
@@ -1978,7 +1644,7 @@ def contact_kernels(model, state, smi_line, n_launch, ref=None):
         args, force, stages, rec_n = check_narrow(model, kin, acts, kind)
         out_dtype = torch.float64
         rec_s = check_scatter(model, force, out_dtype,
-                              "mixed" if dt == torch.float32 else kind, ref)
+                              "mixed" if dt == torch.float32 else kind)
         recs[kind] = (rec_g, rec_n, rec_s)
 
         def step_calls(out=force):
@@ -1989,11 +1655,6 @@ def contact_kernels(model, state, smi_line, n_launch, ref=None):
             step_calls, lambda: [narrow_phase_plain(p, kin, ksl, bp, c)
                                  for p, ksl, bp, c, _ in args], reps=10,
             plain_reps=1, plain_repeats=1)   # one call of 3-5 s: one batch
-        ref_out = torch.empty_like(force)
-        if ref is not None:
-            rec_n["ref_ms"] = time_ms(lambda: [
-                ref_narrow(ref, p, kin, ksl, bp, c, ref_out, o)
-                for p, ksl, bp, c, o in args], reps=10)
         st = stages
         flop = (NARROW_OPS["item"] * (st["tri_in"] + st["node_in"])
                 + NARROW_OPS["geometry"] * st["tri_in"]
@@ -2012,9 +1673,8 @@ def contact_kernels(model, state, smi_line, n_launch, ref=None):
         log(f"[contact-kernels] narrow {kind}: {st['blocks']} block pairs, "
             f"{st['tested']:.4e} pairs in them, {st['cell']} within one cell"
             f", {st['dist']} past the radius cull, {st['accept']} accepted; "
-            f"kernel {rec_n['ms']:.4f} ms (the reference N: "
-            f"{rec_n.get('ref_ms', float('nan')):.4f} ms; PR 7's block-loop "
-            f"kernel, float32: {NARROW_PR7_MS} ms), plain "
+            f"kernel {rec_n['ms']:.4f} ms (the old block-loop kernel, "
+            f"float32: {NARROW_PR7_MS} ms), plain "
             f"{rec_n['plain_ms']:.4f} ms, bound "
             f"{rec_n['bound_ms']:.4f} ms ({rec_n['bound_by']}: "
             f"{flop / 1e9:.4f} GFLOP needed, {moved / 1e6:.1f} MB); "
@@ -2032,14 +1692,7 @@ def contact_kernels(model, state, smi_line, n_launch, ref=None):
                         enumerate(ms_ranks))
             + f" against {rec_n['ms']:.4f} ms on one device; the ranks' "
             f"forces summed: bitwise one device's [{smi_line}]")
-        ms_fma, ms_after, err_fma, built_s = fmad_cost(args, kin, force)
-        log(f"[contact-kernels] narrow {kind} built with FMA contraction "
-            f"(nvcc's default; built in {built_s:.2f} s): {ms_fma:.4f} ms "
-            f"against {rec_n['ms']:.4f} ms before and {ms_after:.4f} ms after"
-            f" it for the shipped -fmad=false build; forces differ by "
-            f"{err_fma:.3e} normwise [{smi_line}]")
-    fine_hash_phase(model, ref, smi_line)
-    reference_contact_chunk(model, ref)
+    fine_hash_phase(model, smi_line)
     return recs["float32"]
 
 
@@ -2359,8 +2012,9 @@ def contact_cpu():
 
 
 def generic_counts(model, s):
-    """[generic]'s negative-Jacobian count, the unpacked entry's own (the
-    metrics stream's, ``+neg``) against the plain count, at state ``s``
+    """[generic]'s negative-Jacobian count, the unpacked entry's own (with
+    the metrics stream its ``triax+neg`` instantiation, the one [generic]'s
+    run() launches) against the plain count, at state ``s``
     and with four live elements far apart turned inside out (their nodes
     mirrored in z through each one's centroid: every Gauss point of the
     four inverted, their neighbours distorted).  Returns [(fused, plain)]
@@ -2395,8 +2049,9 @@ def generic_run(smi_line, run_first, run_alive):
     """run() on the generic step: [run]'s deck (the mixed ductile bar)
     lowered with gather_mode="xla", its end time cut to GENERIC_STEPS
     steps (the amplitude ramp kept), GENERIC_FRAMES frames with a
-    checkpoint at each, energy balance and metrics; launches counted (the
-    unpacked entry's counting variant), its negative-Jacobian count held
+    checkpoint at each, energy balance and metrics; launches counted, the
+    unpacked entry's by instantiation (every step launches ``triax+neg``,
+    the one that counts negative Jacobians), its negative-Jacobian count held
     against the plain count (:func:`generic_counts`), frames checked
     against the alive count, the first deletion located
     exactly and set beside [run]'s (another loop: they need not agree)."""
@@ -2429,10 +2084,11 @@ def generic_run(smi_line, run_first, run_alive):
     launches = read_counts()
     steps = model.time_num
     log(f"\n[generic] launches {launches} for {steps} steps")
-    want = {"update": steps, "update[float32+triax+neg]": steps,
-            "assemble[hk_assemble_f32_f64]": steps, "element": 0,
-            "integrate[mixed]": steps, "erosion[float32]": steps}
-    if any(launches.get(k, 0) != v for k, v in want.items()):
+    want = {"hk_element_update_f32": steps,
+            "hk_element_update_f32[triax+neg]": steps,
+            "hk_assemble_f32_f64": steps, "hk_element_mixed": 0,
+            "hk_integrate_mixed": steps, "hk_erosion_f32": steps}
+    if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"kernel launches {launches} != {want}")
     for f in ("disp", "velo", "Q", "stress", "eq_ps", "triax"):
         if not torch.isfinite(getattr(final, f)).all():
@@ -2780,12 +2436,12 @@ def grouped_plan(model):
                          GROUPED_R_TILE).to(model.device)
 
 
-def check_grouped(model, rng, name, out_dtype=None, ref=None):
+def check_grouped(model, rng, name, out_dtype=None):
     """The grouped entry (TPU kernels #9/#10) against its plain version and
-    bitwise against kernel B on one random qe, and bitwise against the
-    reference design ``ref`` where there is one; returns the JSON record's
-    numbers."""
+    bitwise against kernel B on one random qe, with the instantiation's
+    resources; returns the JSON record's numbers."""
     import torch
+    from hakai_tpu_torch import _build
     from hakai_tpu_torch.ops.assemble_cuda import (assemble_internal_force,
                                                    blocked_assemble,
                                                    blocked_assemble_plain)
@@ -2824,9 +2480,9 @@ def check_grouped(model, rng, name, out_dtype=None, ref=None):
     moved = nbytes(src, plan.idx, plan.mask, Ok)
     ops = 3 * int(plan.mask.sum())
     rec["bound_ms"], rec["bound_by"] = bound(moved, ops, kind)
-    vs_reference(rec, ref, 3 + ("float32", "float64", "mixed").index(kind),
-                 lambda: blocked_assemble(src, plan, out_dtype), Ok,
-                 slots=plan.vl)
+    rec["res"] = _build.resources(
+        "hk_assemble_resources",
+        3 + ("float32", "float64", "mixed").index(kind), plan.vl)
     log(f"[grouped-asm] {name} {kind}: kernel {rec['ms']:.4f} ms "
         f"({rec['bound_ms'] / rec['ms']:.3f} of bound; kernel B "
         f"on the same qe: see [kernels]), plain {rec['plain_ms']:.4f} ms, "
@@ -2850,14 +2506,14 @@ def grouped_path(model, ref, smi_line):
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     launches = read_counts()
-    want = {"grouped": N2, "grouped[hk_blocked_assemble_f32]": N2,
-            "assemble": 0, "element": N2}
+    want = {"hk_blocked_assemble_f32": N2, "hk_assemble_f32": 0,
+            "hk_element_f32": N2}
     diff = [f.name for f in dataclasses.fields(s)
             if not torch.equal(getattr(s, f.name), getattr(ref, f.name))]
     log(f"[grouped-asm] bench bar with a grouped plan_asm through run_chunk, "
         f"{N2} steps in {sec:.2f} s: launches {launches}; fields differing "
         f"from the run without the plan: {diff} [{smi_line}]")
-    if any(launches.get(k, 0) != v for k, v in want.items()):
+    if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"kernel launches {launches} != {want}")
     if diff:
         raise AssertionError(f"the grouped run differs in {diff}")
@@ -2933,6 +2589,7 @@ def smoke_rank(ctx, jobs, ref_jobs):
     (the jobs' records, the reference jobs' records)."""
     from hakai_tpu_torch.parallel.halo import HaloComm
     from hakai_tpu_torch.parallel.sharding import chunk_rank
+    count_variants()
     out = chunk_rank(ctx, jobs)
     HaloComm.exchange_window = _ag_exchange_window
     HaloComm.return_ghosts = _ag_return_ghosts
@@ -3002,9 +2659,9 @@ def sharded_phase(bench, gen, cut, impact, mh_model, smi_line):
         f"partitions and every chunk)")
     refs = {}
     for tag, m, r, kernel in (("packed f32", bench, res[0],
-                               "element_core_packed"),
+                               "hk_element_f32"),
                               ("generic f32", gen, res[1],
-                               "element_update")):
+                               "hk_element_update_f32")):
         n = SHARD_STEPS[tag]
         refs[tag] = ref = run_chunk(m, init_state(m), n)
         diff = state_diff(r["state"], ref)
@@ -3019,7 +2676,7 @@ def sharded_phase(bench, gen, cut, impact, mh_model, smi_line):
             f"{_top(r)}; rank 0 launches {r['launches']}; fields differing "
             f"from one "
             f"device: {diff} [{smi_line}]")
-        want = {kernel: n, "assemble_internal_force": n}
+        want = {kernel: n, "hk_assemble_f32": n}
         if any(r["launches"][k] != v for k, v in want.items()):
             raise AssertionError(f"[sharded] launches {r['launches']}")
         if diff:
@@ -3041,8 +2698,8 @@ def halo_phase(res, ref_res, refs, cut, impact, smi_line):
     (``refs``) normwise at HALO_TOL, with its partition, the ring's bytes a
     step and rank beside the all-gather's, us/step, the exchanges' share
     and rank 0's trace; the first deletion and first contact and first
-    deletion to the step.  Returns rank 0's launches by the kernels JSON's
-    keys."""
+    deletion to the step.  Returns rank 0's launches by C entry."""
+    import collections
     same = [not state_diff(r["state"], q["state"])
             for r, q in zip(res, ref_res)]
     log(f"[halo] every halo job of the launch bit for bit its reference run "
@@ -3050,14 +2707,12 @@ def halo_phase(res, ref_res, refs, cut, impact, smi_line):
     if not all(same):
         raise AssertionError("[halo] the ring differs from the all-gather "
                              "exchange")
-    counts = {}
-
-    def count(key, n):
-        counts[key] = counts.get(key, 0) + n
-    for (tag, kernel, key), r in zip(
-            (("packed f32", "element_core_packed", "element[float32]"),
-             ("generic f32", "element_update", "update[float32+triax]")),
-            res[:2]):
+    counts = collections.Counter()
+    for r in res:
+        counts.update(r["launches"])
+    for (tag, kernel), r in zip(
+            (("packed f32", "hk_element_f32"),
+             ("generic f32", "hk_element_update_f32[triax]")), res[:2]):
         p, ref, n = r["partition"], refs[tag], SHARD_STEPS[tag]
         errs = {k: relerr(getattr(r["state"], k).to(ref.disp.device),
                           getattr(ref, k)) for k in HALO_TOL}
@@ -3081,17 +2736,12 @@ def halo_phase(res, ref_res, refs, cut, impact, smi_line):
             f"rank 0 launches {r['launches']}; normwise from one device: "
             + " ".join(f"{k} {v:.3e}" for k, v in errs.items())
             + f" (tol {HALO_TOL}) [{smi_line}]")
-        want = {kernel: n, "assemble_internal_force": n,
-                "central_difference": n}
+        want = {kernel: n, "hk_assemble_f32": n, "hk_integrate_f32": n}
         if any(r["launches"][k] != v for k, v in want.items()):
             raise AssertionError(f"[halo] launches {r['launches']}")
-        count("integrate[float32]", r["launches"]["central_difference"])
         bad = {k: v for k, v in errs.items() if not v <= HALO_TOL[k]}
         if bad or p["packed"] != (tag == "packed f32"):
             raise AssertionError(f"[halo] {tag} parts from one device: {bad}")
-        count(key, r["launches"][kernel])
-        count("assemble[hk_assemble_f32]",
-              r["launches"]["assemble_internal_force"])
     a, c, d = res[2]["alive"], res[3]["contact_max"], res[4]["alive"]
     events = (a[-2] == cut.n_element > a[-1], c[-2] == 0 < c[-1],
               d[-2] == impact.n_element > d[-1])
@@ -3103,16 +2753,6 @@ def halo_phase(res, ref_res, refs, cut, impact, smi_line):
         f"{[r['partition'] for r in res[2:4]]}")
     if not all(events):
         raise AssertionError("[halo] an event moved from its step")
-    for r in res[2:]:
-        L = r["launches"]
-        count("element[mixed+triax]", L["element_core_packed"])
-        count("assemble[hk_assemble_f32_f64]", L["assemble_internal_force"])
-        for k, name in (("gather", "gather_cols"), ("narrow", "narrow_phase"),
-                        ("scatter", "scatter_forces"),
-                        ("integrate[mixed]", "central_difference"),
-                        ("erosion[float32]", "erosion_walk"),
-                        ("broad[float32]", "broad")):
-            count(k, L[name])
     return counts
 
 
@@ -3231,7 +2871,7 @@ def dma_phase(smi_line):
                    out=lambda line: log(f"[dma] {line}"))
     launches = read_counts()
     want = len(LAYOUTS) * (DMA_N1 + REPEATS * (DMA_N1 + DMA_N2))
-    if launches["stream"] != want:
+    if launches["hk_stream_add1_f32"] != want:
         raise AssertionError(f"[dma] launches {launches} != {want}")
     moved = 2 * 72 * DMA_E * 4
     bound_ms, bound_by = bound(moved, 72 * DMA_E, "float32")
@@ -3263,16 +2903,15 @@ def dma_phase(smi_line):
             f" (slope {slopes['torch.add'] * 1e6:.3f} us/pass), bound "
             f"{bound_ms:.4f} ms ({bound_by}: {moved} B at 3.35 TB/s) "
             f"[{smi_line}]")
-    return recs["strided"], launches["stream"]
+    return recs["strided"], launches["hk_stream_add1_f32"]
 
 
-def interleave_phase(smi_line, ref=None):
+def interleave_phase(smi_line):
     """[interleave]: TPU kernel #12's replacement through the port's
     interleave probe (the probe's passes are the launches counted), then
     each mode bitwise against its plain version on a random window and
-    timed alone (cold L2) beside the bound, with its resources; given the
-    reference library, the probe again on the reference kernel, and each
-    mode bitwise against it, timed.  Returns {mode: record}."""
+    timed alone (cold L2) beside the bound, with its resources.  Returns
+    {mode: record}."""
     import torch
     from hakai_tpu_torch import _build
     from hakai_tpu_torch.ops.interleave_cuda import (MODES, OFFSETS,
@@ -3283,18 +2922,13 @@ def interleave_phase(smi_line, ref=None):
     slopes = probe(IL_TILES, IL_BUILDS, IL_N1, IL_N2, "cuda",
                    out=lambda line: log(f"[interleave] {line}"))
     counts = read_counts()
-    ref_slopes = {}
-    if ref is not None:
-        with reference(ref):
-            ref_slopes = probe(IL_TILES, IL_BUILDS, IL_N1, IL_N2, "cuda",
-                               out=lambda line: log(
-                                   f"[interleave] reference: {line}"),
-                               place=False)
+    launches = {m: counts[f"hk_interleave_f32[{m}]"] for m in MODES}
     # per mode: a warm chain of n2, the timed n1 and n2, the checked n2
     want = 3 * IL_N2 + IL_N1
-    launches = {m: counts.get(f"interleave[{m}]", 0) for m in MODES}
-    if any(v != want for v in launches.values()):
-        raise AssertionError(f"[interleave] launches {launches} != {want}")
+    if any(v != want for v in launches.values()) or \
+            counts["hk_interleave_f32"] != len(MODES) * want:
+        raise AssertionError(f"[interleave] launches {counts} != {want} "
+                             f"a mode")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     recs = {}
     for mode in MODES:
@@ -3313,28 +2947,10 @@ def interleave_phase(smi_line, ref=None):
                    src, mode, IL_TILES, IL_BUILDS)),
                "library_ms": None, "bound_ms": b_s * 1e3, "bound_by": by,
                "launches": launches[mode]}
-        res = (ctypes.c_int * 5)()
         offs = (ctypes.c_int * 8)(*OFFSETS)
-        _build.check(_build.library(), _build.library()
-                     .hk_interleave_resources(W, IL_BUILDS, IL_TILES,
-                                              MODES[mode],
-                                              ctypes.addressof(offs), res),
-                     "interleave resources")
-        rec["res"] = dict(zip(("blocks", "registers", "smem", "local",
-                               "dyn"), res))
-        vs = "; no reference kernel (REF_DIR) to hold it against"
-        if ref is not None:
-            with reference(ref):
-                k_ref = interleave(src, mode, IL_TILES, IL_BUILDS)
-                torch.cuda.synchronize()
-                ref_ms = time_ms(lambda: interleave(src, mode, IL_TILES,
-                                                    IL_BUILDS, out=out))
-            if not torch.equal(k, k_ref):
-                raise AssertionError(f"[interleave] {mode} differs from the "
-                                     "reference kernel")
-            vs = (f"; the reference kernel {ref_ms:.4f} ms alone, slope "
-                  f"{ref_slopes[mode] * 1e6:.3f} us/pass, outputs bitwise "
-                  "equal")
+        rec["res"] = _build.resources(
+            "hk_interleave_resources", W, IL_BUILDS, IL_TILES, MODES[mode],
+            ctypes.addressof(offs))
         recs[mode] = rec
         log(f"[interleave] {mode}: bitwise its plain version; kernel "
             f"{rec['ms']:.4f} ms (cold L2, events; "
@@ -3343,7 +2959,7 @@ def interleave_phase(smi_line, ref=None):
             f"{slopes[mode] * 1e6:.3f} us/pass = "
             f"{slopes[mode] / (IL_TILES * IL_BUILDS) * 1e9:.4f} ns/build; "
             f"plain {rec['plain_ms']:.4f} ms; bound {rec['bound_ms']:.5f} ms"
-            f" ({by}); no single PyTorch call computes a build{vs} "
+            f" ({by}); no single PyTorch call computes a build "
             f"[{smi_line}]")
     return recs
 
@@ -3573,6 +3189,7 @@ def nccl_rank(ctx, jobs):
     from hakai_tpu_torch.parallel.sharding import (_rank_setup, chunk_rank,
                                                    sharded_run_chunk)
     from hakai_tpu_torch.solver.explicit import eager_chunk
+    count_variants()
     out = chunk_rank(ctx, jobs)
     checked = 0
     for job in jobs:
@@ -3601,8 +3218,9 @@ def nccl_phase(bench, gen, impact_cut, smi_line):
     equal to steps, one eager step with no host sync; graph and eager
     us/step, rank device busy, idle share and the NCCL kernels' time (the
     profiler's), capture and instantiate seconds.  With one card, two NCCL
-    ranks are refused.  Returns the graph chunks' launches by the kernels
-    JSON's keys."""
+    ranks are refused.  Returns the graph chunks' launches by C entry."""
+    import collections
+
     import torch
     from hakai_tpu_torch import init_state, run, run_chunk
     from hakai_tpu_torch.parallel.dist import launch
@@ -3615,22 +3233,19 @@ def nccl_phase(bench, gen, impact_cut, smi_line):
             refused = f"refused: {e}"
         else:
             raise AssertionError("NCCL ran two ranks on one card")
+    # each deck's C entries and their launches a step
+    pairs = len(impact_cut.pairs)
     decks = (("bench bar packed f32", bench, NCCL_STEPS,
-              {"element[float32]": "element_core_packed",
-               "assemble[hk_assemble_f32]": "assemble_internal_force",
-               "integrate[float32]": "central_difference"}),
+              {"hk_element_f32": 1, "hk_assemble_f32": 1,
+               "hk_integrate_f32": 1}),
              ("bench bar generic f32", gen, NCCL_STEPS,
-              {"update[float32+triax]": "element_update",
-               "assemble[hk_assemble_f32]": "assemble_internal_force",
-               "integrate[float32]": "central_difference"}),
+              {"hk_element_update_f32": 1, "hk_element_update_f32[triax]": 1,
+               "hk_assemble_f32": 1, "hk_integrate_f32": 1}),
              ("[contact]'s deck, mixed", impact_cut, SHARD_CONTACT_STEPS,
-              {"element[mixed+triax]": "element_core_packed",
-               "assemble[hk_assemble_f32_f64]": "assemble_internal_force",
-               "gather": "gather_cols", "narrow": "narrow_phase",
-               "scatter": "scatter_forces",
-               "integrate[mixed]": "central_difference",
-               "erosion[float32]": "erosion_walk",
-               "broad[float32]": "broad"}))
+              {"hk_element_mixed": 1, "hk_assemble_f32_f64": 1,
+               "hk_gather_cols_f32": 1, "hk_narrow_f32": pairs,
+               "hk_scatter_f32_f64": 1, "hk_integrate_mixed": 1,
+               "hk_erosion_f32": 1, "hk_broad_f32": pairs}))
     jobs = []
     for _, m, n, _ in decks:
         cpu = m.to("cpu")
@@ -3641,8 +3256,8 @@ def nccl_phase(bench, gen, impact_cut, smi_line):
     t0 = time.perf_counter()
     res, checked = launch(nccl_rank, 1, "cuda", "nccl", jobs)
     sec = time.perf_counter() - t0
-    counts, bad = {}, []
-    for i, (tag, m, n, keys) in enumerate(decks):
+    counts, bad = collections.Counter(), []
+    for i, (tag, m, n, per_step) in enumerate(decks):
         graph, eager = res[2 * i:2 * i + 2]
         ref = run_chunk(m, init_state(m), n)
         diffs = [state_diff(r["state"], ref) for r in (graph, eager)]
@@ -3674,12 +3289,11 @@ def nccl_phase(bench, gen, impact_cut, smi_line):
             f"alive, contact force max {cmax:.4e}; fields differing from "
             f"one device's run_chunk: graph {diffs[0]}, eager {diffs[1]} "
             f"[{smi_line}]")
-        for key, fn in keys.items():
-            counts[key] = counts.get(key, 0) + graph["launches"][fn]
-            want = n * (len(m.pairs) if key in ("narrow", "broad[float32]")
-                        else 1)
-            if graph["launches"][fn] != want or eager["launches"][fn] != want:
-                bad.append(f"{tag} launches of {fn}")
+        counts.update(graph["launches"])
+        for entry, k in per_step.items():
+            if graph["launches"][entry] != k * n or \
+                    eager["launches"][entry] != k * n:
+                bad.append(f"{tag} launches of {entry}")
         if diffs[0] or diffs[1]:
             bad.append(f"{tag} differs from run_chunk")
         if main[0] <= 0:
@@ -3723,6 +3337,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.library()
+    count_variants()
     log(f"[build] {_build.BUILD_INFO['path']} built="
         f"{_build.BUILD_INFO['built']} in {time.perf_counter() - t0:.2f} s")
     for line in _build.BUILD_INFO["log"].splitlines():
@@ -3733,7 +3348,6 @@ def main() -> int:
         f"{_build.HOST_INFO['built']} in {_build.HOST_INFO['seconds']:.2f} s "
         f"({' '.join(_build.HOST_INFO['compiler'])} "
         f"{' '.join(_build.HOST_FLAGS)})")
-    ref = build_reference()
 
     rng = np.random.default_rng(SEED)
     models = {}
@@ -3761,33 +3375,27 @@ def main() -> int:
                                                  "mixed"))
 
     rec = {
-        "f32": check_element(with_padding(bench, 128), rng, "bench",
-                             ref=ref),
+        "f32": check_element(with_padding(bench, 128), rng, "bench"),
         "f32_triax": check_element(with_padding(bench, 128), rng, "bench",
-                                   want_triax=True, ref=ref),
-        "f64": check_element(with_padding(bench64, 128), rng, "bench",
-                             ref=ref),
+                                   want_triax=True),
+        "f64": check_element(with_padding(bench64, 128), rng, "bench"),
         "mixed": check_element(with_padding(mixed, 128), rng, "bench",
-                               want_triax=True, ref=ref),
-        "u_f32": check_update(with_padding(bench, 128), rng, "bench",
-                              ref=ref),
+                               want_triax=True),
+        "u_f32": check_update(with_padding(bench, 128), rng, "bench"),
         "u_f32_triax": check_update(with_padding(bench, 128), rng, "bench",
-                                    want_triax=True, ref=ref),
-        "u_f64": check_update(with_padding(bench64, 128), rng, "bench",
-                              ref=ref),
+                                    want_triax=True),
+        "u_f64": check_update(with_padding(bench64, 128), rng, "bench"),
         "u_f32_triax_neg": check_update(
             dataclasses.replace(with_padding(bench, 128), config=(
                 dataclasses.replace(bench.config, metrics_path=os.path.join(
                     GENERIC_DIR, "unopened.jsonl")))), rng, "bench",
             want_triax=True),
-        "asm_f32": check_assemble(bench, rng, "bench", ref=ref),
-        "asm_f64": check_assemble(bench64, rng, "bench", ref=ref),
-        "asm_mixed": check_assemble(mixed, rng, "bench", torch.float64,
-                                    ref=ref),
-        "gasm_f32": check_grouped(bench, rng, "bench", ref=ref),
-        "gasm_f64": check_grouped(bench64, rng, "bench", ref=ref),
-        "gasm_mixed": check_grouped(mixed, rng, "bench", torch.float64,
-                                    ref=ref),
+        "asm_f32": check_assemble(bench, rng, "bench"),
+        "asm_f64": check_assemble(bench64, rng, "bench"),
+        "asm_mixed": check_assemble(mixed, rng, "bench", torch.float64),
+        "gasm_f32": check_grouped(bench, rng, "bench"),
+        "gasm_f64": check_grouped(bench64, rng, "bench"),
+        "gasm_mixed": check_grouped(mixed, rng, "bench", torch.float64),
     }
     log_resources(rec, {
         "f32": "element packed float32", "f32_triax": "element packed "
@@ -3799,12 +3407,11 @@ def main() -> int:
         "asm_f64": "kernel B float64", "asm_mixed": "kernel B "
         "float32->float64", "gasm_f32": "grouped float32", "gasm_f64":
         "grouped float64", "gasm_mixed": "grouped float32->float64"})
-    reference_chunk(mixed, ref)
     del bench64, models
     lap("[kernels] and [grouped-asm] kernels")
     dma_rec, dma_launches = dma_phase(smi_line)
     lap("[dma]")
-    il_recs = interleave_phase(smi_line, ref)
+    il_recs = interleave_phase(smi_line)
     lap("[interleave]")
 
     trajectory()
@@ -3817,9 +3424,8 @@ def main() -> int:
     launches_g = grouped_path(bench, final, smi_line)
     lap("[main], its [trace] and [grouped-asm]'s run")
     graphs = {"[main]": graph_path(
-        "[main]", bench, N2, {"element": 1, "assemble": 1,
-                              "element[float32]": 1,
-                              "integrate[float32]": 1}, smi_line, GRAPH_KS)}
+        "[main]", bench, N2, {"hk_element_f32": 1, "hk_assemble_f32": 1,
+                              "hk_integrate_f32": 1}, smi_line, GRAPH_KS)}
     graph_profile(cut_to(bench, GRAPH_PROFILE_STEPS, output_num=1,
                          checkpoint_every=0, metrics_path=None), smi_line)
     lap("[graph] of [main]")
@@ -3837,10 +3443,10 @@ def main() -> int:
                  metrics_path=os.path.join(SHARD_RUN_DIR, "metrics.jsonl"))
     lap("[run] and its [trace]")
     graphs["[run]"] = graph_path(
-        "[run]", mixed, GRAPH_RUN_CHUNK, {"element[mixed+triax]": 1,
-                                          "assemble[hk_assemble_f32_f64]": 1,
-                                          "integrate[mixed]": 1,
-                                          "erosion[float32]": 1},
+        "[run]", mixed, GRAPH_RUN_CHUNK, {"hk_element_mixed": 1,
+                                          "hk_assemble_f32_f64": 1,
+                                          "hk_integrate_mixed": 1,
+                                          "hk_erosion_f32": 1},
         smi_line, deletes=True)
     lap("[graph] of [run]")
     step_recs = step_kernels_run(bench, final, mixed, run_first, smi_line)
@@ -3858,14 +3464,14 @@ def main() -> int:
         f" of the same steps untraced ({busy3:.2f} of {wall3:.2f} us; run()"
         f" averaged {contact_us:.2f} us/step over its 5,000 steps)")
     crec = contact_kernels(impact, s_kern, smi_line, sum(
-        v for k, v in per3.items() if k.startswith("narrow_")), ref)
+        v for k, v in per3.items() if k.startswith("narrow_")))
     step_recs["A"] = step_kernels_contact(impact, s_del, smi_line)
     graphs["[contact]"] = graph_path(
-        "[contact]", impact, REF_CONTACT_CHUNK, {
-            "element[mixed+triax]": 1, "assemble[hk_assemble_f32_f64]": 1,
-            "gather": 1, "narrow": len(impact.pairs), "scatter": 1,
-            "integrate[mixed]": 1, "erosion[float32]": 1,
-            "broad[float32]": len(impact.pairs)},
+        "[contact]", impact, GRAPH_CONTACT_CHUNK, {
+            "hk_element_mixed": 1, "hk_assemble_f32_f64": 1,
+            "hk_gather_cols_f32": 1, "hk_narrow_f32": len(impact.pairs),
+            "hk_scatter_f32_f64": 1, "hk_integrate_mixed": 1,
+            "hk_erosion_f32": 1, "hk_broad_f32": len(impact.pairs)},
         smi_line, GRAPH_KS, deletes=True, contact=True)
     impact_cut = cut_to(impact, SHARD_CONTACT_STEPS, output_num=1,
                         checkpoint_every=0, out_dir=SHARD_CONTACT_DIR,
@@ -3886,18 +3492,19 @@ def main() -> int:
     if gen.coord_e is not None:
         raise AssertionError("the gather_mode=xla bar carries coord_e")
     launches4, final4, gen_us = main_path(
-        gen, smi_line, "[generic]", ("update", "assemble",
-                                     "update[float32+triax]",
-                                     "integrate[float32]"))
+        gen, smi_line, "[generic]", ("hk_element_update_f32",
+                                     "hk_element_update_f32[triax]",
+                                     "hk_assemble_f32", "hk_integrate_f32"))
     busy4 = trace(gen, final4, smi_line, "generic float32 elastic")[0]
     log(f"[trace] generic float32 elastic: device idle share "
         f"{1.0 - busy4 / gen_us:.4f} of the median untraced step "
         f"({busy4:.2f} of {gen_us:.2f} us)")
     del final4
     graphs["[generic] f32"] = graph_path(
-        "[generic] f32", gen, N2, {"update": 1, "assemble": 1,
-                                   "update[float32+triax]": 1,
-                                   "integrate[float32]": 1}, smi_line)
+        "[generic] f32", gen, N2, {"hk_element_update_f32": 1,
+                                   "hk_element_update_f32[triax]": 1,
+                                   "hk_assemble_f32": 1,
+                                   "hk_integrate_f32": 1}, smi_line)
     gen_mixed, launches5, final5, gen_run_us, gen_first = generic_run(
         smi_line, run_first, run_alive)
     busy5 = trace(gen_mixed, final5, smi_line, "generic mixed ductile")[0]
@@ -3906,9 +3513,10 @@ def main() -> int:
         f"{gen_run_us:.2f} us)")
     graphs["[generic] mixed"] = graph_path(
         "[generic] mixed", gen_mixed, GENERIC_STEPS, {
-            "update[float32+triax+neg]": 1,
-            "assemble[hk_assemble_f32_f64]": 1,
-            "integrate[mixed]": 1, "erosion[float32]": 1},
+            "hk_element_update_f32": 1,
+            "hk_element_update_f32[triax+neg]": 1,
+            "hk_assemble_f32_f64": 1, "hk_integrate_mixed": 1,
+            "hk_erosion_f32": 1},
         smi_line, deletes=True)
     step_kernels_generic(gen_mixed, gen_first, smi_line)
     del gen_mixed, final5
@@ -3948,11 +3556,11 @@ def main() -> int:
     src = "hakai_tpu/ops/element_pallas.py"
 
     def entry(name, source, replaces, count, r):
-        # launches: the variant's launches in the six main-path runs, on
-        # [halo]'s rank 0 and in [nccl]'s graph chunks
+        # launches: the entry's or instantiation's launches in the six
+        # main-path runs, on [halo]'s rank 0 and in [nccl]'s graph chunks
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": sum(x.get(count, 0) for x in
+                "launches": sum(x[count] for x in
                                 (launches1, launches2, launches3, launches4,
                                  launches5, launches_g, launches_h,
                                  launches_n)),
@@ -3974,71 +3582,71 @@ def main() -> int:
     # narrow_sort, narrow_probe).
     kernels = [
         entry("element_core_packed[float32]", el, f"{src}:210",
-              "element[float32]", rec["f32"]),
+              "hk_element_f32", rec["f32"]),
         entry("element_core_packed[float64]", el,
               "hakai_tpu/ops/element.py:389 (XLA; no TPU kernel takes f64)",
-              "element[float64]", rec["f64"]),
+              "hk_element_f64", rec["f64"]),
         entry("element_core_packed[mixed+triax]", el,
-              f"{src}:561 and {src}:93", "element[mixed+triax]",
+              f"{src}:561 and {src}:93", "hk_element_mixed",
               rec["mixed"]),
         entry("element_update[float32+triax]", el, f"{src}:25 (call :63)",
-              "update[float32+triax]", rec["u_f32_triax"]),
+              "hk_element_update_f32[triax]", rec["u_f32_triax"]),
         entry("element_update[float32+triax+neg]", el,
               f"{src}:25 (call :63) and hakai_tpu/ops/element.py:65,181 "
               "(the negative-Jacobian count beside it; an XLA fusion)",
-              "update[float32+triax+neg]", rec["u_f32_triax_neg"]),
+              "hk_element_update_f32[triax+neg]", rec["u_f32_triax_neg"]),
         entry("element_update[float64]", el,
               f"{src}:25 (call :63; f64 takes the XLA math there)",
-              "update[float64]", rec["u_f64"]),
+              "hk_element_update_f64", rec["u_f64"]),
         entry("assemble_internal_force[float32]", asm,
               "hakai_tpu/ops/gather_pallas.py:413",
-              "assemble[hk_assemble_f32]", rec["asm_f32"]),
+              "hk_assemble_f32", rec["asm_f32"]),
         entry("assemble_internal_force[float32->float64]", asm,
               "hakai_tpu/ops/gather_pallas.py:413",
-              "assemble[hk_assemble_f32_f64]", rec["asm_mixed"]),
+              "hk_assemble_f32_f64", rec["asm_mixed"]),
         entry("blocked_assemble[float32]", asm,
               f"{gp}:479 and :539 (blocked_assemble, {gp}:589)",
-              "grouped[hk_blocked_assemble_f32]", rec["gasm_f32"]),
+              "hk_blocked_assemble_f32", rec["gasm_f32"]),
         entry("blocked_assemble[float64]", asm,
               f"{gp}:596 (blocked_assemble's XLA path: no TPU kernel takes "
-              "f64)", "grouped[hk_blocked_assemble_f64]", rec["gasm_f64"]),
+              "f64)", "hk_blocked_assemble_f64", rec["gasm_f64"]),
         entry("blocked_assemble[float32->float64]", asm,
               f"{gp}:479 and :539 (blocked_assemble, {gp}:589)",
-              "grouped[hk_blocked_assemble_f32_f64]", rec["gasm_mixed"]),
+              "hk_blocked_assemble_f32_f64", rec["gasm_mixed"]),
         entry("gather_cols[float32]", "hakai_tpu_torch/csrc/gather.cu",
               f"{gp}:413, :361 and :314 (blocked_gather, {gp}:660)",
-              "gather", crec[0]),
+              "hk_gather_cols_f32", crec[0]),
         entry("narrow_phase[float32]", cu,
               "hakai_tpu/ops/contact.py:252 (XLA block loop; no TPU kernel)",
-              "narrow", crec[1]),
+              "hk_narrow_f32", crec[1]),
         entry("scatter_forces[float32->float64]", cu,
               f"{gp}:413 and :361 (scatter-as-gather, "
-              "hakai_tpu/ops/contact.py:375)", "scatter", crec[2]),
+              "hakai_tpu/ops/contact.py:375)", "hk_scatter_f32_f64", crec[2]),
         entry("central_difference[float32]",
               "hakai_tpu_torch/csrc/integrate.cu",
               "hakai_tpu/solver/explicit.py:78 (_integrate, with apply_bc "
               ":59 and amplitude_values :34; an XLA fusion, no TPU kernel)",
-              "integrate[float32]", step_recs["[main] float32"]),
+              "hk_integrate_f32", step_recs["[main] float32"]),
         entry("central_difference[mixed]",
               "hakai_tpu_torch/csrc/integrate.cu",
               "hakai_tpu/solver/explicit.py:78 (_integrate, with apply_bc "
               ":59 and amplitude_values :34; an XLA fusion, no TPU kernel)",
-              "integrate[mixed]", step_recs["[run] mixed"]),
+              "hk_integrate_mixed", step_recs["[run] mixed"]),
         entry("erosion_walk[float32]", "hakai_tpu_torch/csrc/erosion.cu",
               "hakai_tpu/ops/erosion.py:29 (erosion_delete_mask; erode :61)"
               f" and {src}:607 (_fracture_epilogue's mask; an XLA fusion, "
-              "no TPU kernel)", "erosion[float32]", step_recs["E"]),
+              "no TPU kernel)", "hk_erosion_f32", step_recs["E"]),
         entry("broad[float32]", "hakai_tpu_torch/csrc/broad.cu",
               "hakai_tpu/ops/contact.py:45 (pair_activity) and :106 "
               "(_pair_force's broad phase, :160-236; an XLA fusion, no TPU "
-              "kernel)", "broad[float32]", step_recs["A"]),
+              "kernel)", "hk_broad_f32", step_recs["A"]),
         dict(entry("stream_add1[float32]", "hakai_tpu_torch/csrc/stream.cu",
                    "benchmarks/dma_microbench.py:35 (copy_kernel; "
-                   "pallas_call :42)", "stream", dma_rec),
+                   "pallas_call :42)", "hk_stream_add1_f32", dma_rec),
              launches=dma_launches),
     ] + [dict(entry(f"interleave[{mode}]", "hakai_tpu_torch/csrc/interleave.cu",
                     "benchmarks/interleave_microbench.py:33 (kernel; "
-                    "pallas_call :62)", "interleave", r),
+                    "pallas_call :62)", "hk_interleave_f32", r),
               launches=r["launches"]) for mode, r in il_recs.items()]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

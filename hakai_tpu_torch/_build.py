@@ -6,6 +6,10 @@ and the objects link into one shared library with a plain C interface,
 loaded with :mod:`ctypes`.  No PyTorch header is compiled, so a build takes
 seconds rather than minutes.
 
+Every kernel is launched through :func:`launch`, which passes its
+arguments to the C entry, checks its error and counts it in
+:data:`LAUNCHES`.
+
 The library is built at first use into ``build/kernels/`` beside the
 package (a directory the repository's ``.gitignore`` lists), under a file
 name keyed by a hash of the sources, the flags and the compiler's version:
@@ -22,6 +26,7 @@ module of the port.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -31,6 +36,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -128,6 +135,10 @@ _lib: ctypes.CDLL | None = None
 BUILD_INFO: dict = {}
 _host_lib: ctypes.CDLL | None = None
 HOST_INFO: dict = {}
+# kernel launches of this process by C entry: one a call, whatever kernels
+# the entry queues (the narrow phase's five, the broad phase's three); a
+# graph replay adds what its capture launched (solver/graph.py)
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def nvcc_path() -> str:
@@ -235,6 +246,21 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.hk_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def launch(entry: str, device, *args) -> None:
+    """Launch the C entry ``entry`` on ``device``'s current stream, the
+    stream passed last: a tensor argument passes as its data pointer,
+    None as NULL, a number as the entry's signature types it.  Raises on a
+    non-zero cudaError_t; counts a launch that succeeds in
+    :data:`LAUNCHES`."""
+    lib = library()
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, err, entry)
+    LAUNCHES[entry] += 1
 
 
 def resources(entry: str, *args) -> dict:

@@ -44,8 +44,8 @@
 // halo windows') incidence, is a template argument, which keeps every
 // slot's loads in flight at once in 56 registers; other V take their
 // slots in chunks of 8 in the same two waves.  Two or four columns a
-// thread, wider index loads and other block sizes measured no faster
-// (scripts/kernel_variants.cu).
+// thread, wider index loads and other block sizes measured no faster on
+// an H100 (PERF.md, Findings).
 //
 // The sum runs in the type T of the source and is stored in the type O of
 // the output.  In mixed precision (float32 qe, float64 nodal state) O is

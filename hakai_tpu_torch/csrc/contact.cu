@@ -137,8 +137,8 @@
 // on few lines, and every load of a thread's entries is in flight at
 // once; the row sums then read shared memory.  A thread a node with its
 // row's loads in waves, a slot-major copy of the table, nodes dealt by row
-// length and 4 to 16 lanes a node each did no better
-// (scripts/scatter_variants.py).
+// length and 4 to 16 lanes a node each did no better on an H100
+// (PERF.md, Findings).
 
 #include <climits>
 #include <cuda_runtime.h>

@@ -24,7 +24,7 @@
 // card is a read of the window held on chip: 126 MB of shared-memory
 // reads at 512 x 60, ~4 us at 128 B a clock an SM, and only when a read
 // instruction moves 16 bytes a thread (a warp's 4-byte reads issue at
-// about half that rate, scripts/interleave_variants.py); and the window's
+// about half that rate, measured on an H100); and the window's
 // way into every SM, 128 SMs x 240 KB through L2 for copy.
 //
 // Design.  A TPU vreg is not a block: on the card a build is a read of a
@@ -45,8 +45,8 @@
 // completing on an mbarrier that every thread arrives on as its own
 // copies land (cp.async.mbarrier.arrive), so the builds of a group start
 // while later groups are in flight.  (TMA bulk copies issued by one
-// thread, with or without a cluster's multicast, staged slower:
-// scripts/interleave_variants.py.)  The slabs a mode reads:
+// thread, with or without a cluster's multicast, staged slower on an
+// H100.)  The slabs a mode reads:
 //   copy, gatherrow - 0 .. min(builds, W) - 1: the first kMaxSlabs (56) in
 //                     shared memory; each thread holds its share of the
 //                     next kRegSlabs (slabs 56-59 at the probe's 60 builds)

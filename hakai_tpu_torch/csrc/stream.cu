@@ -23,7 +23,7 @@
 // of one line (512 contiguous bytes), one unit a warp and one 16-byte load
 // and store a thread, evict-first (__ldcs/__stcs: a stream reuses
 // nothing), so short blocks of 4 warps stream through the SMs as
-// torch.add's do.  Timed on an H100 (scripts/stream_variants.cu), a
+// torch.add's do.  Timed on an H100 (PERF.md, Findings), a
 // persistent grid that kept 8 loads in flight a thread ran 5-6% slower
 // than this, more loads a thread were slower in every grid, and a TMA ring
 // (the Hopper form of the TPU's HBM -> VMEM -> HBM DMA pipeline: bulk

@@ -56,21 +56,10 @@ def assemble_internal_force(model: LoweredModel, qe24, out_dtype=None):
         "qe": (qe24, (24, E), qe24.dtype),
         "inc_idx": (model.inc_idx, (V, N), torch.int32),
         "inc_mask": (model.inc_mask, (V, N), torch.bool)})
-    lib = _build.library()
     Q = torch.empty((3, N), dtype=out_dtype, device=qe24.device)
-    with torch.cuda.device(qe24.device):
-        err = getattr(lib, entry)(
-            qe24.data_ptr(), model.inc_idx.data_ptr(),
-            model.inc_mask.data_ptr(), V, N, E, Q.data_ptr(),
-            torch.cuda.current_stream(qe24.device).cuda_stream)
-    _build.check(lib, err, "assembly kernel")
-    assemble_internal_force.launches += 1
-    assemble_internal_force.launches_by[entry] += 1
+    _build.launch(entry, qe24.device, qe24, model.inc_idx, model.inc_mask,
+                  V, N, E, Q)
     return Q
-
-
-assemble_internal_force.launches = 0
-assemble_internal_force.launches_by = {v: 0 for v in _ENTRIES.values()}
 
 
 def plan_assemble(idx_grouped, mask_grouped, source_len: int, vl: int,
@@ -139,18 +128,7 @@ def blocked_assemble(src, plan: AssemblePlan, out_dtype=None):
         "src": (src, (3, S), src.dtype),
         "idx": (plan.idx, (r_pad,), torch.int32),
         "mask": (plan.mask, (r_pad,), torch.bool)})
-    lib = _build.library()
     out = torch.empty((3, n_out), dtype=out_dtype, device=src.device)
-    with torch.cuda.device(src.device):
-        err = getattr(lib, entry)(
-            src.data_ptr(), S, plan.idx.data_ptr(), plan.mask.data_ptr(),
-            plan.vl, plan.r_tile, n_out, out.data_ptr(),
-            torch.cuda.current_stream(src.device).cuda_stream)
-    _build.check(lib, err, "grouped assembly kernel")
-    blocked_assemble.launches += 1
-    blocked_assemble.launches_by[entry] += 1
+    _build.launch(entry, src.device, src, S, plan.idx, plan.mask, plan.vl,
+                  plan.r_tile, n_out, out)
     return out
-
-
-blocked_assemble.launches = 0
-blocked_assemble.launches_by = {v: 0 for v in _GROUPED.values()}

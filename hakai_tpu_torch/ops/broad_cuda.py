@@ -19,8 +19,7 @@ from .. import _build
 from ..core.lowering import ContactPair
 from .contact_cuda import BroadPhase, PairConstants, kin_views
 
-_ENTRIES = {torch.float32: ("hk_broad_f32", "float32"),
-            torch.float64: ("hk_broad_f64", "float64")}
+_ENTRIES = {torch.float32: "hk_broad_f32", torch.float64: "hk_broad_f64"}
 _ITEMS = 1024                  # kItems in csrc/broad.cu
 # (Ci, Cj, tri_chunks, n_chunks, dtype, device) -> (boxes, int32 words):
 # the kernel's workspace, allocated once per shapes outside any capture
@@ -160,8 +159,6 @@ def broad(pair: ContactPair, kin, ksl, flag, consts: PairConstants,
         if changed is not None:
             spec["changed"] = (changed, (), torch.int32)
     _build.check_inputs(dev, spec)
-    lib = _build.library()
-    entry, variant = _ENTRIES[dt]
     boxes, iws, nbox = _workspace(pair, Ci, Cj, dt, dev)
     tri_in = torch.empty(F2, dtype=torch.bool, device=dev)
     node_in = torch.empty(Ci, dtype=torch.bool, device=dev)
@@ -169,28 +166,16 @@ def broad(pair: ContactPair, kin, ksl, flag, consts: PairConstants,
     pair_ok = torch.empty((tc, nc), dtype=torch.bool, device=dev)
     overlap = torch.empty((), dtype=torch.bool, device=dev)
 
-    def ptr(x):
-        return x.data_ptr() if dyn and x is not None else None
-    with torch.cuda.device(dev):
-        err = getattr(lib, entry)(
-            kin.data_ptr(), R, a0, a1, a2, cs, js, F2, Ci, Cj, ptr(flag),
-            ptr(pair.tri_init), ptr(pair.tri_twin), ptr(pair.tri_elem),
-            ptr(pair.cand_init), ptr(pair.cand_twin),
-            pair.cand_twin.shape[1], ptr(pair.jnode_init),
-            ptr(pair.jnode_twin), pair.jnode_twin.shape[1],
-            *(ptr(m) for m in (masks or (None,) * 3)), ptr(changed),
-            pair.tb, pair.nb, tc, nc, 2.0 * consts.ddiv, tri_in.data_ptr(),
-            node_in.data_ptr(), all_min.data_ptr(), pair_ok.data_ptr(),
-            overlap.data_ptr(), boxes.data_ptr(),
-            boxes[6 * nbox:].data_ptr(), iws.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "broad-phase kernel")
-    broad.launches += 1
-    broad.launches_by[variant] += 1
+    def on(x):
+        # the activity arguments: NULL on a pair whose activity does not
+        # depend on flag
+        return x if dyn else None
+    _build.launch(
+        _ENTRIES[dt], dev, kin, R, a0, a1, a2, cs, js, F2, Ci, Cj, on(flag),
+        on(pair.tri_init), on(pair.tri_twin), on(pair.tri_elem),
+        on(pair.cand_init), on(pair.cand_twin), pair.cand_twin.shape[1],
+        on(pair.jnode_init), on(pair.jnode_twin), pair.jnode_twin.shape[1],
+        *(on(m) for m in masks or (None,) * 3), on(changed), pair.tb,
+        pair.nb, tc, nc, 2.0 * consts.ddiv, tri_in, node_in, all_min,
+        pair_ok, overlap, boxes, boxes[6 * nbox:], iws)
     return BroadPhase(tri_in, node_in, all_min, pair_ok, overlap)
-
-
-# one launch = one pair's broad_activity, broad_range and broad_pairs
-broad.launches = 0
-# launches by instantiation: "float32", "float64"
-broad.launches_by = {v: 0 for _, v in _ENTRIES.values()}

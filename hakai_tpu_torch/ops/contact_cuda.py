@@ -490,38 +490,24 @@ def narrow_phase(pair: ContactPair, kin, ksl, bp: BroadPhase,
     _build.check_inputs(kin.device, spec)
     if max(off_i + pair.Cp, off_t + pair.Tp) > W:
         raise ValueError("pair force columns exceed the force buffer")
-    lib = _build.library()
     iws, fws, B = narrow_workspace(F2, Ci, dt, kin.device)
     cols = pair.Cp + pair.Tp
     cnt = torch.empty(3 * cols, dtype=torch.int32,
                       device=kin.device) if count else None
     (t0, _), (t1, _), (t2, _), (cs, _), _ = ksl
-    with torch.cuda.device(kin.device):
-        err = getattr(lib, entry)(
-            kin.data_ptr(), R, t0, t1, t2, cs, F2, Ci, pair.tb, pair.nb,
-            pair.tri_chunks, pair.n_chunks, bp.tri_in.data_ptr(),
-            bp.node_in.data_ptr(), oks[0].data_ptr(), oks[1].data_ptr(),
-            *(None if x is None else x.data_ptr() for x in lists),
-            bp.overlap.data_ptr(), bp.all_min.data_ptr(),
-            pair.cand_mass.data_ptr(), pair.cand_nodes.data_ptr(),
-            pair.tri_enodes.data_ptr() if pair.is_self else None,
-            consts.young, consts.kc, consts.Cr, consts.myu, consts.d_lim,
-            consts.ddiv, force.data_ptr(), W, off_i, off_t,
-            None if cnt is None else cnt.data_ptr(), iws.data_ptr(),
-            fws.data_ptr(), B,
-            torch.cuda.current_stream(kin.device).cuda_stream)
-    _build.check(lib, err, "narrow-phase kernel")
-    narrow_phase.launches += 1
+    _build.launch(
+        entry, kin.device, kin, R, t0, t1, t2, cs, F2, Ci, pair.tb, pair.nb,
+        pair.tri_chunks, pair.n_chunks, bp.tri_in, bp.node_in, *oks, *lists,
+        bp.overlap, bp.all_min, pair.cand_mass, pair.cand_nodes,
+        pair.tri_enodes if pair.is_self else None, consts.young, consts.kc,
+        consts.Cr, consts.myu, consts.d_lim, consts.ddiv, force, W, off_i,
+        off_t, cnt, iws, fws, B)
     if not count:
         return None
     return NarrowCounts(cnt[:pair.Cp], cnt[pair.Cp:cols],
                         cnt[cols:2 * cols], cnt[2 * cols:],
                         iws[_header(B) + _RULE].clone() != 0)
 
-
-# one launch = one pair's narrow_bin, narrow_hash, narrow_scan,
-# narrow_sort and narrow_probe
-narrow_phase.launches = 0
 
 
 def scatter_forces_plain(model: LoweredModel, force, out_dtype=None):
@@ -562,17 +548,8 @@ def scatter_forces(model: LoweredModel, force, out_dtype=None):
         "fs_mid": (model.fs_mid, (N,), torch.int32),
         "fs_sorted": (model.fs_sorted, tuple(model.fs_col.shape),
                       torch.int32)})
-    lib = _build.library()
     out = torch.empty((3, N), dtype=out_dtype, device=force.device)
-    with torch.cuda.device(force.device):
-        err = getattr(lib, entry)(
-            force.data_ptr(), W, model.fs_ptr.data_ptr(),
-            model.fs_mid.data_ptr(), model.fs_sorted.data_ptr(), model.fs_nb,
-            model.fs_bits, model.fs_emax, N, out.data_ptr(),
-            torch.cuda.current_stream(force.device).cuda_stream)
-    _build.check(lib, err, "scatter kernel")
-    scatter_forces.launches += 1
+    _build.launch(entry, force.device, force, W, model.fs_ptr, model.fs_mid,
+                  model.fs_sorted, model.fs_nb, model.fs_bits, model.fs_emax,
+                  N, out)
     return out
-
-
-scatter_forces.launches = 0

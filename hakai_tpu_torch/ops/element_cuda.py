@@ -32,26 +32,29 @@ from .element import (ElementResult, element_core_packed_plain,
 from .erosion_cuda import erosion_walk
 from .shape import pusai_hexa
 
-# (nodal dtype, element dtype) -> (C entry, variant name)
-_ENTRIES = {(torch.float32, torch.float32): ("hk_element_f32", "float32"),
-            (torch.float64, torch.float64): ("hk_element_f64", "float64"),
-            (torch.float64, torch.float32): ("hk_element_mixed", "mixed")}
+# (nodal dtype, element dtype) -> C entry
+_ENTRIES = {(torch.float32, torch.float32): "hk_element_f32",
+            (torch.float64, torch.float64): "hk_element_f64",
+            (torch.float64, torch.float32): "hk_element_mixed"}
 # element dtype -> C entry of the unpacked update (the generic step hands
 # it positions and increments in the element dtype, mixed mode included)
-_UPDATE_ENTRIES = {torch.float32: ("hk_element_update_f32", "float32"),
-                   torch.float64: ("hk_element_update_f64", "float64")}
+_UPDATE_ENTRIES = {torch.float32: "hk_element_update_f32",
+                   torch.float64: "hk_element_update_f64"}
 ELEMENT_KERNELS = ("auto", "pallas_mxu", "pallas", "xla")
 
 _pusai_ready: set = set()     # devices whose constant table is loaded
 
 
-def _ensure_pusai(lib, device: torch.device) -> None:
+def _ensure_pusai(device: torch.device) -> None:
     """Load the float64 shape-gradient table into the device's constant
     memory (the C side rounds its float copy from it)."""
     if device.index in _pusai_ready:
         return
+    lib = _build.library()
     table = np.ascontiguousarray(pusai_hexa(8), np.float64)
-    _build.check(lib, lib.hk_set_pusai(table.ctypes.data), "hk_set_pusai")
+    with torch.cuda.device(device):
+        _build.check(lib, lib.hk_set_pusai(table.ctypes.data),
+                     "hk_set_pusai")
     _pusai_ready.add(device.index)
 
 
@@ -96,39 +99,21 @@ def element_core_packed(model: LoweredModel, P, flag, disp, disp_prev,
     if P.device.type != "cuda":
         raise ValueError(f"no element kernel for device {P.device}")
     _check(model, P, flag, disp, disp_prev)
-    lib = _build.library()
     E, N = model.E, model.N
-    entry, variant = _ENTRIES[(model.dtype, model.edtype)]
     P_out = torch.empty_like(P)
     qe = torch.empty((24, E), dtype=P.dtype, device=P.device)
     triax = (torch.empty((8, E), dtype=P.dtype, device=P.device)
              if want_triax else None)
-    with torch.cuda.device(P.device):
-        _ensure_pusai(lib, P.device)
-        err = getattr(lib, entry)(
-            model.elem.data_ptr(), model.coord_e.data_ptr(),
-            disp.data_ptr(), disp_prev.data_ptr(), P.data_ptr(),
-            model.G_e.data_ptr(), model.lam_e.data_ptr(),
-            model.mat_id.data_ptr(), model.has_plastic_e.data_ptr(),
-            flag.data_ptr(), model.hard_strain.data_ptr(),
-            model.hard_slope.data_ptr(), model.hard_n.data_ptr(),
-            *model.hard_strain.shape, E, N,
-            P_out.data_ptr(), qe.data_ptr(),
-            None if triax is None else triax.data_ptr(),
-            torch.cuda.current_stream(P.device).cuda_stream)
-    _build.check(lib, err, "element kernel")
-    element_core_packed.launches += 1
-    element_core_packed.launches_by[variant + "+triax" * want_triax] += 1
+    _ensure_pusai(P.device)
+    _build.launch(
+        _ENTRIES[(model.dtype, model.edtype)], P.device, model.elem,
+        model.coord_e, disp, disp_prev, P, model.G_e, model.lam_e,
+        model.mat_id, model.has_plastic_e, flag, model.hard_strain,
+        model.hard_slope, model.hard_n, *model.hard_strain.shape, E, N,
+        P_out, qe, triax)
     if want_triax:
         return P_out, qe, triax
     return P_out, qe
-
-
-element_core_packed.launches = 0
-# launches by instantiation: "float32", "float64", "mixed", each also with
-# "+triax"
-element_core_packed.launches_by = {v + t: 0 for _, v in _ENTRIES.values()
-                                   for t in ("", "+triax")}
 
 
 def _element_kernel(model: LoweredModel):
@@ -155,11 +140,10 @@ def element_update(model: LoweredModel, position, d_disp, stress, strain,
     determinant is negative, is counted only when the config streams
     metrics (``metrics_path``), as the JAX package counts it beside its TPU
     kernel; else it is 0.  On the card the kernel counts it from the
-    ``detJ`` it forms (a zeroed int32 that it adds to; launches under
-    ``"<dtype>[+triax]+neg"``), on the CPU :func:`~hakai_tpu_torch.ops.
-    element.neg_jacobian_count` does.  The two form J in other summation
-    orders, so they can disagree only on points whose ``|detJ|`` is at
-    rounding level."""
+    ``detJ`` it forms (a zeroed int32 that it adds to), on the CPU
+    :func:`~hakai_tpu_torch.ops.element.neg_jacobian_count` does.  The two
+    form J in other summation orders, so they can disagree only on points
+    whose ``|detJ|`` is at rounding level."""
     _element_kernel(model)
     if position.device.type == "cpu":
         pos_e, du = gather_element_nodes(model, position, d_disp)
@@ -177,42 +161,21 @@ def element_update(model: LoweredModel, position, d_disp, stress, strain,
         "eq_ps": (eq_ps, (8, E), edt), "yield_s": (yield_s, (8, E), edt),
         "element_flag": (element_flag, (E,), torch.bool),
         **_model_spec(model)})
-    lib = _build.library()
-    entry, variant = _UPDATE_ENTRIES[edt]
     out = [torch.empty_like(x) for x in (stress, strain, eq_ps, yield_s)]
     qe = torch.empty((3, 8, E), dtype=edt, device=position.device)
     triax = (torch.empty((8, E), dtype=edt, device=position.device)
              if want_triax else None)
     count = model.config.metrics_path is not None
     neg = torch.zeros((), dtype=torch.int32, device=position.device)
-    with torch.cuda.device(position.device):
-        _ensure_pusai(lib, position.device)
-        err = getattr(lib, entry)(
-            model.elem.data_ptr(), position.data_ptr(), d_disp.data_ptr(),
-            stress.data_ptr(), strain.data_ptr(), eq_ps.data_ptr(),
-            yield_s.data_ptr(), model.G_e.data_ptr(), model.lam_e.data_ptr(),
-            model.mat_id.data_ptr(), model.has_plastic_e.data_ptr(),
-            element_flag.data_ptr(), model.hard_strain.data_ptr(),
-            model.hard_slope.data_ptr(), model.hard_n.data_ptr(),
-            *model.hard_strain.shape, E, N,
-            *(x.data_ptr() for x in out), qe.data_ptr(),
-            None if triax is None else triax.data_ptr(),
-            neg.data_ptr() if count else None,
-            torch.cuda.current_stream(position.device).cuda_stream)
-    _build.check(lib, err, "element kernel (unpacked)")
-    element_update.launches += 1
-    element_update.launches_by[variant + "+triax" * want_triax
-                               + "+neg" * count] += 1
+    _ensure_pusai(position.device)
+    _build.launch(
+        _UPDATE_ENTRIES[edt], position.device, model.elem, position, d_disp,
+        stress, strain, eq_ps, yield_s, model.G_e, model.lam_e, model.mat_id,
+        model.has_plastic_e, element_flag, model.hard_strain,
+        model.hard_slope, model.hard_n, *model.hard_strain.shape, E, N, *out,
+        qe, triax, neg if count else None)
     res = ElementResult(qe, *out, neg)
     return (res, triax) if want_triax else res
-
-
-element_update.launches = 0
-# launches by instantiation: "float32", "float64", each also with "+triax",
-# and each of those with "+neg" (the negative-Jacobian count)
-element_update.launches_by = {v + t + n: 0
-                              for _, v in _UPDATE_ENTRIES.values()
-                              for t in ("", "+triax") for n in ("", "+neg")}
 
 
 def packed_element_step(model: LoweredModel, P, flag, disp, disp_prev,

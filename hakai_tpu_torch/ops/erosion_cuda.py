@@ -18,8 +18,7 @@ import torch
 from .. import _build
 from .erosion import erosion_delete_mask_plain
 
-_ENTRIES = {torch.float32: ("hk_erosion_f32", "float32"),
-            torch.float64: ("hk_erosion_f64", "float64")}
+_ENTRIES = {torch.float32: "hk_erosion_f32", torch.float64: "hk_erosion_f64"}
 
 
 class Walk(NamedTuple):
@@ -69,26 +68,10 @@ def erosion_walk(model, eq_ps, triax, flag, mask_triax=False, stress=None,
     if carry is not None:
         spec["carry"] = (carry.flags, (3,), torch.int32)
     _build.check_inputs(dev, spec)
-    lib = _build.library()
-    entry, variant = _ENTRIES[edt]
     new_flag = torch.empty(E, dtype=torch.bool, device=dev)
     deleted = torch.empty(E, dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        err = getattr(lib, entry)(
-            eq_ps.data_ptr(), triax.data_ptr(), int(mask_triax),
-            flag.data_ptr(), model.mat_id.data_ptr(),
-            model.du_knots.data_ptr(), model.du_n.data_ptr(), M, K, E,
-            new_flag.data_ptr(), deleted.data_ptr(),
-            None if stress is None else stress.data_ptr(),
-            None if strain is None else strain.data_ptr(),
-            None if carry is None else carry.flags.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "erosion kernel")
-    erosion_walk.launches += 1
-    erosion_walk.launches_by[variant] += 1
+    _build.launch(_ENTRIES[edt], dev, eq_ps, triax, int(mask_triax), flag,
+                  model.mat_id, model.du_knots, model.du_n, M, K, E,
+                  new_flag, deleted, stress, strain,
+                  None if carry is None else carry.flags)
     return Walk(new_flag, deleted, triax, stress, strain)
-
-
-erosion_walk.launches = 0
-# launches by instantiation: "float32", "float64"
-erosion_walk.launches_by = {v: 0 for _, v in _ENTRIES.values()}

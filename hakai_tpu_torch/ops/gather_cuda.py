@@ -34,15 +34,6 @@ def gather_cols(src, idx):
     R = idx.shape[0]
     _build.check_inputs(src.device, {"src": (src, (C, S), src.dtype),
                                      "idx": (idx, (R,), torch.int32)})
-    lib = _build.library()
     out = torch.empty((C, R), dtype=src.dtype, device=src.device)
-    with torch.cuda.device(src.device):
-        err = getattr(lib, entry)(
-            src.data_ptr(), C, S, idx.data_ptr(), R, out.data_ptr(),
-            torch.cuda.current_stream(src.device).cuda_stream)
-    _build.check(lib, err, "gather kernel")
-    gather_cols.launches += 1
+    _build.launch(entry, src.device, src, C, S, idx, R, out)
     return out
-
-
-gather_cols.launches = 0

@@ -16,10 +16,10 @@ from .. import _build
 from ..core.lowering import LoweredModel
 from .integrate import Update, central_difference_plain
 
-# (nodal dtype, element dtype) -> (C entry, variant name)
-_ENTRIES = {(torch.float32, torch.float32): ("hk_integrate_f32", "float32"),
-            (torch.float64, torch.float64): ("hk_integrate_f64", "float64"),
-            (torch.float64, torch.float32): ("hk_integrate_mixed", "mixed")}
+# (nodal dtype, element dtype) -> C entry
+_ENTRIES = {(torch.float32, torch.float32): "hk_integrate_f32",
+            (torch.float64, torch.float64): "hk_integrate_f64",
+            (torch.float64, torch.float32): "hk_integrate_mixed"}
 _BLOCK = 256                   # kBlock in csrc/integrate.cu
 _MAX_TABLES = 4096             # amplitude values a block stages in shared
 # (blocks, device) -> (per-block partial sums, the last-block ticket): the
@@ -74,8 +74,6 @@ def central_difference(model: LoweredModel, state, external=None,
     if external is not None:
         spec["external"] = (external, (3, N), kdt)
     _build.check_inputs(dev, spec)
-    lib = _build.library()
-    entry, variant = _ENTRIES[(kdt, edt)]
     t = torch.empty_like(state.t)
     disp_new = torch.empty_like(state.disp)
     velo = torch.empty_like(state.disp)
@@ -87,28 +85,11 @@ def central_difference(model: LoweredModel, state, external=None,
     if model.config.energy_check:
         dwork = torch.empty(2, dtype=kdt, device=dev)
         partial, ticket = _workspace(-(-N // _BLOCK), dev)
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-    with torch.cuda.device(dev):
-        err = getattr(lib, entry)(
-            t_in.data_ptr(), t.data_ptr(), dt.data_ptr(),
-            model.diag_M.data_ptr(), float(model.config.damping_C),
-            state.Q.data_ptr(), state.disp.data_ptr(),
-            state.disp_pre.data_ptr(), ptr(external),
-            model.bcd_mask.data_ptr(), model.bcd_amp.data_ptr(),
-            model.bcd_value.data_ptr(), model.amp_time.data_ptr(),
-            model.amp_value.data_ptr(), model.amp_n.data_ptr(), A, L,
-            model.node_exists.data_ptr(), model.coord.data_ptr(), N,
-            disp_new.data_ptr(), velo.data_ptr(), ptr(position),
-            ptr(d_disp), ptr(partial), ptr(ticket), ptr(dwork),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "integrate kernel")
-    central_difference.launches += 1
-    central_difference.launches_by[variant] += 1
+    _build.launch(
+        _ENTRIES[(kdt, edt)], dev, t_in, t, dt, model.diag_M,
+        float(model.config.damping_C), state.Q, state.disp, state.disp_pre,
+        external, model.bcd_mask, model.bcd_amp, model.bcd_value,
+        model.amp_time, model.amp_value, model.amp_n, A, L,
+        model.node_exists, model.coord, N, disp_new, velo, position, d_disp,
+        partial, ticket, dwork)
     return Update(t, disp_new, velo, dwork, position, d_disp)
-
-
-central_difference.launches = 0
-# launches by instantiation: "float32", "float64", "mixed"
-central_difference.launches_by = {v: 0 for _, v in _ENTRIES.values()}

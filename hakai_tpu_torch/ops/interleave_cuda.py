@@ -134,18 +134,7 @@ def interleave(src, mode: str, n_tiles: int, builds: int, off=OFFSETS,
         "out": (out, (n_tiles * ROWS, LANES), torch.float32)})
     if src.data_ptr() % 16:
         raise ValueError("the interleave kernel needs a 16-byte aligned src")
-    lib = _build.library()
     offs = (ctypes.c_int * ROWS)(*off)
-    with torch.cuda.device(src.device):
-        err = lib.hk_interleave_f32(
-            src.data_ptr(), W, builds, n_tiles, MODES[mode],
-            ctypes.addressof(offs), out.data_ptr(),
-            torch.cuda.current_stream(src.device).cuda_stream)
-    _build.check(lib, err, "interleave kernel")
-    interleave.launches += 1
-    interleave.launches_by[mode] += 1
+    _build.launch("hk_interleave_f32", src.device, src, W, builds, n_tiles,
+                  MODES[mode], ctypes.addressof(offs), out)
     return out
-
-
-interleave.launches = 0
-interleave.launches_by = {k: 0 for k in MODES}

@@ -82,16 +82,6 @@ def stream_add1(x, layout: str, out=None, TE: int = 2048, rows: int = 72):
     if x.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("the streaming kernel needs 16-byte aligned x and "
                          "out")
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        err = lib.hk_stream_add1_f32(
-            x.data_ptr(), out.data_ptr(), rows, E, TE, LAYOUTS[layout],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "streaming kernel")
-    stream_add1.launches += 1
-    stream_add1.launches_by[layout] += 1
+    _build.launch("hk_stream_add1_f32", x.device, x, out, rows, E, TE,
+                  LAYOUTS[layout])
     return out
-
-
-stream_add1.launches = 0
-stream_add1.launches_by = {k: 0 for k in LAYOUTS}

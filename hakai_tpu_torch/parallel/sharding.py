@@ -36,10 +36,10 @@ import time
 import torch
 import torch.distributed as dist
 
+from .. import _build
 from ..core.lowering import LoweredModel
 from ..core.state import SimState, init_state
 from ..ops.assemble_cuda import assemble_internal_force
-from ..solver.graph import launch_counts
 from .dist import Rank, check_same, launch
 
 # element-axis (last-dim sharded) fields of LoweredModel; vol_e too, which
@@ -245,11 +245,10 @@ def chunk_rank(ctx: Rank, jobs: list) -> list | None:
     the largest contact force and host seconds after each chunk (each ends
     in a device sync), the seconds of the collectives per chunk (CUDA
     events; None on the CPU and under NCCL, where ``trace`` gives the NCCL
-    kernels' time), the kernel
-    launches of the chunks, the captured graphs (:func:`captures`), and
-    with ``trace`` the device busy microseconds, kernels and NCCL kernel
-    microseconds per step and the host ops of the most time
-    (:func:`_traced`)."""
+    kernels' time), the kernel launches of the chunks by C entry, the
+    captured graphs (:func:`captures`), and with ``trace`` the device busy
+    microseconds, kernels and NCCL kernel microseconds per step and the
+    host ops of the most time (:func:`_traced`)."""
     from ..solver.explicit import eager_chunk
     from .halo import halo_job
     out = []
@@ -287,7 +286,7 @@ def _measured(ctx: Rank, comm, ls, job: dict, run, gather, contact_max,
         run(ls, job["warm"])
     cuda = ctx.device.type == "cuda"
     timed = cuda and not comm.capturable
-    before = launch_counts()
+    before = _build.LAUNCHES.copy()
     rec = {"alive": [], "contact_max": [], "seconds": [], "collective_s": []}
     for n in job["chunks"]:
         comm.events = []
@@ -306,8 +305,7 @@ def _measured(ctx: Rank, comm, ls, job: dict, run, gather, contact_max,
         rec["contact_max"].append(contact_max(ls, g))
         if after is not None:
             ls = after(ls, g)
-    rec["launches"] = {f.__name__: n - before[f][0]
-                       for f, (n, _) in launch_counts().items()}
+    rec["launches"] = _build.LAUNCHES - before
     rec["state"] = g.to("cpu")
     rec["captures"] = captures(model)
     if job.get("trace"):

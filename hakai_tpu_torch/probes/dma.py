@@ -26,10 +26,10 @@ import time
 import torch
 
 from ..ops.stream_cuda import LAYOUTS, layout_shape, stream_add1
+from . import HBM_BPS
 
 ROWS = 72
 REPEATS = 3                  # timed runs of each chain; the fastest counts
-HBM_BPS = 3.35e12            # H100 SXM nominal device-memory rate
 
 
 def _sync(device):

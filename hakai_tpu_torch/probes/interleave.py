@@ -31,10 +31,9 @@ import torch
 
 from ..ops.interleave_cuda import (LANES, ROWS, interleave, interleave_plain,
                                    window_place, window_slabs)
+from . import HBM_BPS, PEAK_FLOPS
 
 W = 64                       # window slabs, the TPU probe's W
-HBM_BPS = 3.35e12            # H100 SXM nominal device-memory rate
-F32_FLOPS = 67e12            # H100 SXM float32 peak outside tensor cores
 SEED = 20261017
 
 
@@ -85,7 +84,7 @@ def bound_s(mode: str, tiles: int, builds: int) -> tuple[float, str]:
     else:
         read = 4 * ROWS * LANES * window_slabs(mode, W, builds)
     t_b = (read + 4 * tiles * ROWS * LANES) / HBM_BPS
-    t_f = tiles * builds * ROWS * LANES / F32_FLOPS
+    t_f = tiles * builds * ROWS * LANES / PEAK_FLOPS["float32"]
     return max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
 

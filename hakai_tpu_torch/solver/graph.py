@@ -27,9 +27,9 @@ the captured order, so a chunk's state equals the eager loop's
 (``solver/explicit.eager_chunk``) bit for bit.  Each graph ends by
 writing its last step's state into the static buffers, so consecutive
 replays need no copy between them.  Launch counts
-(:func:`launch_counts`): the kernel wrappers run only while a graph is
-captured; a replay adds each wrapper's captured launches to its count,
-so the counts say what ran on the card.
+(``_build.LAUNCHES``, by C entry): the kernel wrappers run only while a
+graph is captured; a replay adds the launches its capture made, so the
+counts say what ran on the card.
 
 A rank whose collectives can be captured (NCCL, ``Rank.capturable``)
 replays graphs of its own steps, collectives included, as the JAX
@@ -44,32 +44,21 @@ note naming the rank, the step and the loop.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import NamedTuple
 
 import torch
 
+from .. import _build
 from ..core.lowering import LoweredModel
 from ..core.state import SimState
-from ..ops.assemble_cuda import assemble_internal_force, blocked_assemble
-from ..ops.broad_cuda import broad
-from ..ops.contact_cuda import narrow_phase, scatter_forces
-from ..ops.element_cuda import element_core_packed, element_update
-from ..ops.erosion_cuda import erosion_walk
-from ..ops.gather_cuda import gather_cols
-from ..ops.integrate_cuda import central_difference
 from ..utils.profiling import span
 
 # steps a replay advances (K): chosen on the H100 from the step times of
 # K = 1, 8 and 32 on [main] and [contact] (PERF.md, section 5)
 GRAPH_STEPS = 32
-
-# the kernel wrappers a step can launch, each with a ``launches`` count
-# and, some, counts by instantiation (``launches_by``)
-_COUNTED = (element_core_packed, element_update, assemble_internal_force,
-            blocked_assemble, gather_cols, narrow_phase, scatter_forces,
-            central_difference, erosion_walk, broad)
 
 # graphs captured in this process, the host seconds of their warm-up,
 # capture and instantiation, and graph replays (read through totals())
@@ -84,38 +73,11 @@ def split(n_steps: int, k: int = GRAPH_STEPS) -> tuple[int, int]:
     return divmod(n_steps, k)
 
 
-def launch_counts() -> dict:
-    """The kernel wrappers' launches in this process: per wrapper
-    function, (launches, launches by instantiation)."""
-    return {fn: (fn.launches, dict(getattr(fn, "launches_by", {})))
-            for fn in _COUNTED}
-
-
 def totals() -> dict:
     """This process's graph captures (``captures``, ``capture_s``: host
     seconds of warm-up, capture and instantiation) and graph replays
     (``replays``) so far."""
     return dict(_TOTALS)
-
-
-def _set_counts(counts: dict) -> None:
-    for fn, (n, by) in counts.items():
-        fn.launches = n
-        if by:
-            fn.launches_by.update(by)
-
-
-def _add_counts(delta: dict, times: int) -> None:
-    for fn, (n, by) in delta.items():
-        fn.launches += times * n
-        for k, v in by.items():
-            fn.launches_by[k] += times * v
-
-
-def _count_delta(before: dict, after: dict) -> dict:
-    return {fn: (after[fn][0] - n, {k: after[fn][1][k] - v
-                                    for k, v in by.items()})
-            for fn, (n, by) in before.items()}
 
 
 def leaves(carry) -> list:
@@ -150,11 +112,11 @@ def write_back(static: list, out: list) -> None:
 
 class Captured(NamedTuple):
     """One captured length: its graph (anything with ``replay()``), the
-    kernel launches of one replay by wrapper, and what the capture took:
+    kernel launches of one replay by C entry, and what the capture took:
     host seconds to capture and to instantiate, and the bytes the graph
     pool grew by."""
     graph: object
-    launches: dict
+    launches: collections.Counter
     capture_s: float
     instantiate_s: float
     pool_bytes: int
@@ -236,7 +198,8 @@ class ChunkGraphs:
                                f"step graph of {self.what})")
                     raise
         _TOTALS["replays"] += times
-        _add_counts(g.launches, times)
+        for entry, n in g.launches.items():
+            _build.LAUNCHES[entry] += times * n
 
     def _steps(self, model: LoweredModel, length: int, what: str):
         carry = self.static
@@ -272,9 +235,9 @@ class ChunkGraphs:
 
     def _capture(self, model: LoweredModel, length: int) -> Captured:
         """Capture ``length`` steps from the static buffers back into them.
-        The wrappers' counts are restored afterwards: neither the warm-up
-        nor the capture launches a kernel of the chunk."""
-        before = launch_counts()
+        The launch counts are restored afterwards: neither the warm-up nor
+        the capture launches a kernel of the chunk."""
+        before = _build.LAUNCHES.copy()
         try:
             with torch.cuda.device(model.device):
                 if not self.warm:
@@ -286,7 +249,7 @@ class ChunkGraphs:
                 if self.pool is None:
                     self.pool = torch.cuda.graph_pool_handle()
                 graph = torch.cuda.CUDAGraph(keep_graph=True)
-                mark = launch_counts()
+                mark = _build.LAUNCHES.copy()
                 t0 = time.perf_counter()
                 with torch.cuda.graph(graph, pool=self.pool):
                     out = self._steps(model, length, f"the {length}-step "
@@ -294,14 +257,15 @@ class ChunkGraphs:
                     write_back(leaves(self.static), leaves(out))
                     del out
                 t1 = time.perf_counter()
-                launches = _count_delta(mark, launch_counts())
+                launches = _build.LAUNCHES - mark
                 with span("hakai.graph.instantiate"):
                     graph.instantiate()
                     torch.cuda.synchronize()
                 t2 = time.perf_counter()
                 pool = torch.cuda.memory_reserved() - reserved
         finally:
-            _set_counts(before)
+            _build.LAUNCHES.clear()
+            _build.LAUNCHES.update(before)
         return Captured(graph, launches, t1 - t0, t2 - t1, pool)
 
 

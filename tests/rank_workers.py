@@ -10,15 +10,14 @@ gloo ranks (``hakai_tpu_torch.parallel.dist.launch``) start quickly.
   with each capture stood in for by an eager replay (:class:`EagerReplay`),
   as a CPU has no CUDA graphs.
 """
+import collections
 import contextlib
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from hakai_tpu_torch.ops.assemble_cuda import assemble_internal_force
-from hakai_tpu_torch.ops.element_cuda import (element_core_packed,
-                                              element_update)
+from hakai_tpu_torch.ops import assemble_cuda, element_cuda
 from hakai_tpu_torch.parallel import halo as thalo
 from hakai_tpu_torch.parallel.sharding import chunk_rank
 from hakai_tpu_torch.solver import explicit, graph
@@ -40,16 +39,21 @@ class EagerReplay:
         write_back(leaves(self.graphs.static), leaves(out))
 
 
+def loop_entries(model, generic: bool) -> tuple:
+    """The C entries of ``model``'s element kernel on its loop (the
+    unpacked entry on the generic step) and of its assembly."""
+    el = (element_cuda._UPDATE_ENTRIES[model.edtype] if generic else
+          element_cuda._ENTRIES[(model.dtype, model.edtype)])
+    return el, assemble_cuda._ENTRIES[(model.edtype, model.dtype)]
+
+
 def stand_in_capture(self, model, length):
     """``ChunkGraphs._capture`` on the CPU: an :class:`EagerReplay` whose
     replay counts ``length`` launches of the loop's element kernel and of
     the assembly (the plain versions on the CPU count none)."""
-    el = element_update if self.loop.endswith("generic") \
-        else element_core_packed
-    launches = {fn: (0, {k: 0 for k in getattr(fn, "launches_by", {})})
-                for fn in graph._COUNTED}
-    launches[el] = (length, {})
-    launches[assemble_internal_force] = (length, {})
+    launches = collections.Counter(
+        dict.fromkeys(loop_entries(model, self.loop.endswith("generic")),
+                      length))
     return Captured(EagerReplay(self, model, length), launches, 0.0, 0.0, 0)
 
 

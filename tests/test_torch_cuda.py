@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from hakai_tpu_torch import SolverConfig, init_state, lower, run_chunk
+from hakai_tpu_torch import SolverConfig, _build, init_state, lower, run_chunk
 from hakai_tpu_torch.ops.assemble_cuda import (assemble_internal_force,
                                                blocked_assemble,
                                                blocked_assemble_plain,
@@ -25,6 +25,7 @@ from hakai_tpu_torch.ops.element import (assemble_internal_force_plain,
 from hakai_tpu_torch.ops.element_cuda import (element_core_packed,
                                               element_update)
 from hakai_tpu_torch.pre.synthetic import bar_model
+from rank_workers import loop_entries
 
 pytestmark = pytest.mark.cuda
 
@@ -33,6 +34,13 @@ TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # the triaxiality mean/vm: a quotient with cancelling deviatoric
 # differences, 10x the element bound
 TRIAX_TOL = {torch.float32: 1e-4, torch.float64: 1e-11}
+
+
+def _launched(fn, *args, **kw):
+    """(``fn(*args, **kw)``, the kernel launches it made by C entry)."""
+    before = _build.LAUNCHES.copy()
+    out = fn(*args, **kw)
+    return out, _build.LAUNCHES - before
 
 
 def port_fast_model(deck, cfg, device="cpu"):
@@ -92,10 +100,9 @@ def test_element_kernel_matches_plain(cuda, dtype):
     m = lower(bar_model(8, 8, 32), SolverConfig(dtype=dtype, elem_pad=4096),
               device=cuda)
     args = _inputs(m, 1)
-    before = element_core_packed.launches
-    Pk, qk = element_core_packed(m, *args)
+    (Pk, qk), n = _launched(element_core_packed, m, *args)
     Pp, qp = element_core_packed_plain(m, *args)
-    assert element_core_packed.launches == before + 1
+    assert n == {loop_entries(m, False)[0]: 1}
     assert _rel(Pk, Pp) <= TOL[m.dtype] and _rel(qk, qp) <= TOL[m.dtype]
     assert not Pk[54:56].any() and not qk[:, ~args[1]].any()
 
@@ -141,10 +148,11 @@ def test_grouped_assembly_matches_kernel_b(cuda, dtype):
     plain = blocked_assemble_plain(src, plan).to(m.dtype)[:, :N]
     assert _rel(got, plain) <= TOL[m.edtype]
     grouped = dataclasses.replace(m, plan_asm=plan)
-    before = (blocked_assemble.launches, assemble_internal_force.launches)
-    assert torch.equal(assemble_internal_force(grouped, qe, m.dtype), got)
-    assert (blocked_assemble.launches, assemble_internal_force.launches) \
-        == (before[0] + 1, before[1])
+    Q, n = _launched(assemble_internal_force, grouped, qe, m.dtype)
+    assert torch.equal(Q, got)
+    assert n == {{"float32": "hk_blocked_assemble_f32",
+                  "float64": "hk_blocked_assemble_f64",
+                  "mixed": "hk_blocked_assemble_f32_f64"}[dtype]: 1}
 
 
 # the element arrays of a lowered model (last axis E)
@@ -322,19 +330,19 @@ def test_element_update_kernel_matches_plain(cuda, dtype, want_triax):
     """The unpacked entry (TPU kernel #3, the generic step's) against its
     plain version on the 8x8x32 bar with 2,048 padding lanes: every output
     within the element bounds, dead and padding lanes without force, the
-    launch counted by entry."""
+    launch counted by its C entry, no negative-Jacobian count without a
+    metrics stream."""
     m = lower(bar_model(8, 8, 32), SolverConfig(dtype=dtype, elem_pad=4096,
                                                 gather_mode="xla"),
               device=cuda)
     assert m.coord_e is None and m.E == 4096
     u = _update_inputs(m, 4)
-    before = dict(element_update.launches_by)
-    out = element_update(m, *u, want_triax=want_triax)
+    out, n = _launched(element_update, m, *u, want_triax=want_triax)
     pos_e, du = gather_element_nodes(m, u[0], u[1])
     ref = element_core_plain(m, pos_e, du, *u[2:])
     res = out[0] if want_triax else out
-    key = str(m.edtype).split(".")[1] + "+triax" * want_triax
-    assert element_update.launches_by[key] == before[key] + 1
+    assert n == {loop_entries(m, True)[0]: 1}
+    assert int(res.neg_jacobian) == 0
     for name in ("Qe", "stress", "strain", "eq_ps", "yield_s"):
         a, b = getattr(res, name), getattr(ref, name)
         assert a.dtype == b.dtype == m.edtype and a.shape == b.shape, name
@@ -374,7 +382,7 @@ def _plain_count(m, u):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_fused_count_matches_plain(cuda, dtype, invert, tmp_path):
     """With a metrics stream the unpacked entry counts the negative
-    Jacobians itself (launched as ``<dtype>+triax+neg``): equal to the
+    Jacobians itself (one launch of its C entry): equal to the
     plain count on the bench bar, clean and with inverted corners, eager
     and through replays of a captured graph, which zero the count each
     time (the inverted state replayed twice counts the same)."""
@@ -382,10 +390,8 @@ def test_fused_count_matches_plain(cuda, dtype, invert, tmp_path):
     u = _count_inputs(m, 5, invert)
     want = _plain_count(m, u)
     assert (want > 0) == invert
-    key = f"{dtype}+triax+neg"
-    before = element_update.launches_by[key]
-    res, _ = element_update(m, *u, want_triax=True)
-    assert element_update.launches_by[key] == before + 1
+    (res, tri), n = _launched(element_update, m, *u, want_triax=True)
+    assert n == {loop_entries(m, True)[0]: 1} and tri.shape == (8, m.E)
     assert res.neg_jacobian.dtype == torch.int32
     assert int(res.neg_jacobian) == want
     other = _count_inputs(m, 6, not invert)
@@ -404,16 +410,13 @@ def test_fused_count_matches_plain(cuda, dtype, invert, tmp_path):
 
 
 def test_no_count_without_a_stream(cuda, tmp_path):
-    """Without a metrics stream the unpacked entry is launched without a
-    count (its ``+triax`` variant, not ``+triax+neg``) and the count reads
-    0 with inverted corners; the outputs equal the counting launch's."""
+    """Without a metrics stream the unpacked entry is launched (once, the
+    entry a stream's launch takes) without a count: the count reads 0
+    with inverted corners; the outputs equal the counting launch's."""
     m = _bench_bar_counting(cuda, "float32", tmp_path, stream=False)
     u = _count_inputs(m, 5, True)
-    before = dict(element_update.launches_by)
-    res, tri = element_update(m, *u, want_triax=True)
-    after = element_update.launches_by
-    assert after["float32+triax"] == before["float32+triax"] + 1
-    assert after["float32+triax+neg"] == before["float32+triax+neg"]
+    (res, tri), n = _launched(element_update, m, *u, want_triax=True)
+    assert n == {"hk_element_update_f32": 1}
     assert int(res.neg_jacobian) == 0 and _plain_count(m, u) > 0
     mc = _bench_bar_counting(cuda, "float32", tmp_path)
     rc, tc = element_update(mc, *u, want_triax=True)
@@ -463,12 +466,10 @@ def test_element_kernel_triax_matches_plain(cuda, dtype):
     m = lower(bar_model(8, 8, 32, ductile=True),
               SolverConfig(dtype=dtype, elem_pad=4096), device=cuda)
     args = _inputs(m, 3)
-    before = dict(element_core_packed.launches_by)
-    Pk, qk, tk = element_core_packed(m, *args, want_triax=True)
+    (Pk, qk, tk), n = _launched(element_core_packed, m, *args,
+                                want_triax=True)
     Pp, qp, tp = element_core_packed_plain(m, *args, want_triax=True)
-    variant = "mixed" if dtype == "mixed" else dtype
-    assert (element_core_packed.launches_by[variant + "+triax"]
-            == before[variant + "+triax"] + 1)
+    assert n == {loop_entries(m, False)[0]: 1}
     assert Pk.dtype == qk.dtype == tk.dtype == m.edtype
     assert tk.shape == (8, m.E)
     assert _rel(Pk, Pp) <= TOL[m.edtype] and _rel(qk, qp) <= TOL[m.edtype]
@@ -535,11 +536,11 @@ def test_contact_kernels_match_plain(cuda, n, steps, dtype):
         ksl, c = m.ckin_slices[i], pair_constants(m, p)
         bp = broad_phase(p, kin, ksl, acts[i], c)
         off_i, off_t = m.fs_offsets[i]
-        before = narrow_phase.launches
-        counts = narrow_phase(p, kin, ksl, bp, c, force, (off_i, off_t),
-                              count=True)
+        counts, n_launched = _launched(narrow_phase, p, kin, ksl, bp, c,
+                                       force, (off_i, off_t), count=True)
         per_node, per_tri = counts.node, counts.tri
-        assert narrow_phase.launches == before + 1
+        assert n_launched == {"hk_narrow_f32" if edt == torch.float32
+                              else "hk_narrow_f64": 1}
         fi, ft, info = narrow_phase_plain(p, kin, ksl, bp, c, record=True)
         visits, near, rule = probe_counts_plain(p, kin, ksl, bp, c)
         assert torch.equal(counts.visits, visits)
@@ -738,11 +739,10 @@ def test_stream_kernel_matches_plain(cuda, layout):
     shape = layout_shape(layout, 8192, 2048)
     x = torch.as_tensor(np.random.default_rng(11).normal(
         scale=1e3, size=shape), dtype=torch.float32, device=cuda)
-    before = stream_add1.launches
-    got = stream_add1(x, layout, TE=2048)
+    got, n = _launched(stream_add1, x, layout, TE=2048)
     torch.cuda.synchronize()
     assert torch.equal(got, stream_add1_plain(x))
-    assert stream_add1.launches == before + 1
+    assert n == {"hk_stream_add1_f32": 1}
 
 
 @pytest.mark.parametrize("E,TE", [(5003, 2048), (4096, 1000), (6, 4),
@@ -794,13 +794,13 @@ def test_interleave_kernel_matches_plain(cuda, mode, tiles, builds):
     src = torch.as_tensor(np.random.default_rng(12).normal(
         scale=100.0, size=(64, 8, 128)), dtype=torch.float32, device=cuda)
     for off in ((0, 1, 2, 3, 0, 1, 2, 3), (5, 0, 7, 1, 2, 9, 3, 0)):
-        before = interleave.launches_by[mode]
         out = torch.full((tiles * 8, 128), float("nan"), device=cuda)
-        got = interleave(src, mode, tiles, builds, off, out=out)
+        got, n = _launched(interleave, src, mode, tiles, builds, off,
+                           out=out)
         torch.cuda.synchronize()
         assert torch.equal(got, interleave_plain(src, mode, tiles, builds,
                                                  off))
-        assert interleave.launches_by[mode] == before + 1
+        assert n == {"hk_interleave_f32": 1}
 
 
 @pytest.mark.parametrize("mode", ["copy", "gatherrow"])
@@ -901,11 +901,9 @@ def _graph_vs_eager(m, s0, n, k=None):
     from hakai_tpu_torch.solver.explicit import eager_chunk, graph_chunk
     from hakai_tpu_torch.solver.graph import GRAPH_STEPS
     eager = eager_chunk(m, s0, n)
-    el = element_core_packed if m.coord_e is not None else element_update
-    before = (el.launches, assemble_internal_force.launches)
-    got = graph_chunk(m, s0, n, k or GRAPH_STEPS)
-    assert (el.launches - before[0],
-            assemble_internal_force.launches - before[1]) == (n, n)
+    got, launched = _launched(graph_chunk, m, s0, n, k or GRAPH_STEPS)
+    for entry in loop_entries(m, m.coord_e is None):
+        assert launched[entry] == n, entry
     differ = [f.name for f in dataclasses.fields(got)
               if not torch.equal(getattr(got, f.name),
                                  getattr(eager, f.name))]
@@ -967,15 +965,10 @@ def test_graph_chunk_contact_bitwise(cuda):
     """The n=4 tie-free impact through its first contact (near step 63),
     mixed: bitwise the eager loop, with one gather, one narrow phase a
     pair and one scatter launched a step."""
-    from hakai_tpu_torch.ops.contact_cuda import narrow_phase, scatter_forces
-    from hakai_tpu_torch.ops.gather_cuda import gather_cols
     m, s0 = _impact("mixed", cuda, 0)
-    before = (gather_cols.launches, narrow_phase.launches,
-              scatter_forces.launches)
-    got = _graph_vs_eager(m, s0, 90)
-    assert (gather_cols.launches - before[0],
-            narrow_phase.launches - before[1],
-            scatter_forces.launches - before[2]) == \
+    got, n = _launched(_graph_vs_eager, m, s0, 90)
+    assert (n["hk_gather_cols_f32"], n["hk_narrow_f32"],
+            n["hk_scatter_f32_f64"]) == \
         (2 * 90, 2 * 90 * len(m.pairs), 2 * 90)   # eager and graph chunks
     assert got.contact_force.abs().max() > 0
 
@@ -1029,11 +1022,9 @@ def test_nccl_rank_graph_chunk_bitwise(cuda, case):
                                            eager=True)])
     md = m.to(cuda)
     ref = run_chunk(md, run_chunk(md, init_state(md), chunks[0]), chunks[1])
-    el = "element_core_packed" if case == "packed" else "element_update"
     for rec in (graph, eager):
-        assert (rec["launches"][el],
-                rec["launches"]["assemble_internal_force"]) == \
-            (sum(chunks),) * 2
+        for entry in loop_entries(m, case != "packed"):
+            assert rec["launches"][entry] == sum(chunks), entry
         assert [f.name for f in dataclasses.fields(ref)
                 if not torch.equal(getattr(rec["state"], f.name),
                                    getattr(ref, f.name).cpu())] == []
@@ -1075,7 +1066,8 @@ def test_integrate_kernel_matches_plain(cuda, dtype, energy, contact):
     amplitude segment and past the table: the step counter, disp_new,
     velo and the element-dtype inputs bitwise; dwork within DWORK_TOL."""
     from hakai_tpu_torch.ops.integrate import central_difference_plain
-    from hakai_tpu_torch.ops.integrate_cuda import central_difference
+    from hakai_tpu_torch.ops.integrate_cuda import (_ENTRIES,
+                                                    central_difference)
     m = _amp_bar(dtype, cuda, energy)
     rng = np.random.default_rng(3)
 
@@ -1087,9 +1079,9 @@ def test_integrate_kernel_matches_plain(cuda, dtype, energy, contact):
     ext = rand(1e2) if contact else None
     for t in (0, 50, 120, 170, 400):
         s = s0.replace(t=torch.tensor(t, dtype=torch.int32, device=cuda))
-        before = central_difference.launches
-        got = central_difference(m, s, ext, element_inputs=True)
-        assert central_difference.launches == before + 1
+        got, n = _launched(central_difference, m, s, ext,
+                           element_inputs=True)
+        assert n == {_ENTRIES[(m.dtype, m.edtype)]: 1}
         ref = central_difference_plain(m, s, ext, element_inputs=True)
         for name in ("t", "disp_new", "velo", "position", "d_disp"):
             assert torch.equal(getattr(got, name), getattr(ref, name)), name
@@ -1144,12 +1136,12 @@ def test_erosion_kernel_matches_plain(cuda, dtype, step):
     tri_ref = torch.where(flag[None, :], tri, 0.0) if packed else tri
     flag_ref, del_ref = erosion_delete_mask_plain(m, eq, tri_ref, flag)
     tri_in = tri.clone()
-    before = erosion_walk.launches
-    got = erosion_walk(m, eq, tri_in, flag, mask_triax=packed,
+    got, n = _launched(erosion_walk, m, eq, tri_in, flag, mask_triax=packed,
                        stress=None if packed else stress.clone(),
                        strain=None if packed else strain.clone(),
                        carry=carry)
-    assert erosion_walk.launches == before + 1
+    assert n == {"hk_erosion_f32" if dtype == torch.float32
+                 else "hk_erosion_f64": 1}
     assert torch.equal(got.element_flag, flag_ref)
     assert torch.equal(got.deleted, del_ref)
     assert torch.equal(got.triax, tri_ref)
@@ -1186,9 +1178,9 @@ def test_broad_kernel_matches_plain(cuda, dtype):
     for i, p in enumerate(m.pairs):
         ksl, c = m.ckin_slices[i], pair_constants(m, p)
         ref = broad_phase(p, kin, ksl, acts[i], c)
-        before = broad.launches
-        got = broad(p, kin, ksl, flag, c)
-        assert broad.launches == before + 1
+        got, n = _launched(broad, p, kin, ksl, flag, c)
+        assert n == {"hk_broad_f32" if kin.dtype == torch.float32
+                     else "hk_broad_f64": 1}
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
         masks = tuple(torch.zeros_like(a) for a in acts[i])
         changed = torch.ones((), dtype=torch.int32, device=cuda)
@@ -1212,9 +1204,6 @@ def test_graph_chunk_carries_activity_bitwise(cuda):
     and stepped outside any chunk (recomputing them every step): every
     field bitwise, with deletions and contact in the chunk; kernels I, E
     and A launched a step."""
-    from hakai_tpu_torch.ops.broad_cuda import broad
-    from hakai_tpu_torch.ops.erosion_cuda import erosion_walk
-    from hakai_tpu_torch.ops.integrate_cuda import central_difference
     from hakai_tpu_torch.pre.synthetic import impact_model, offset_instance
     from hakai_tpu_torch.solver.explicit import step
     deck = offset_instance(impact_model(n=4, v0=8.0e4, d_time=1e-8,
@@ -1225,10 +1214,9 @@ def test_graph_chunk_carries_activity_bitwise(cuda):
               device=cuda)
     s0 = run_chunk(m, init_state(m), 60)
     n = 60
-    counts = [f.launches for f in (central_difference, erosion_walk, broad)]
-    got = _graph_vs_eager(m, s0, n, k=8)
-    assert [f.launches - c for f, c in zip(
-        (central_difference, erosion_walk, broad), counts)] == \
+    got, launched = _launched(_graph_vs_eager, m, s0, n, k=8)
+    assert [launched[e] for e in ("hk_integrate_f64", "hk_erosion_f64",
+                                  "hk_broad_f64")] == \
         [2 * n, 2 * n, 2 * n * len(m.pairs)]
     s, fired = s0, False
     for _ in range(n):

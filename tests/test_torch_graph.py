@@ -7,6 +7,7 @@ steps over the same static buffers (``rank_workers.EagerReplay``); and
 ``run_chunk`` over several chunks.  The graphs themselves run in the ``cuda`` tests of
 ``tests/test_torch_cuda.py`` and in ``chip_smoke.py``'s ``[graph]``
 phase, bit for bit against the eager loop."""
+import collections
 import dataclasses
 import pickle
 
@@ -18,10 +19,9 @@ from hakai_tpu.config import SolverConfig as JaxConfig
 from hakai_tpu.core.state import init_state as jax_init_state
 from hakai_tpu.pre.synthetic import bar_model as jax_bar_model
 from hakai_tpu.solver.explicit import run_chunk as jax_run_chunk
-from hakai_tpu_torch import SolverConfig, init_state, lower, run_chunk
-from hakai_tpu_torch.ops.element_cuda import element_core_packed
+from hakai_tpu_torch import SolverConfig, _build, init_state, lower, run_chunk
 from hakai_tpu_torch.pre import synthetic as tsyn
-from hakai_tpu_torch.solver import explicit, graph
+from hakai_tpu_torch.solver import explicit
 from hakai_tpu_torch.solver.graph import (GRAPH_STEPS, Captured, ChunkGraphs,
                                           split, write_back)
 from rank_workers import EagerReplay
@@ -35,15 +35,13 @@ K = GRAPH_STEPS
 @pytest.fixture
 def captures(monkeypatch):
     """Every capture as (model id, loop, length); each "graph" an
-    :class:`EagerReplay` that launches ``length`` element kernels a
-    replay by the counts (the plain versions on the CPU count none)."""
+    :class:`EagerReplay` that launches ``length`` float32 element kernels
+    a replay by the counts (the plain versions on the CPU count none)."""
     seen = []
 
     def capture(self, model, length):
         seen.append((id(model), self.loop, length))
-        launches = {fn: (0, {k: 0 for k in getattr(fn, "launches_by", {})})
-                    for fn in graph._COUNTED}
-        launches[element_core_packed] = (length, {"float32": length})
+        launches = collections.Counter({"hk_element_f32": length})
         return Captured(EagerReplay(self, model, length), launches, 0.0,
                         0.0, 0)
     monkeypatch.setattr(ChunkGraphs, "_capture", capture)
@@ -112,12 +110,9 @@ def test_cache_captures_each_length_once(captures):
 def test_replays_add_captured_launches(captures):
     """Each replay adds the launches its capture counted."""
     m = _bar("packed")
-    before = (element_core_packed.launches,
-              element_core_packed.launches_by["float32"])
+    before = _build.LAUNCHES.copy()
     explicit.graph_chunk(m, init_state(m), 3 * K + 2)
-    assert (element_core_packed.launches - before[0],
-            element_core_packed.launches_by["float32"] - before[1]) == \
-        (3 * K + 2, 3 * K + 2)
+    assert _build.LAUNCHES - before == {"hk_element_f32": 3 * K + 2}
 
 
 @pytest.mark.parametrize("k", [1, 4, K])
