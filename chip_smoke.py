@@ -165,12 +165,14 @@ without its last line):
    contact pair's activity masks and broad phase): I on [main]'s final
    state and on [run]'s state one step before its first deletion, with
    and without the energy balance and a contact force; E on the steps to
-   [run]'s and [generic]'s first deletion; A on [contact]'s state at its
-   first deletion, the masks recomputed and kept; each against its plain
-   version on the same inputs (bitwise; I's energy sums within
-   DWORK_TOL), timed cold beside its bound and plain version, with its
-   registers and resident blocks an SM.  Every main-path run above also
-   counts their launches.
+   [run]'s and [generic]'s first deletion; A and G on [contact]'s state
+   at its first deletion, A recomputing the masks over every slot and on
+   the listed path (the list of active triangles rebuilt, then kept), G
+   on the listed path; each against its plain version on the same inputs
+   (bitwise; I's energy sums within DWORK_TOL), timed cold beside its
+   bound (A's and G's from the bytes of the listed items) and plain
+   version, with its registers and resident blocks an SM.  Every
+   main-path run above also counts their launches.
 
 Launches are counted by C entry (``_build.LAUNCHES``) and, where one
 entry holds several instantiations (the unpacked element entry's outputs,
@@ -1261,9 +1263,10 @@ def contact_path(model, smi_line):
     steps, n_pairs = model.time_num, len(model.pairs)
     log(f"\n[contact] launches {launches} for {steps} steps")
     want = {"hk_element_mixed": steps, "hk_assemble_f32_f64": steps,
-            "hk_gather_cols_f32": steps, "hk_narrow_f32": n_pairs * steps,
+            "hk_gather_listed_f32": steps, "hk_narrow_f32": n_pairs * steps,
             "hk_scatter_f32_f64": steps, "hk_integrate_mixed": steps,
-            "hk_erosion_f32": steps, "hk_broad_f32": n_pairs * steps}
+            "hk_erosion_f32": steps, "hk_broad_f32": n_pairs * steps,
+            "hk_broad_list": n_pairs * steps, "hk_gather_cols_f32": 0}
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"kernel launches {launches} != {want}")
     for f in ("disp", "velo", "Q", "stress", "eq_ps", "triax",
@@ -1324,7 +1327,10 @@ def contact_path(model, smi_line):
         f"deletion at step {first_del}, {alive} of {model.n_element} alive at"
         f" step {steps}; repeat {CONTACT_REPEAT}-step chunks from ckpt_001 "
         f"bitwise equal; surviving block pairs per pair (count, overlap) "
-        f"{blocks} [{smi_line}]")
+        f"{blocks}; contact lists rebuilt after a deletion "
+        f"{timings['contact_rebuilds']} times, at most "
+        f"{timings['contact_listed_max']:.4f} of the triangle slots listed "
+        f"[{smi_line}]")
     return launches, final, us, s_kern, s_del
 
 
@@ -1874,87 +1880,142 @@ def step_kernels_generic(model, first, smi_line):
 
 
 def step_kernels_contact(model, state, smi_line):
-    """[step-kernels] kernel A on [contact]'s state at its first deletion
-    (past its first contact), every pair as a step calls it: the
-    BroadPhase bitwise the plain version recomputing the masks (no carry)
-    and keeping them (the carry's flag clear: the masks are read); both
-    timed (cold L2) beside the plain version, the bound of each from the
-    bytes it needs at this state, resources of the three launches."""
+    """[step-kernels] kernels A and G on [contact]'s state at its first
+    deletion (past its first contact), every pair as a step calls it.  A:
+    the BroadPhase bitwise the plain version recomputing the masks (no
+    carry: every slot swept) and on the listed path (a carry whose list of
+    active triangles ``list_active`` rebuilt, bitwise its plain version,
+    then the flag clear: the masks and lists read, the range cull over the
+    list); G: the listed gather bitwise the plain version on every entry
+    a kernel reads.  Each timed (cold L2) beside its plain version and the
+    dense sweep, with its bound from the bytes it needs over the listed
+    items at this state; A's list rebuild timed apart, and the resources
+    of A's four launches."""
     import torch
     from hakai_tpu_torch.ops import broad_cuda as bc
+    from hakai_tpu_torch.ops.activity import ActivityCarry
     from hakai_tpu_torch.ops.broad_cuda import broad_phase, pair_activity
     from hakai_tpu_torch.ops.contact import contact_kinematics
     from hakai_tpu_torch.ops.contact_cuda import pair_constants
+    from hakai_tpu_torch.ops.gather_cuda import (gather_cols,
+                                                 gather_listed,
+                                                 gather_listed_plain)
     edt = model.edtype
-    kin = contact_kinematics(model, (model.coord + state.disp).to(edt),
-                             state.velo.to(edt))
+    pos, vel = (model.coord + state.disp).to(edt), state.velo.to(edt)
+    kin = contact_kinematics(model, pos, vel)
     flag = state.element_flag
     args = [(p, model.ckin_slices[i], pair_constants(model, p))
             for i, p in enumerate(model.pairs)]
     acts = [pair_activity(p, flag) for p, _, _ in args]
-    kept = [tuple(a.clone() for a in act) for act in acts]
-    clear = torch.zeros((), dtype=torch.int32, device=kin.device)
-    moved = {"recompute": 0, "carried": 0}
-    active = [0, 0]                    # active triangles, active nodes
-    for (p, ksl, c), act, k in zip(args, acts, kept):
+    carry = ActivityCarry(model)
+    rebuild = torch.ones((), dtype=torch.int32, device=kin.device)
+    clear = torch.zeros_like(rebuild)
+
+    def lists(changed):
+        for i, ((p, _, _), pc) in enumerate(zip(args, carry.pairs)):
+            bc.list_active(p, flag, pc, changed, carry.stats,
+                           i == len(args) - 1)
+
+    def listed_broad():
+        return [bc.broad(p, kin, ksl, flag, c, pc, clear)
+                for (p, ksl, c), pc in zip(args, carry.pairs)]
+    lists(rebuild)
+    for i, ((p, ksl, c), act) in enumerate(zip(args, acts)):
         ref = broad_phase(p, kin, ksl, act, c)
-        for how, got in (("recompute", bc.broad(p, kin, ksl, flag, c)),
-                         ("carried", bc.broad(p, kin, ksl, flag, c, k,
-                                              clear))):
-            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        got = bc.broad(p, kin, ksl, flag, c, carry.pairs[i], rebuild)
+        for how, bp in (("recompute", bc.broad(p, kin, ksl, flag, c)),
+                        ("listed", got)):
+            if not all(torch.equal(a, b) for a, b in zip(bp, ref)):
                 raise AssertionError(f"[step-kernels] A ({how}) differs from"
                                      f" its plain version")
-        if not all(torch.equal(a, b) for a, b in zip(k, act)):
-            raise AssertionError("[step-kernels] A rewrote carried masks")
-        # the bytes the function needs at this state: the three vertices of
-        # an active triangle and the position of an active node (an
-        # inactive one is out whatever its position, and no box takes it),
-        # the outputs, and the masks read (kept) or the activity inputs
-        # read and the masks written (recomputed): the twins of a face
-        # that is not initially exposed, the life mask of the elements
-        # that the owners and those twins name
+        pc = carry.pairs[i]
+        ids, starts = bc.active_list_plain(act[0], p.tb)
+        if not (all(torch.equal(a, b) for a, b in zip(pc.masks, act))
+                and torch.equal(pc.ids[:len(ids)], ids)
+                and torch.equal(pc.starts, starts)):
+            raise AssertionError("[step-kernels] A's list differs from its "
+                                 "plain version")
+    held = [x.clone() for pc in carry.pairs for x in (*pc.masks, pc.starts)]
+    lists(clear)
+    listed_broad()
+    if not all(torch.equal(a, b) for a, b in zip(
+            held, [x for pc in carry.pairs for x in (*pc.masks, pc.starts)])):
+        raise AssertionError("[step-kernels] A rewrote carried masks")
+    # G on the listed path: every entry a kernel reads
+    src = torch.cat([pos, vel])
+    kin_l = gather_listed(src, model.ckin_idx, carry.listed)
+    ref_l = gather_listed_plain(src, model.ckin_idx, carry.listed)
+    read = ~ref_l.isnan()
+    if not (torch.equal(kin_l[read], ref_l[read])
+            and torch.equal(kin_l[read], kin[read])):
+        raise AssertionError("[step-kernels] G (listed) differs from its "
+                             "plain version")
+    # the bytes each needs at this state, over the listed items: A reads
+    # the three vertices of a listed triangle, its id, its chunk's start,
+    # the position and mask of every node, and writes tri_in of a listed
+    # triangle, node_in, the block-pair mask and its few boxes; its
+    # rebuild reads every slot's init flag, twin and owner, the life mask
+    # of the elements they name, and writes the triangle mask, tri_in off
+    # the list and the list.  G reads an index and writes six or three
+    # rows a column it gathers, and reads the source rows once.
+    item, listed = edt.itemsize, [int(a[0].sum()) for a in acts]
+    moved = {"A": 0, "rebuild": 0, "dense": 0}
+    for (p, _, _), act, n_t in zip(args, acts, listed):
         F2, Ci, Cj = (p.tri_nodes.shape[1], p.cand_nodes.shape[0],
                       p.jnode_nodes.shape[0])
-        n_act = [int(a.sum()) for a in act]
-        active[0] += n_act[0]
-        active[1] += n_act[1] + n_act[2]
-        out = F2 + Ci + p.tri_chunks * p.n_chunks + 3 * edt.itemsize + 1
-        base = (9 * n_act[0] + 3 * n_act[1] + 3 * n_act[2]) * edt.itemsize \
-            + out
-        moved["carried"] += base + F2 + Ci + Cj
+        out = n_t + Ci + p.tri_chunks * p.n_chunks + 3 * item + 1
+        moved["A"] += (9 * item + 4) * n_t + 4 * (p.tri_chunks + 1) + (
+            3 * item + 1) * (Ci + Cj) + out
         tw = p.tri_twin[~p.tri_init]
-        cw = p.cand_twin[~p.cand_init].flatten()
-        jw = p.jnode_twin[~p.jnode_init].flatten()
-        named = torch.cat([p.tri_elem, tw, cw, jw])
-        moved["recompute"] += base + (
-            torch.unique(named[named >= 0]).numel() + 5 * F2
-            + 4 * tw.numel() + Ci + 4 * cw.numel() + Cj + 4 * jw.numel()
-            + F2 + Ci + Cj)
+        named = torch.cat([p.tri_elem, tw])
+        moved["rebuild"] += (torch.unique(named[named >= 0]).numel()
+                             + 10 * F2 + 4 * n_t + 4 * (p.tri_chunks + 1))
+        moved["dense"] += (9 * item * F2 + (3 * item + 1) * (Ci + Cj) + F2
+                           + out)
+    nd, nd6 = carry.listed.dense.numel(), carry.listed.nd6
+    cols_g = nd + 3 * sum(listed)
+    moved["G"] = (4 * cols_g + 4 * sum(listed) + item * (
+        6 * nd6 + 3 * (nd - nd6) + 12 * sum(listed)) + src.numel() * item)
     rec = {"max_abs_err": 0.0, "library_ms": None}
     rec["ms"], rec["plain_ms"] = _time_pair(
-        lambda: [bc.broad(p, kin, ksl, flag, c, k, clear)
-                 for (p, ksl, c), k in zip(args, kept)],
-        lambda: [broad_phase(p, kin, ksl, pair_activity(p, flag), c)
-                 for p, ksl, c in args])
-    ms_re = time_ms(lambda: [bc.broad(p, kin, ksl, flag, c)
-                             for p, ksl, c in args])
-    rec["bound_ms"], rec["bound_by"] = bound(moved["carried"], 0, "float32")
-    bound_re = bound(moved["recompute"], 0, "float32")[0]
+        listed_broad, lambda: [broad_phase(p, kin, ksl, pair_activity(p, flag),
+                                           c) for p, ksl, c in args])
+    ms_list = time_ms(lambda: lists(rebuild))
+    ms_dense = time_ms(lambda: [bc.broad(p, kin, ksl, flag, c)
+                                for p, ksl, c in args])
+    ms_g, ms_g_plain = _time_pair(
+        lambda: gather_listed(src, model.ckin_idx, carry.listed),
+        lambda: gather_listed_plain(src, model.ckin_idx, carry.listed))
+    ms_g_dense = time_ms(lambda: gather_cols(src, model.ckin_idx))
+    rec["bound_ms"], rec["bound_by"] = bound(moved["A"], 0, "float32")
+    b_list = bound(moved["rebuild"], 0, "float32")[0]
+    b_dense = bound(moved["dense"], 0, "float32")[0]
+    b_g = bound(moved["G"], 0, "float32")[0]
     log(f"[step-kernels] A [contact] at step {int(state.t)} (past first "
         f"contact and first deletion), {len(args)} pairs (2F, Ci, Cj, block "
         f"grid: {[(p.tri_nodes.shape[1], p.cand_nodes.shape[0], p.jnode_nodes.shape[0], p.tri_chunks, p.n_chunks) for p, _, _ in args]}): "
-        f"BroadPhase bitwise the plain version, recomputing and keeping the "
-        f"masks; {active[0]} active triangles, {active[1]} active nodes; a "
-        f"step's calls: kernel {rec['ms']:.4f} ms with the masks "
-        f"kept (bound {rec['bound_ms']:.4f} ms, {moved['carried'] / 1e6:.2f}"
-        f" MB, {rec['bound_ms'] / rec['ms']:.3f} of it), {ms_re:.4f} ms "
-        f"recomputing them (bound {bound_re:.4f} ms, "
-        f"{moved['recompute'] / 1e6:.2f} MB, {bound_re / ms_re:.3f} of it), "
-        f"plain {rec['plain_ms']:.4f} ms; "
+        f"BroadPhase bitwise the plain version, recomputing the masks and "
+        f"on the listed path; {listed} triangles listed of "
+        f"{[p.tri_nodes.shape[1] for p, _, _ in args]} slots; a step's "
+        f"calls: kernel {rec['ms']:.4f} ms on the listed path with the lists "
+        f"kept (bound {rec['bound_ms']:.4f} ms, {moved['A'] / 1e6:.2f} MB, "
+        f"{rec['bound_ms'] / rec['ms']:.3f} of it), the lists' rebuild "
+        f"{ms_list:.4f} ms (bound {b_list:.4f} ms, "
+        f"{moved['rebuild'] / 1e6:.2f} MB, {b_list / ms_list:.3f} of it), "
+        f"the dense sweep recomputing the masks {ms_dense:.4f} ms (bound "
+        f"{b_dense:.4f} ms, {moved['dense'] / 1e6:.2f} MB), plain "
+        f"{rec['plain_ms']:.4f} ms; "
         + "; ".join(f"{k} {_step_res('hk_broad_resources', 0, i)}"
                     for i, k in enumerate(("broad_activity", "broad_range",
-                                           "broad_pairs")))
+                                           "broad_pairs", "broad_list")))
         + f" [{smi_line}]")
+    log(f"[step-kernels] G [contact] at step {int(state.t)}: the listed "
+        f"gather bitwise its plain version and the whole gather on every "
+        f"entry a kernel reads; {cols_g} of {model.ckin_idx.numel()} "
+        f"columns; kernel {ms_g:.4f} ms (bound {b_g:.4f} ms, "
+        f"{moved['G'] / 1e6:.2f} MB, {b_g / ms_g:.3f} of it), the whole "
+        f"gather {ms_g_dense:.4f} ms, plain {ms_g_plain:.4f} ms "
+        f"[{smi_line}]")
     return rec
 
 
@@ -3469,9 +3530,10 @@ def main() -> int:
     graphs["[contact]"] = graph_path(
         "[contact]", impact, GRAPH_CONTACT_CHUNK, {
             "hk_element_mixed": 1, "hk_assemble_f32_f64": 1,
-            "hk_gather_cols_f32": 1, "hk_narrow_f32": len(impact.pairs),
+            "hk_gather_listed_f32": 1, "hk_narrow_f32": len(impact.pairs),
             "hk_scatter_f32_f64": 1, "hk_integrate_mixed": 1,
-            "hk_erosion_f32": 1, "hk_broad_f32": len(impact.pairs)},
+            "hk_erosion_f32": 1, "hk_broad_f32": len(impact.pairs),
+            "hk_broad_list": len(impact.pairs), "hk_gather_cols_f32": 0},
         smi_line, GRAPH_KS, deletes=True, contact=True)
     impact_cut = cut_to(impact, SHARD_CONTACT_STEPS, output_num=1,
                         checkpoint_every=0, out_dir=SHARD_CONTACT_DIR,

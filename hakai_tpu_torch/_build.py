@@ -73,6 +73,10 @@ _SIGNATURES = {
     # src, C, S, idx, R, out, stream
     "hk_gather_cols_f32": (_P, _I, _I, _P, _I, _P, _P),
     "hk_gather_cols_f64": (_P, _I, _I, _P, _I, _P, _P),
+    # src, S, idx, R, out, dense, nd6, nd, pairs, P, ids, counts, most,
+    # stream
+    **{f"hk_gather_listed_{v}": (_P, _I, _P, _I, _P, _P, _I, _I, _P, _I, _P,
+                                 _P, _I, _P) for v in ("f32", "f64")},
     "hk_set_pusai": (_P,),
     # elem, coord_e, disp, dprev, P, G, lam, mat, hasp, flag,
     # hard_strain, hard_slope, hard_n, hard_rows, hard_cols, E, N, P_out,
@@ -121,12 +125,17 @@ _SIGNATURES = {
     "hk_erosion_resources": (_I, _P),
     # kernel A: kin, R, q0, q1, q2, ci, cj, F2, Ci, Cj, flag, tri_init,
     # tri_twin, tri_elem, cand_init, cand_twin, VT, jnode_init, jnode_twin,
-    # VTj, tri_a, ni_a, nj_a, changed, TB, nb, tri_chunks, n_chunks, pad,
-    # tri_in, node_in, all_min, pair_ok, overlap, box, cbox, iws, stream
+    # VTj, tri_a, ni_a, nj_a, changed, ids, starts, TB, nb, tri_chunks,
+    # n_chunks, pad, tri_in, node_in, all_min, pair_ok, overlap, box, cbox,
+    # iws, stream
     **{f"hk_broad_{v}": (_P,) + (_I,) * 9 + (_P,) * 6 + (_I, _P, _P, _I)
-       + (_P,) * 4 + (_I,) * 4 + (ctypes.c_double,) + (_P,) * 9
+       + (_P,) * 6 + (_I,) * 4 + (ctypes.c_double,) + (_P,) * 9
        for v in ("f32", "f64")},
-    # instantiation (0 f32, 1 f64), launch (0-2), out
+    # kernel A's list: flag, tri_init, tri_twin, tri_elem, F2, TB,
+    # tri_chunks, changed, tri_a, tri_in, ids, starts, count, look, stats,
+    # last, stream
+    "hk_broad_list": (_P,) * 4 + (_I,) * 3 + (_P,) * 8 + (_I, _P),
+    # instantiation (0 f32, 1 f64), launch (0-3), out
     "hk_broad_resources": (_I, _I, _P),
 }
 

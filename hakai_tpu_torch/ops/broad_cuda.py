@@ -2,14 +2,18 @@
 directional pair, the counterpart of the XLA fusion of the JAX step's
 ``pair_activity`` and ``_pair_force`` prologue
 (``hakai_tpu/ops/contact.py:45-59``, ``:160-236``), with its plain
-versions :func:`pair_activity` and :func:`broad_phase`.
+versions :func:`pair_activity`, :func:`active_list_plain` and
+:func:`broad_phase`.
 
 :func:`broad` is the step's entry: for tensors on the CPU it runs the plain
 versions, for CUDA tensors it launches the kernel (three launches) on the
-current stream, or raises.  With carried masks (``ops/activity.py``) it
-recomputes them only when the carry's flag says that the previous step
-deleted an element, and else reads them; the decision is taken on the
-device (on the CPU by ``torch.where``).
+current stream, or raises.  On a pair whose masks a chunk carries
+(``ops/activity.py``) :func:`list_active` runs first, before the step's
+gather: it recomputes the triangle mask and the list of active triangles
+only when the carry's flag says that the previous step deleted an element
+(or the chunk begins); :func:`broad` then recomputes the node masks under
+the same flag, and its range cull visits the listed triangles only.  The
+decisions are taken on the device (on the CPU by a host test of the flag).
 """
 from __future__ import annotations
 
@@ -20,17 +24,25 @@ from ..core.lowering import ContactPair
 from .contact_cuda import BroadPhase, PairConstants, kin_views
 
 _ENTRIES = {torch.float32: "hk_broad_f32", torch.float64: "hk_broad_f64"}
-_ITEMS = 1024                  # kItems in csrc/broad.cu
-# (Ci, Cj, tri_chunks, n_chunks, dtype, device) -> (boxes, int32 words):
-# the kernel's workspace, allocated once per shapes outside any capture
-# (calls run in stream order, so pairs of equal shapes share it); its ORs
-# start zero and each call leaves them so
+_NODES = 256                   # kBlock in csrc/broad.cu
+_ANY = 4                       # kAny in csrc/broad.cu
+# (Ci, Cj, tri_chunks, n_chunks, dtype, device) -> (boxes, int32 words,
+# node blocks): the kernel's workspace, allocated once per shapes outside
+# any capture (calls run in stream order, so pairs of equal shapes share
+# it): the node blocks' boxes, the overlap range, the chunks' boxes; the
+# ORs and a ticket, then the chunks' flags.  Its ORs and ticket start zero
+# and each call leaves them so
 _WORKSPACES: dict = {}
 
 
 def _node_active(flag, init, twins):
     tw_dead = (twins >= 0) & ~flag[twins.clamp_min(0)]
     return init | tw_dead.any(dim=1)
+
+
+def _tri_active(pair: ContactPair, flag):
+    twin_dead = (pair.tri_twin >= 0) & ~flag[pair.tri_twin.clamp_min(0)]
+    return (pair.tri_init | twin_dead) & flag[pair.tri_elem]
 
 
 def pair_activity(pair: ContactPair, flag):
@@ -40,10 +52,77 @@ def pair_activity(pair: ContactPair, flag):
     whose inventory was culled at lowering."""
     if pair.static_activity:
         return None
-    twin_dead = (pair.tri_twin >= 0) & ~flag[pair.tri_twin.clamp_min(0)]
-    tri_active = (pair.tri_init | twin_dead) & flag[pair.tri_elem]
-    return (tri_active, _node_active(flag, pair.cand_init, pair.cand_twin),
+    return (_tri_active(pair, flag),
+            _node_active(flag, pair.cand_init, pair.cand_twin),
             _node_active(flag, pair.jnode_init, pair.jnode_twin))
+
+
+def active_list_plain(tri_active, tb: int):
+    """(ids, starts) of a (F2,) triangle mask: ``ids`` (count,) int32, the
+    active triangles in increasing order; ``starts`` (tri_chunks + 1,)
+    int32, the exclusive sum of the chunks' counts (chunks of ``tb`` ids,
+    the last one ragged), so chunk c's triangles are
+    ``ids[starts[c]:starts[c + 1]]`` and ``starts[-1]`` is the count.
+    Each active id lands at its chunk's start plus its rank among the
+    chunk's active ids, as ``broad_list`` places it."""
+    F2 = tri_active.shape[0]
+    tc = -(-F2 // tb)
+    a = _pad_last(tri_active, tc * tb, False).view(tc, tb)
+    starts = torch.zeros(tc + 1, dtype=torch.int64, device=a.device)
+    starts[1:] = torch.cumsum(a.sum(dim=1), 0)
+    place = starts[:-1, None] + torch.cumsum(a, dim=1) - 1
+    ids = torch.empty(int(starts[-1]), dtype=torch.int64, device=a.device)
+    ids[place[a]] = torch.arange(tc * tb, device=a.device).view(tc, tb)[a]
+    return ids.int(), starts.int()
+
+
+def list_active(pair: ContactPair, flag, carried, changed, stats,
+                last: bool) -> None:
+    """Kernel A's first launch on a pair whose masks a chunk carries, before
+    the step's gather: when ``changed`` (the carry's 0-d int32 flag) is
+    set, the triangle mask from the (E,) life mask ``flag`` into
+    ``carried.masks[0]``, the list of active triangles into ``carried.ids``,
+    ``carried.starts`` and ``carried.count`` (:func:`active_list_plain`),
+    ``carried.tri_in`` cleared off the list, and the carry's ``stats``
+    counted (``last``: the model's last pair, which folds the step's count
+    into the most listed and counts a rebuild after a deletion); else
+    nothing."""
+    dev = flag.device
+    if dev.type == "cpu":
+        if int(changed):
+            tri = _tri_active(pair, flag)
+            carried.masks[0].copy_(tri)
+            ids, starts = active_list_plain(tri, pair.tb)
+            carried.ids[:len(ids)] = ids
+            carried.starts.copy_(starts)
+            carried.count.fill_(len(ids))
+            carried.tri_in.logical_and_(tri)
+            stats[1] += len(ids)
+            if last:
+                stats[2] = torch.maximum(stats[2], stats[1])
+                stats[1] = 0
+                stats[0] += int(changed) & 1
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"no broad-phase kernel for device {dev}")
+    F2, tc = pair.tri_nodes.shape[1], pair.tri_chunks
+    _build.check_inputs(dev, {
+        "flag": (flag, (flag.shape[0],), torch.bool),
+        "tri_init": (pair.tri_init, (F2,), torch.bool),
+        "tri_twin": (pair.tri_twin, (F2,), torch.int32),
+        "tri_elem": (pair.tri_elem, (F2,), torch.int32),
+        "changed": (changed, (), torch.int32),
+        "tri_active": (carried.masks[0], (F2,), torch.bool),
+        "tri_in": (carried.tri_in, (F2,), torch.bool),
+        "ids": (carried.ids, (F2,), torch.int32),
+        "starts": (carried.starts, (tc + 1,), torch.int32),
+        "count": (carried.count, (1,), torch.int32),
+        "look": (carried.look, (tc + 1,), torch.int64),
+        "stats": (stats, (3,), torch.int32)})
+    _build.launch("hk_broad_list", dev, flag, pair.tri_init, pair.tri_twin,
+                  pair.tri_elem, F2, pair.tb, tc, changed, carried.masks[0],
+                  carried.tri_in, carried.ids, carried.starts, carried.count,
+                  carried.look, stats, int(last))
 
 
 def _masked_minmax(x, valid):
@@ -103,31 +182,40 @@ def broad_phase(pair: ContactPair, kin, ksl, activity,
 def _workspace(pair: ContactPair, Ci: int, Cj: int, dtype, device):
     key = (Ci, Cj, pair.tri_chunks, pair.n_chunks, dtype, device)
     if key not in _WORKSPACES:
-        nbox = -(-Ci // _ITEMS) + -(-Cj // _ITEMS)
+        nbox = -(-Ci // _NODES) + -(-Cj // _NODES)
         chunks = pair.tri_chunks + pair.n_chunks
         _WORKSPACES[key] = (
-            torch.empty(6 * (nbox + chunks), dtype=dtype, device=device),
-            torch.zeros(2 + chunks, dtype=torch.int32, device=device), nbox)
+            torch.empty(6 * (nbox + 1 + chunks), dtype=dtype, device=device),
+            torch.zeros(_ANY + chunks, dtype=torch.int32, device=device),
+            nbox)
     return _WORKSPACES[key]
 
 
 def broad(pair: ContactPair, kin, ksl, flag, consts: PairConstants,
-          masks=None, changed=None) -> BroadPhase:
+          carried=None, changed=None) -> BroadPhase:
     """One pair's :class:`BroadPhase` from the merged (6, R) kinematics
     ``kin`` (its slices ``ksl``) and the (E,) life mask ``flag``.  On a pair
-    whose masks depend on ``flag``, ``masks`` (tri, i node, j node bool
-    buffers) and ``changed`` (a 0-d int32 device flag) carry them: they are
-    recomputed into ``masks`` when ``changed`` is set and read otherwise;
-    without ``masks`` they are recomputed every call."""
+    whose masks depend on ``flag`` a chunk's step passes ``carried`` (the
+    pair's :class:`~hakai_tpu_torch.ops.activity.PairCarry`, whose
+    triangle mask and list :func:`list_active` has made this step) and
+    ``changed`` (the carry's 0-d int32 flag): the node masks are
+    recomputed into the carry when it is set and read otherwise, the range
+    cull visits the listed triangles only, and ``tri_in`` is the carry's
+    buffer (false off the list); ``kin`` need hold the listed triangles'
+    columns only.  Without ``carried`` every mask is recomputed and the
+    range cull sweeps every slot."""
     dev = kin.device
     if dev.type == "cpu":
-        act = pair_activity(pair, flag)
-        if act is not None and masks is not None:
-            act = tuple(torch.where(changed != 0, a, k)
-                        for a, k in zip(act, masks))
-            for k, a in zip(masks, act):
+        if carried is None:
+            return broad_phase(pair, kin, ksl, pair_activity(pair, flag),
+                               consts)
+        if int(changed):
+            for k, a in zip(carried.masks[1:],
+                            pair_activity(pair, flag)[1:]):
                 k.copy_(a)
-        return broad_phase(pair, kin, ksl, act, consts)
+        bp = broad_phase(pair, kin, ksl, carried.masks, consts)
+        carried.tri_in.copy_(bp.tri_in)
+        return bp._replace(tri_in=carried.tri_in)
     if dev.type != "cuda":
         raise ValueError(f"no broad-phase kernel for device {dev}")
     dt = kin.dtype
@@ -138,11 +226,20 @@ def broad(pair: ContactPair, kin, ksl, flag, consts: PairConstants,
     tc, nc = pair.tri_chunks, pair.n_chunks
     dyn = not pair.static_activity
     spec = {"kin": (kin, (6, R), dt)}
+    if carried is not None:
+        if not dyn:
+            raise ValueError("a fracture-free pair carries no activity")
+        masks, tri_in = carried.masks, carried.tri_in
+        ids, starts = carried.ids, carried.starts
+        spec.update({"changed": (changed, (), torch.int32),
+                     "ids": (ids, (F2,), torch.int32),
+                     "starts": (starts, (tc + 1,), torch.int32)})
+    else:
+        masks = tuple(torch.empty(n, dtype=torch.bool, device=dev)
+                      for n in (F2, Ci, Cj)) if dyn else (None,) * 3
+        tri_in = torch.empty(F2, dtype=torch.bool, device=dev)
+        changed = ids = starts = None
     if dyn:
-        if masks is None:
-            masks = tuple(torch.empty(n, dtype=torch.bool, device=dev)
-                          for n in (F2, Ci, Cj))
-            changed = None
         VT, VTj = pair.cand_twin.shape[1], pair.jnode_twin.shape[1]
         spec.update({
             "flag": (flag, (flag.shape[0],), torch.bool),
@@ -155,12 +252,10 @@ def broad(pair: ContactPair, kin, ksl, flag, consts: PairConstants,
             "jnode_twin": (pair.jnode_twin, (Cj, VTj), torch.int32),
             "tri_active": (masks[0], (F2,), torch.bool),
             "ni_active": (masks[1], (Ci,), torch.bool),
-            "nj_active": (masks[2], (Cj,), torch.bool)})
-        if changed is not None:
-            spec["changed"] = (changed, (), torch.int32)
+            "nj_active": (masks[2], (Cj,), torch.bool),
+            "tri_in": (tri_in, (F2,), torch.bool)})
     _build.check_inputs(dev, spec)
     boxes, iws, nbox = _workspace(pair, Ci, Cj, dt, dev)
-    tri_in = torch.empty(F2, dtype=torch.bool, device=dev)
     node_in = torch.empty(Ci, dtype=torch.bool, device=dev)
     all_min = torch.empty(3, dtype=dt, device=dev)
     pair_ok = torch.empty((tc, nc), dtype=torch.bool, device=dev)
@@ -175,7 +270,7 @@ def broad(pair: ContactPair, kin, ksl, flag, consts: PairConstants,
         on(pair.tri_init), on(pair.tri_twin), on(pair.tri_elem),
         on(pair.cand_init), on(pair.cand_twin), pair.cand_twin.shape[1],
         on(pair.jnode_init), on(pair.jnode_twin), pair.jnode_twin.shape[1],
-        *(on(m) for m in masks or (None,) * 3), on(changed), pair.tb,
-        pair.nb, tc, nc, 2.0 * consts.ddiv, tri_in, node_in, all_min,
-        pair_ok, overlap, boxes, boxes[6 * nbox:], iws)
+        masks[0], masks[1], masks[2], changed, ids, starts, pair.tb, pair.nb,
+        tc, nc, 2.0 * consts.ddiv, tri_in, node_in, all_min, pair_ok,
+        overlap, boxes, boxes[6 * (nbox + 1):], iws)
     return BroadPhase(tri_in, node_in, all_min, pair_ok, overlap)

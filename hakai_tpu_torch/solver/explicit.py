@@ -39,7 +39,7 @@ from ..core.lowering import LoweredModel
 from ..core.state import SimState, init_state
 from ..io.vtk import write_pvd, write_vtk
 from ..ops.assemble_cuda import assemble_internal_force
-from ..ops.activity import chunk_carry
+from ..ops.activity import chunk_carry, list_stats
 from ..ops.contact import contact_forces
 from ..ops.element import triax_components
 from ..ops.element_cuda import element_update, packed_element_step
@@ -380,10 +380,11 @@ class LoopView:
         that waits on the event and gives the values by name as floats.
         float64 holds every float32 value, and a count up to 2**53,
         exactly.  On the CPU the copy is synchronous.  One buffer serves
-        the run: the loop reads a chunk's values before it queues the next
-        chunk's."""
+        the run (made anew where the values grow, as with the last
+        chunk's): the loop reads a chunk's values before it queues the
+        next chunk's."""
         vec = torch.stack([v.to(torch.float64) for v in values.values()])
-        if self.host is None:
+        if self.host is None or self.host.shape != vec.shape:
             self.host = torch.empty(vec.shape, dtype=vec.dtype,
                                     pin_memory=vec.is_cuda)
             if vec.is_cuda:
@@ -457,7 +458,12 @@ def run_loop(model: LoweredModel, state, chunk, hooks, verbose: bool = True,
     on collective hooks each value read); ``captures`` and ``capture_s``,
     the graphs captured in the call and their host seconds of warm-up,
     capture and instantiation, and ``replays``, graph replays
-    (``solver/graph.totals``).  Its stretches are spans: ``hakai.chunk``
+    (``solver/graph.totals``); ``contact_rebuilds`` and
+    ``contact_listed_max``, the contact activity lists' rebuilds after a
+    deletion and the most triangles listed at a rebuild over the carried
+    pairs' slots (``ops/activity.list_stats``; 0 where no chunk carried
+    the lists: ranks, fracture-free decks), read with the last chunk's
+    values.  Its stretches are spans: ``hakai.chunk``
     (the chunk queued and a wait for chunk values, ``hakai.chunk.sync``,
     whose ``chunk`` is the chunk read), ``hakai.metrics``,
     ``hakai.guard.alive`` (before the first chunk; on collective hooks
@@ -474,7 +480,11 @@ def run_loop(model: LoweredModel, state, chunk, hooks, verbose: bool = True,
     n_frames = time_num // d_out if time_num else 0
     metrics = MetricsWriter(cfg.metrics_path if root else None)
     clock = {"step_s": 0.0, "frame_s": 0.0, "frames": 0, "steps": 0,
-             "chunks": 0, "ahead": 0, "host_syncs": 0, "metrics_s": 0.0}
+             "chunks": 0, "ahead": 0, "host_syncs": 0, "metrics_s": 0.0,
+             "contact_rebuilds": 0, "contact_listed_max": 0.0}
+    counted = None if hooks.collective else list_stats(model)
+    if counted is not None:         # a model whose chunks ran before
+        counted[0].zero_()
     t_loop, framing, graphs = _time.perf_counter(), 0.0, totals()
 
     @contextlib.contextmanager
@@ -496,10 +506,15 @@ def run_loop(model: LoweredModel, state, chunk, hooks, verbose: bool = True,
         with timed("step_s"):
             return read("hakai.chunk.sync", value, chunk=j)
 
-    def queue_reads():
+    def queue_reads(last):
         """The values of the chunk just run, queued on the device (its
-        record's reductions in ``hakai.metrics``): (wait, record names)."""
+        record's reductions in ``hakai.metrics``; after the ``last`` chunk
+        the contact lists' counters too): (wait, record names)."""
         vals = {"alive": hooks.alive()}
+        stats = list_stats(model) if last else None
+        if stats is not None:
+            vals["contact_rebuilds"] = stats[0][0]
+            vals["contact_listed"] = stats[0][2]
         if cfg.check_nan:
             vals["finite"] = hooks.finite()
         rec = {}
@@ -607,7 +622,7 @@ def run_loop(model: LoweredModel, state, chunk, hooks, verbose: bool = True,
                     clock["ahead"] += 1
                     prev = sync(pending[1], j - 1)
                 hooks.update(state)
-                wait, names = queue_reads()
+                wait, names = queue_reads(done == time_num)
                 if not ahead:
                     got = sync(wait, j)
         clock["steps"] += n
@@ -622,6 +637,10 @@ def run_loop(model: LoweredModel, state, chunk, hooks, verbose: bool = True,
             pending = (done, wait, names)
             continue
         act(done, got, names)
+        if "contact_rebuilds" in got:
+            clock["contact_rebuilds"] = int(got["contact_rebuilds"])
+            clock["contact_listed_max"] = (got["contact_listed"]
+                                           / list_stats(model)[1])
         if due:
             frame(i_out)
             frame_times.append((i_out, done * model.dt))

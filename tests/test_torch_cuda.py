@@ -963,11 +963,12 @@ def test_graph_chunk_generic_bitwise(cuda, dtype, tmp_path):
 
 def test_graph_chunk_contact_bitwise(cuda):
     """The n=4 tie-free impact through its first contact (near step 63),
-    mixed: bitwise the eager loop, with one gather, one narrow phase a
-    pair and one scatter launched a step."""
+    mixed: bitwise the eager loop, with one gather (of the listed
+    triangles: the chunks carry the activity), one narrow phase a pair
+    and one scatter launched a step."""
     m, s0 = _impact("mixed", cuda, 0)
     got, n = _launched(_graph_vs_eager, m, s0, 90)
-    assert (n["hk_gather_cols_f32"], n["hk_narrow_f32"],
+    assert (n["hk_gather_listed_f32"], n["hk_narrow_f32"],
             n["hk_scatter_f32_f64"]) == \
         (2 * 90, 2 * 90 * len(m.pairs), 2 * 90)   # eager and graph chunks
     assert got.contact_force.abs().max() > 0
@@ -1159,10 +1160,15 @@ def test_erosion_kernel_matches_plain(cuda, dtype, step):
 def test_broad_kernel_matches_plain(cuda, dtype):
     """Kernel A against its plain version on the n=4 impact past first
     contact with a dozen elements deleted, each pair: the BroadPhase
-    bitwise, recomputing the masks (no carry, and a carry whose flag is
-    set, which it fills) and keeping them (flag clear: the carried masks
-    are read, not recomputed, even where the life mask has changed)."""
-    from hakai_tpu_torch.ops.broad_cuda import broad, broad_phase
+    bitwise, recomputing the masks (no carry: every slot swept), through
+    a carry whose flag is set (``list_active`` fills the masks and the
+    list, bitwise ``active_list_plain``, and the range cull visits the
+    list; ``tri_in`` is the carry's) and keeping them (flag clear: the
+    carried masks and list are read, not recomputed, even where the life
+    mask has changed)."""
+    from hakai_tpu_torch.ops.activity import ActivityCarry
+    from hakai_tpu_torch.ops.broad_cuda import (active_list_plain, broad,
+                                                broad_phase, list_active)
     from hakai_tpu_torch.ops.contact import (contact_activity,
                                              contact_kinematics)
     from hakai_tpu_torch.ops.contact_cuda import pair_constants
@@ -1174,6 +1180,9 @@ def test_broad_kernel_matches_plain(cuda, dtype):
                              s.velo.to(m.edtype))
     acts = contact_activity(m, flag)
     stale = contact_activity(m, s.element_flag)
+    carry, kept = ActivityCarry(m), ActivityCarry(m)
+    changed = torch.ones((), dtype=torch.int32, device=cuda)
+    clear = torch.zeros_like(changed)
     overlaps = 0
     for i, p in enumerate(m.pairs):
         ksl, c = m.ckin_slices[i], pair_constants(m, p)
@@ -1182,28 +1191,46 @@ def test_broad_kernel_matches_plain(cuda, dtype):
         assert n == {"hk_broad_f32" if kin.dtype == torch.float32
                      else "hk_broad_f64": 1}
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
-        masks = tuple(torch.zeros_like(a) for a in acts[i])
-        changed = torch.ones((), dtype=torch.int32, device=cuda)
-        got = broad(p, kin, ksl, flag, c, masks, changed)
+        pc = carry.pairs[i]
+        _, n = _launched(list_active, p, flag, pc, changed, carry.stats,
+                         i == len(m.pairs) - 1)
+        assert n == {"hk_broad_list": 1}
+        ids, starts = active_list_plain(acts[i][0], p.tb)
+        assert torch.equal(pc.ids[:len(ids)], ids)
+        assert torch.equal(pc.starts, starts)
+        got = broad(p, kin, ksl, flag, c, pc, changed)
+        assert got.tri_in is pc.tri_in
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
-        assert all(torch.equal(a, b) for a, b in zip(masks, acts[i]))
-        kept = tuple(a.clone() for a in stale[i])
-        changed.zero_()
-        got = broad(p, kin, ksl, flag, c, kept, changed)
-        assert all(torch.equal(a, b) for a, b in zip(kept, stale[i]))
+        assert all(torch.equal(a, b) for a, b in zip(pc.masks, acts[i]))
+        # the masks and list of the older life mask, kept under a clear
+        # flag
+        kc = kept.pairs[i]
+        list_active(p, s.element_flag, kc, changed, kept.stats,
+                    i == len(m.pairs) - 1)
+        broad(p, kin, ksl, s.element_flag, c, kc, changed)
+        held = [x.clone() for x in (*kc.masks, kc.ids, kc.starts)]
+        list_active(p, flag, kc, clear, kept.stats,
+                    i == len(m.pairs) - 1)
+        got = broad(p, kin, ksl, flag, c, kc, clear)
+        assert all(torch.equal(a, b) for a, b in zip(
+            (*kc.masks, kc.ids, kc.starts), held))
+        assert all(torch.equal(a, b) for a, b in zip(kc.masks, stale[i]))
         ref = broad_phase(p, kin, ksl, stale[i], c)
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
         overlaps += int(ref.overlap) + int(ref.pair_ok.sum())
     assert overlaps > 0
+    listed = sum(int(a[0].sum()) for a in acts)
+    assert carry.stats.tolist() == [1, 0, listed]
 
 
 def test_graph_chunk_carries_activity_bitwise(cuda):
     """The n=4 impact in float64 with its ductile table of 0.02/0.01 (the
     tests' tie-free impact), steps 60-120 (through first contact, near
-    step 63) through graphs and the eager loop (both carrying the masks)
-    and stepped outside any chunk (recomputing them every step): every
-    field bitwise, with deletions and contact in the chunk; kernels I, E
-    and A launched a step."""
+    step 63) through graphs and the eager loop (both carrying the masks
+    and the lists of active triangles) and stepped outside any chunk
+    (recomputing them every step, every slot swept): every field bitwise,
+    with deletions and contact in the chunk; kernels I, E, A (its list
+    and its broad phase) and the listed gather launched a step."""
     from hakai_tpu_torch.pre.synthetic import impact_model, offset_instance
     from hakai_tpu_torch.solver.explicit import step
     deck = offset_instance(impact_model(n=4, v0=8.0e4, d_time=1e-8,
@@ -1216,8 +1243,10 @@ def test_graph_chunk_carries_activity_bitwise(cuda):
     n = 60
     got, launched = _launched(_graph_vs_eager, m, s0, n, k=8)
     assert [launched[e] for e in ("hk_integrate_f64", "hk_erosion_f64",
-                                  "hk_broad_f64")] == \
-        [2 * n, 2 * n, 2 * n * len(m.pairs)]
+                                  "hk_broad_f64", "hk_broad_list",
+                                  "hk_gather_listed_f64",
+                                  "hk_gather_cols_f64")] == \
+        [2 * n, 2 * n, 2 * n * len(m.pairs), 2 * n * len(m.pairs), 2 * n, 0]
     s, fired = s0, False
     for _ in range(n):
         s = step(m, s)
@@ -1226,6 +1255,130 @@ def test_graph_chunk_carries_activity_bitwise(cuda):
                for f in dataclasses.fields(s))
     assert int(got.element_flag.sum()) < int(s0.element_flag.sum())
     assert fired
+
+
+def _eroding_impact(dtype, device, steps):
+    """The tests' tie-free n=4 impact (ductile table 0.02/0.01), lowered
+    on ``device`` for ``steps`` steps of 1e-8 s in 4 chunks."""
+    from hakai_tpu_torch.pre.synthetic import impact_model, offset_instance
+    deck = offset_instance(impact_model(n=4, v0=8.0e4, d_time=1e-8,
+                                        end_time=(steps + 0.5) * 1e-8),
+                           1, 0.013, 0.017)
+    deck.materials[0].ductile = np.array([[0.02, 0.0, 30.0],
+                                          [0.01, 0.3, 30.0]])
+    m = lower(deck, SolverConfig(dtype=dtype, output_num=4), device=device)
+    assert m.time_num == steps
+    return m
+
+
+@pytest.mark.parametrize("dtype", ["mixed", "float64"])
+def test_listed_contact_matches_dense_every_step(cuda, dtype, monkeypatch):
+    """The eroding n=4 impact, 180 steps (first contact near step 63, then
+    deletions), element dtype float32 and float64: at every step of a
+    chunk that carries the lists of active triangles, the BroadPhase
+    (tri_in, node_in, all_min, pair_ok, overlap) bitwise the dense
+    sweep's (no carry) and the plain version's on the same state, every
+    kin entry a kernel reads bitwise the whole gather's, the list the
+    active mask's ids, and the state (the contact force included) bitwise
+    a step without a carry; the lists grow (a face re-exposed) and shrink
+    (an owner deleted).  The same steps through captured graphs (replays
+    of 8) end bitwise the eager steps, the carry's buffers included, and
+    ``run()`` of the deck (4 chunks, graphs of 32 and the remainder)
+    counts in ``contact_rebuilds`` each step that followed a deletion and
+    in ``contact_listed_max`` the most triangles active at a step over the
+    pairs' slots."""
+    from hakai_tpu_torch import run
+    from hakai_tpu_torch.ops import contact as oc
+    from hakai_tpu_torch.ops.activity import chunk_carry
+    from hakai_tpu_torch.ops.broad_cuda import broad_phase, pair_activity
+    from hakai_tpu_torch.ops.contact_cuda import pair_constants
+    from hakai_tpu_torch.solver.explicit import graph_chunk, step
+    T = 180
+    m = _eroding_impact(dtype, cuda, T)
+    consts = [pair_constants(m, p) for p in m.pairs]
+    seen = {"bp": []}
+    real_broad, real_kin = oc.broad, oc.contact_kinematics
+
+    def kin_rec(model, pos, vel, carry=None):
+        seen["kin"] = real_kin(model, pos, vel, carry)
+        return seen["kin"]
+
+    def broad_rec(*a, **kw):
+        bp = real_broad(*a, **kw)
+        seen["bp"].append(tuple(x.clone() for x in bp))
+        return bp
+    monkeypatch.setattr(oc, "contact_kinematics", kin_rec)
+    monkeypatch.setattr(oc, "broad", broad_rec)
+    carry = chunk_carry(m)
+    s = init_state(m)
+    s0 = None
+    alive, listed, grew, shrank, contact = [], [], False, False, False
+    prev = None
+    for k in range(T):
+        if k == 60:
+            s0 = s
+        flag = s.element_flag
+        seen["bp"].clear()
+        got = step(m, s, carry=carry)
+        kin_l, bp_l = seen["kin"], list(seen["bp"])
+        seen["bp"].clear()
+        ref = step(m, s)
+        kin_d, bp_d = seen["kin"], seen["bp"]
+        differ = [f.name for f in dataclasses.fields(got)
+                  if not torch.equal(getattr(got, f.name),
+                                     getattr(ref, f.name))]
+        assert differ == [], (k, differ)
+        read = torch.zeros_like(kin_d, dtype=torch.bool)
+        now = []
+        for i, p in enumerate(m.pairs):
+            act = pair_activity(p, flag)
+            plain = broad_phase(p, kin_d, m.ckin_slices[i], act, consts[i])
+            for a, b, c in zip(bp_l[i], bp_d[i], plain):
+                assert torch.equal(a, b) and torch.equal(a, c), k
+            pc = carry.pairs[i]
+            ids = pc.ids[:int(pc.starts[-1])].clone()
+            assert torch.equal(ids, torch.nonzero(act[0]).reshape(-1).int())
+            now.append(ids)
+            (a0, _), (a1, _), (a2, _), (cs, ce), (js, je) = \
+                m.ckin_slices[i]
+            ids = ids.long()
+            read[:, a0 + ids] = True
+            read[:3, a1 + ids] = True
+            read[:3, a2 + ids] = True
+            read[:, cs:ce] = True
+            read[:3, js:je] = True
+        assert torch.equal(kin_l[read], kin_d[read]), k
+        if prev is not None:
+            grew |= any(bool((~torch.isin(a, b)).any())
+                        for a, b in zip(now, prev))
+            shrank |= any(bool((~torch.isin(b, a)).any())
+                          for a, b in zip(now, prev))
+        prev = now
+        listed.append(sum(len(x) for x in now))
+        contact |= bool(got.contact_force.abs().max() > 0)
+        s = got
+        alive.append(int(s.element_flag.sum()))
+    assert grew and shrank and contact
+    monkeypatch.undo()
+    # the steps from 60 through graphs, on a model of their own
+    mg = _eroding_impact(dtype, cuda, T)
+    g = graph_chunk(mg, s0, T - 60, k=8)
+    assert all(torch.equal(getattr(g, f.name), getattr(s, f.name))
+               for f in dataclasses.fields(s))
+    for a, b in zip(mg._activity["carry"].pairs, carry.pairs):
+        n = int(b.starts[-1])
+        assert all(torch.equal(x, y) for x, y in zip(
+            (*a.masks, a.ids[:n], a.starts, a.tri_in),
+            (*b.masks, b.ids[:n], b.starts, b.tri_in)))
+    tm = {}
+    final = run(_eroding_impact(dtype, cuda, T), verbose=False,
+                write_output=False, device=cuda, timings=tm)
+    assert torch.equal(final.element_flag, s.element_flag)
+    before = [m.n_element] + alive[:-1]
+    after_deletion = sum(a < b for a, b in zip(alive[:-1], before[:-1]))
+    assert tm["contact_rebuilds"] == after_deletion > 0
+    slots = sum(p.tri_nodes.shape[1] for p in m.pairs)
+    assert tm["contact_listed_max"] == max(listed) / slots
 
 
 def test_step_stage_wrappers_refuse(cuda):

@@ -26,7 +26,8 @@ from hakai_tpu.solver import explicit as jexp
 from hakai_tpu_torch import SolverConfig, init_state, lower
 from hakai_tpu_torch.core.lowering import _ductile_tables, model_from_numpy
 from hakai_tpu_torch.ops.activity import chunk_carry
-from hakai_tpu_torch.ops.broad_cuda import broad, broad_phase, pair_activity
+from hakai_tpu_torch.ops.broad_cuda import (broad, broad_phase,
+                                           list_active, pair_activity)
 from hakai_tpu_torch.ops.contact import contact_kinematics
 from hakai_tpu_torch.ops.contact_cuda import pair_constants
 from hakai_tpu_torch.ops.erosion_cuda import erosion_walk
@@ -197,9 +198,10 @@ def test_carried_activity_matches_jax():
     the port's carry (kernel A's plain version recomputing into the
     carried buffers when the carry's flag is set, the flag set at chunk
     entry and then by erosion), every step bitwise JAX's and a per-step
-    recompute, the broad phase bitwise the per-step broad phase; and on a
-    step whose flag is clear the masks are kept even where a recompute
-    would differ (the carry does carry)."""
+    recompute, the list of active triangles the mask's ids, the broad
+    phase bitwise the per-step broad phase; and on a step whose flag is
+    clear the masks and the list are kept even where a recompute would
+    differ (the carry does carry)."""
     jm, tm = _impact_pair_models()
     rng = np.random.default_rng(11)
     alive = np.asarray(jm.elem_exists)
@@ -216,44 +218,54 @@ def test_carried_activity_matches_jax():
     consts = [pair_constants(tm, p) for p in tm.pairs]
     act = None
     carry = chunk_carry(tm)
-    assert carry is not None and int(carry.flags[2]) == 1
+    assert carry is not None and int(carry.flags[2]) == 2
+
+    def step_broad(ft):
+        for i, (p, c) in enumerate(zip(tm.pairs, carry.pairs)):
+            list_active(p, ft, c, carry.flags[2], carry.stats,
+                        i == len(tm.pairs) - 1)
+        return [broad(p, kin, tm.ckin_slices[i], ft, consts[i],
+                      carry.pairs[i], carry.flags[2])
+                for i, p in enumerate(tm.pairs)]
     for k, f in enumerate(flags):
         changed = k == 0 or bool((flags[k - 1] != f).any())
         act = (jexp._init_activity(jm, jnp.asarray(f)) if k == 0 else
                jexp._next_activity(jm, act, jnp.asarray(f),
                                    jnp.asarray(changed)))
         ft = torch.from_numpy(f)
-        assert int(carry.flags[2]) == changed
-        for i, p in enumerate(tm.pairs):
-            bp = broad(p, kin, tm.ckin_slices[i], ft, consts[i],
-                       carry.masks[i], carry.flags[2])
+        assert bool(carry.flags[2]) == changed
+        for i, (p, bp) in enumerate(zip(tm.pairs, step_broad(ft))):
             fresh = pair_activity(p, ft)
             ref = broad_phase(p, kin, tm.ckin_slices[i], fresh,
                               consts[i])
-            for a, b, c in zip(carry.masks[i], fresh, act[i]):
+            for a, b, c in zip(carry.pairs[i].masks, fresh, act[i]):
                 assert torch.equal(a, b)
                 np.testing.assert_array_equal(a.numpy(), np.asarray(c))
+            ids = carry.pairs[i].ids[:int(carry.pairs[i].starts[-1])]
+            assert torch.equal(ids, torch.nonzero(fresh[0]).reshape(-1)
+                               .int())
             for a, b in zip(bp, ref):
                 assert torch.equal(a, b)
         # the erosion walk of this step: did the next life mask lose
         # an element
         nxt = flags[min(k + 1, len(flags) - 1)]
         carry.flags[2] = int(bool((f & ~nxt).any()))
-    kept = [tuple(m.clone() for m in ms) for ms in carry.masks]
+    kept = [tuple(x.clone() for x in (*c.masks, c.ids, c.starts))
+            for c in carry.pairs]
     dead = flags[-1].copy()
     dead[cube] = False
     assert int(carry.flags[2]) == 0
+    step_broad(torch.from_numpy(dead))
     differs = False
     for i, p in enumerate(tm.pairs):
-        broad(p, kin, tm.ckin_slices[i], torch.from_numpy(dead),
-              consts[i], carry.masks[i], carry.flags[2])
-        assert all(torch.equal(a, b) for a, b in zip(carry.masks[i],
-                                                     kept[i]))
+        c = carry.pairs[i]
+        assert all(torch.equal(a, b) for a, b in zip(
+            (*c.masks, c.ids, c.starts), kept[i]))
         differs |= any(not torch.equal(a, b) for a, b in zip(
             pair_activity(p, torch.from_numpy(dead)), kept[i]))
     assert differs
     assert chunk_carry(tm, comm=object()) is None
-    assert chunk_carry(tm) is carry and int(carry.flags[2]) == 1
+    assert chunk_carry(tm) is carry and int(carry.flags[2]) == 2
 
 
 @pytest.mark.parametrize("loop", ["packed", "generic"])
