@@ -31,10 +31,8 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 from portbench import faults, program  # noqa: E402
-from portbench.reference.solver import (  # noqa: E402
-    ELEMENT_DTYPE, Reference)
 from portbench.run import (cell_spec, check_chunks, chunk_sample,  # noqa: E402
-                           deck_of, solver_of)
+                           deck_of, reference_of, solver_of)
 
 
 def readings(spec, seed, control: bool, device="cuda", out_root=None,
@@ -68,7 +66,7 @@ def readings(spec, seed, control: bool, device="cuda", out_root=None,
                 state = program.simulate(model, write, tm)
             rec = {k: program.deck_order(model, v) for k, v in rec.items()}
             del model, state
-            ref = Reference(deck, device, contact_dtype=ELEMENT_DTYPE[dtype])
+            ref = reference_of(spec, deck, device)
             rows = []
             nums = check_chunks(ref, rec, sample, d_out,
                                 out_dir if write else None, rows)

@@ -46,7 +46,7 @@ def port_model(deck: Deck):
                   np.full(i.n_elem, k + 1, np.int64)
                   for k, i in enumerate(deck.instances)]),
               d_time=deck.d_time, end_time=deck.end_time,
-              contact_flag=1 if deck.contact else 0)
+              contact_flag=deck.contact_flag)
     held = deck.fixed_nodes + 1
     enc = BC()
     enc.dof.append(np.concatenate([held * 3 - 2, held * 3 - 1, held * 3]))

@@ -8,15 +8,28 @@ public ``Model`` types, ``portbench/program.py``) and the plain reference
 (``portbench/reference/solver.py``) read.  The grid is built vectorised;
 its node numbering and element node order are the generator's.
 
+A configuration names its generator (``deck.generator``): ``bar`` and
+``impact`` are this file's, any other name ``g`` is the file
+``portbench/decks/<g>.py``, whose ``deck(**args)`` gives the :class:`Deck`
+and whose ``TINY`` holds the arguments of a deck small enough for the
+harness's CPU tests (:func:`generator`).
+
 :func:`jitter` moves every node by a seeded uniform amount, a fixed share
 of the smallest element edge, so that each seed gives another mesh of the
 same sizes and the same work.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field, replace
 
 import numpy as np
+
+from .. import named
+
+# the checkout whose portbench/ holds this file
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 # steel (synthetic.steel): density t/mm^3, Young MPa, Poisson
 DENSITY, YOUNG, POISSON = 7.8e-9, 210000.0, 0.3
@@ -54,7 +67,15 @@ class Deck:
     ic_nodes: np.ndarray = field(
         default_factory=lambda: np.zeros(0, np.int64))  # initial z velocity
     ic_vz: float = 0.0
-    contact: bool = False           # all-exterior contact between instances
+    # HAKAI's contact mode (readInpFile_j.jl:1046-1060): 0 none; 1
+    # ``*Contact``, all exterior faces between instances; 2 ``*Contact
+    # Inclusions, HAKAIoption=self-contact``, each instance also against
+    # itself.  A single instance with contact is against itself in both.
+    contact_flag: int = 0
+
+    @property
+    def contact(self) -> bool:
+        return self.contact_flag > 0
 
     @property
     def n_node(self) -> int:
@@ -119,7 +140,7 @@ def impact_deck(n=4, v0=100.0, d_time=1e-7, end_time=1e-4) -> Deck:
                 ductile=True, d_time=d_time, end_time=end_time,
                 fixed_nodes=np.nonzero(c1[2] == c1[2].min())[0],
                 ic_nodes=np.arange(n1, n1 + c2.shape[1]), ic_vz=-v0,
-                contact=True)
+                contact_flag=1)
 
 
 def min_edge(deck: Deck) -> float:
@@ -139,8 +160,26 @@ def jitter(deck: Deck, seed: int, share: float) -> Deck:
                                                         deck.coord.shape))
 
 
-def build(params: dict, seed: int, share: float) -> Deck:
+GENERATORS = {"bar": bar_deck, "impact": impact_deck}
+# tiny decks of each generator for the CPU tests: a bar of 4x4x16 at the
+# deck's pull rate, and a cube of 4^3 that strikes its slab at 300 m/s and
+# erodes some 40 elements (at 200 m/s a cube this coarse erodes a few)
+TINY = {"bar": dict(nx=4, ny=4, nz=16, d_time=5e-8, end_time=1e-5),
+        "impact": dict(n=4, v0=3.0e5, d_time=1e-8, end_time=1.5e-6)}
+
+
+def generator(name: str, root: str = ROOT) -> tuple:
+    """(``deck(**args) -> Deck``, its tiny arguments) of the generator
+    named ``name``: this file's, else ``portbench/decks/<name>.py``'s
+    ``deck`` and ``TINY`` under ``root``."""
+    if name in GENERATORS:
+        return GENERATORS[name], TINY[name]
+    mod = named.module(root, "decks", name)
+    return mod.deck, mod.TINY
+
+
+def build(params: dict, seed: int, share: float, root: str = ROOT) -> Deck:
     """The configuration file's deck (``generator`` and its arguments),
     jittered from ``seed``."""
-    make = {"bar": bar_deck, "impact": impact_deck}[params["generator"]]
+    make, _ = generator(params["generator"], root)
     return jitter(make(**params["args"]), seed, share)

@@ -187,7 +187,19 @@ class Reference:
 
     # ----------------------------------------------------------- lowering
     def _contact(self):
+        """Every directional pair of two instances (``contact_flag`` 1).
+        A deck that puts an instance against itself (``contact_flag`` 2,
+        or one instance with contact) raises: this reference has no self
+        pair, and a configuration that needs one brings a reference of
+        its own (``portbench/reference/<name>.py``)."""
         deck, dev = self.deck, self.dev
+        if deck.contact_flag == 2 or len(deck.instances) == 1:
+            name = deck.instances[0].name
+            raise ValueError(
+                f"{type(self).__name__}: the deck's contact_flag "
+                f"{deck.contact_flag} over {len(deck.instances)} "
+                f"instance(s) gives the self pair (0, 0), {name} against "
+                f"itself, which this reference does not form")
         surf = [_instance_surface(deck.coord, deck.elem, inst)
                 for inst in deck.instances]
         nodes = [_surface_nodes(*f) for f in surf]

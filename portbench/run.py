@@ -7,11 +7,15 @@
 from the root of a checkout.  The cell (an entry of ``BENCHMARK.json``'s
 ``workloads``) names a configuration, whose file holds the deck and the
 solver settings, and a traffic mix (``portbench/traffic/<name>.json``);
-``portbench/workloads/<cell>.json`` holds the limits of its check.  From
-``--seed`` the deck's nodes are jittered; the program lowers the deck once,
-runs one warm-up simulation cut to a chunk, then whole simulations through
-``hakai_tpu_torch.run()`` back to back for ``--seconds`` (the window ends
-with the simulation that is running when the time is up).  With
+``portbench/workloads/<cell>.json`` holds the limits of its check.  The
+configuration names its deck generator (``portbench/reference/decks.py``'s
+or ``portbench/decks/<name>.py``) and may name its plain reference
+(``"reference": "<name>"``, ``portbench/reference/<name>.py``; default
+``solver``).  From ``--seed`` the deck's nodes are jittered; the program
+lowers the deck once, runs one warm-up simulation cut to a chunk, then
+whole simulations through ``hakai_tpu_torch.run()`` back to back for
+``--seconds`` (the window ends with the simulation that is running when
+the time is up).  With
 ``--trace 1`` one more simulation runs under ``torch.profiler``.  Then the
 window's first simulation, whose sampled chunks' states were copied to the
 host as it ran, is followed chunk by chunk by the plain reference
@@ -28,7 +32,6 @@ T0 = time.perf_counter()
 import argparse  # noqa: E402
 import dataclasses  # noqa: E402
 import gc  # noqa: E402
-import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import shutil  # noqa: E402
@@ -41,10 +44,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-from portbench import check, program, trace  # noqa: E402
-from portbench.reference import decks  # noqa: E402
-from portbench.reference.solver import (  # noqa: E402
-    ELEMENT_DTYPE, Reference)
+from portbench import check, named, program, trace  # noqa: E402
+from portbench.reference import decks, solver  # noqa: E402
 
 # top-level module names that no run may hold once its window has closed
 FORBIDDEN = ("jax", "jaxlib", "flax", "hakai_tpu")
@@ -83,22 +84,30 @@ def cell_spec(workload: str, root: str = ROOT) -> dict:
 
 def reader(name: str, root: str = ROOT):
     """``portbench/metrics/<name>.py``'s ``read``."""
-    spec = importlib.util.spec_from_file_location(
-        f"portbench_metric_{name}",
-        os.path.join(root, "portbench", "metrics", name + ".py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return named.module(root, "metrics", name).read
 
 
 def deck_of(spec: dict, seed: int) -> decks.Deck:
     """The cell's deck from ``seed``: the configuration's generator, its
     jitter, and the traffic's simulated span where it sets one."""
     cfg = spec["config"]
-    deck = decks.build(cfg["deck"], seed, cfg["jitter"])
+    deck = decks.build(cfg["deck"], seed, cfg["jitter"], spec["root"])
     if spec["traffic"].get("end_time") is not None:
         deck = dataclasses.replace(deck, end_time=spec["traffic"]["end_time"])
     return deck
+
+
+def reference_of(spec: dict, deck: decks.Deck,
+                 device) -> solver.Reference:
+    """The plain reference of ``deck`` on ``device``: the ``Reference`` of
+    ``portbench/reference/<name>.py``, ``name`` the configuration's
+    ``reference`` (default ``solver``), with contact's accept tests in the
+    element dtype of the configuration's precision."""
+    name = spec["config"].get("reference", "solver")
+    cls = solver.Reference if name == "solver" else \
+        named.module(spec["root"], "reference", name).Reference
+    return cls(deck, device, contact_dtype=solver.ELEMENT_DTYPE[
+        spec["config"]["solver"]["dtype"]])
 
 
 def chunk_sample(chunks: int, extra: int, seed: int, within=None) -> set:
@@ -113,7 +122,7 @@ def chunk_sample(chunks: int, extra: int, seed: int, within=None) -> set:
     return {0, chunks - 1} | {int(j) for j in pick}
 
 
-def check_chunks(ref: Reference, rec: dict, sample, d_out: int,
+def check_chunks(ref: solver.Reference, rec: dict, sample, d_out: int,
                  frames_dir, rows_out=None) -> dict:
     """The worst numbers over the sampled chunks: the reference follows
     each from the program's state at its start (the first from its own
@@ -246,8 +255,7 @@ def measure(spec: dict, seed: int, seconds: float, traced: bool,
             torch.cuda.empty_cache()
 
         t = time.perf_counter()
-        ref = Reference(deck, device, contact_dtype=ELEMENT_DTYPE[
-            spec["config"]["solver"]["dtype"]])
+        ref = reference_of(spec, deck, device)
         numbers["steps_differ"] = sum(t["steps"] != ref.steps
                                       for t in timings)
         numbers.update(check_chunks(ref, rec, sample, d_out,

@@ -20,20 +20,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 sys.path.insert(0, ROOT)
 
 from portbench import roofline, run, trace  # noqa: E402
+from portbench.reference import decks  # noqa: E402
 
 CELLS = [w["name"] for w in json.load(open(os.path.join(
     ROOT, "BENCHMARK.json")))["workloads"]]
-# tiny decks of each configuration: a bar of 4x4x16 at the deck's pull
-# rate, and a cube of 4^3 that strikes its slab at 300 m/s and erodes
-# some 40 elements (at 200 m/s a cube this coarse erodes a few)
-TINY = {"bar": dict(nx=4, ny=4, nz=16, d_time=5e-8, end_time=1e-5),
-        "impact": dict(n=4, v0=3.0e5, d_time=1e-8, end_time=1.5e-6)}
 
 
 def tiny(name: str, root: str = ROOT) -> dict:
+    """The cell with its deck cut to its generator's ``TINY`` sizes."""
     spec = copy.deepcopy(run.cell_spec(name, root))
     deck = spec["config"]["deck"]
-    deck["args"].update(TINY[deck["generator"]])
+    deck["args"].update(decks.generator(deck["generator"], root)[1])
     spec["traffic"]["output_num"] = 5
     if spec["traffic"].get("end_time") is not None:
         spec["traffic"]["end_time"] = deck["args"]["end_time"] / 2
@@ -47,8 +44,8 @@ def tiny_frames(root: str = ROOT) -> dict:
     spec["name"] = "bar131k_mixed.frames"
     spec["traffic"] = json.load(open(os.path.join(
         root, "portbench", "traffic", "frames.json")))
-    spec["traffic"].update(output_num=5, end_time=TINY["bar"]["end_time"]
-                           / 2)
+    spec["traffic"].update(output_num=5,
+                           end_time=decks.TINY["bar"]["end_time"] / 2)
     spec["cell"]["limits"].update(frame_cells_differ=0,
                                   frame_state_differ=0)
     return spec
@@ -62,7 +59,8 @@ def dry(spec, seed=2147483989, traced=False):
 @pytest.mark.parametrize("name", CELLS)
 def test_files_load_by_name(name):
     spec = run.cell_spec(name)
-    assert spec["config"]["deck"]["generator"] in TINY
+    make, small = decks.generator(spec["config"]["deck"]["generator"])
+    assert callable(make) and small
     assert "write_output" in spec["traffic"]
     assert spec["cell"]["limits"]
     names = [m["name"] for m in spec["end_to_end"] + spec["per_layer"]]
@@ -76,20 +74,55 @@ def test_unknown_cell_is_refused():
         run.cell_spec("no_such.cell")
 
 
-def test_a_cell_is_added_by_adding_files(tmp_path):
-    """A new configuration, traffic, cell and metric: files added next to
-    the harness's, and one more entry of each in BENCHMARK.json."""
+# a deck generator and a plain reference that a later configuration
+# brings as files of its own; each says on standard error that it ran
+TWIN_DECK = """import sys
+from portbench.reference.decks import bar_deck
+
+TINY = dict(nx=4, ny=4, nz=16, d_time=5e-8, end_time=1e-5)
+
+
+def deck(**args):
+    print("portbench test: deck from twin_bar", file=sys.stderr)
+    return bar_deck(**args)
+"""
+TWIN_REFERENCE = """import sys
+from portbench.reference import solver
+
+
+class Reference(solver.Reference):
+    def __init__(self, deck, device, **kw):
+        print("portbench test: reference twin_solver", file=sys.stderr)
+        super().__init__(deck, device, **kw)
+"""
+
+
+def test_a_cell_is_added_by_adding_files(tmp_path, capsys):
+    """A new configuration with its own deck generator and plain
+    reference, traffic, cell and metric: files added next to the
+    harness's, none of its files edited, and one more entry of each in
+    BENCHMARK.json."""
     shutil.copytree(os.path.join(ROOT, "portbench"), tmp_path / "portbench")
     bench = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
     pb = tmp_path / "portbench"
+
+    def add(path, text):
+        assert not path.exists(), path
+        path.parent.mkdir(exist_ok=True)
+        path.write_text(text)
+
+    add(pb / "decks" / "twin_bar.py", TWIN_DECK)
+    add(pb / "reference" / "twin_solver.py", TWIN_REFERENCE)
     cfg = json.load(open(pb / "configs" / "bar131k_mixed.json"))
-    cfg["deck"]["args"].update(TINY["bar"])
-    (pb / "configs" / "bar_tiny.json").write_text(json.dumps(cfg))
-    (pb / "traffic" / "half.json").write_text(json.dumps(
+    cfg["deck"]["generator"] = "twin_bar"
+    cfg["deck"]["args"].update(decks.generator("twin_bar", str(tmp_path))[1])
+    cfg["reference"] = "twin_solver"
+    add(pb / "configs" / "bar_tiny.json", json.dumps(cfg))
+    add(pb / "traffic" / "half.json", json.dumps(
         {"write_output": False, "end_time": 5e-6, "output_num": 5}))
-    (pb / "workloads" / "bar_tiny.half.json").write_text(json.dumps(
+    add(pb / "workloads" / "bar_tiny.half.json", json.dumps(
         json.load(open(pb / "workloads" / "bar131k_mixed.steps.json"))))
-    (pb / "metrics" / "sims.py").write_text(
+    add(pb / "metrics" / "sims.py",
         "def read(ctx):\n    return len(ctx['timings'])\n")
     bench["configs"].append(dict(bench["configs"][0], name="bar_tiny",
                                  file="portbench/configs/bar_tiny.json"))
@@ -101,9 +134,13 @@ def test_a_cell_is_added_by_adding_files(tmp_path):
                                "workloads": ["bar_tiny.half"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     spec = run.cell_spec("bar_tiny.half", str(tmp_path))
+    capsys.readouterr()
     res = dry(spec, traced=True)
     assert res["correct"], res["checks"]
     assert res["metrics"]["sims"]["value"] >= 1
+    err = capsys.readouterr().err
+    assert "portbench test: deck from twin_bar" in err
+    assert "portbench test: reference twin_solver" in err
 
 
 @pytest.mark.parametrize("name", CELLS)
